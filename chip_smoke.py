@@ -1,0 +1,336 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (salamander_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout. Phases (each prints its lines; any failed
+check raises, so the script exits non-zero and prints no result):
+
+1. environment: torch, CUDA, nvcc, triton, pandas/sklearn, the card's name
+   and power limit. Exits 1 at once without a CUDA device.
+2. build csrc/mu_block.cu with nvcc (timed; ptxas's register report).
+3. the fused MU kernel against its plain PyTorch version on the card, at
+   the shapes the main path gives it (PCAWG SBS 96x192, K=5, R=100 lanes)
+   and at edge shapes, rtol 2e-4; kernel and plain times per block.
+4. the main path: KLNMF(n_signatures=5).fit(adata) on PCAWG SBS, float32
+   on the card, which must run through the kernel; the same fit again from
+   the same init with the plain block must agree.
+5. the multi-start headline: fit_klnmf_restarts R=100, k=5 over a fixed
+   5,000-iteration window; the best loss must be within 1e-4 of 20414.
+   Aggregate MU iterations/s of the kernel and the plain path, best of 3.
+
+The last two lines are the per-kernel JSON record and
+{"ok": true, "device": {...}}; the card's name and power limit precede
+them.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from importlib import metadata, util
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+SBS_BEST_OF_100 = 20414.0   # PCAWG SBS k=5 best-of-100 KL over 5,000 iterations
+KERNEL_RTOL = 2e-4          # float32 sums in another order, over 10 steps
+FIT_RTOL = 1e-4             # final objective, kernel vs plain fit
+BLOCK = 10                  # conv_test_freq: steps per kernel launch
+WINDOW = 5000               # iterations of every headline lane
+
+
+def check(condition: bool, message: str) -> None:
+    if not condition:
+        raise RuntimeError(f"check failed: {message}")
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def package_version(name: str) -> str:
+    if util.find_spec(name) is None:
+        return "absent"
+    return metadata.version("scikit-learn" if name == "sklearn" else name)
+
+
+def phase_environment(torch) -> None:
+    print(f"[1] python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, "
+          f"device {torch.cuda.get_device_name(0)} "
+          f"x{torch.cuda.device_count()}")
+    from salamander_tpu_torch.ops import cuda_klnmf
+
+    nvcc = subprocess.run([cuda_klnmf._nvcc(), "--version"],
+                          capture_output=True, text=True, check=True)
+    print(f"[1] nvcc: {nvcc.stdout.strip().splitlines()[-1]}")
+    print("[1] " + ", ".join(f"{name} {package_version(name)}"
+                             for name in ("triton", "pandas", "sklearn")))
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "float32 matmuls must be IEEE (no TF32)")
+    print(f"[1] nvidia-smi: {card_line()}")
+
+
+def phase_build(cuda_klnmf):
+    start = time.perf_counter()
+    library = cuda_klnmf.build()
+    cuda_klnmf._library()
+    seconds = time.perf_counter() - start
+    print(f"[2] built {library.relative_to(ROOT)} in {seconds:.2f} s")
+    for line in library.with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[2] ptxas: {line.strip()}")
+
+
+def time_ms(torch, fn, repeats: int) -> float:
+    """Mean milliseconds per call by CUDA events, after a warm-up."""
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(repeats):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / repeats
+
+
+def phase_kernel(torch, cuda_klnmf, datasets, random_init_batch):
+    """Kernel vs plain on the card; returns (max_abs_err, timings)."""
+    catalogs = {
+        "sbs": datasets.load_pcawg_sbs(),
+        "indel": datasets.load_pcawg_indel(),
+        "sv": datasets.load_pcawg_sv(),
+    }
+    counts = {key: torch.as_tensor(frame.to_numpy().T.copy(),
+                                   dtype=torch.float32, device="cuda")
+              for key, frame in catalogs.items()}
+    cases = [  # (catalog, K, R, samples, step counts)
+        ("sbs", 5, 100, None, (1, 7, 10, 3)),
+        ("sbs", 5, 1, None, (10,)),
+        ("indel", 5, 4, None, (10,)),
+        ("sv", 5, 4, None, (10,)),
+        ("sbs", 1, 4, None, (10,)),
+        ("sbs", 20, 4, None, (10,)),
+        ("sbs", 5, 4, 100, (10,)),  # D = 100: not a multiple of the tile
+    ]
+    print(f"[3] tolerance: rtol {KERNEL_RTOL}, atol 1e-6 x max|plain| per "
+          "tensor (entries at the eps clip)")
+    max_abs_err = 0.0
+    for key, K, R, samples, step_counts in cases:
+        X = counts[key] if samples is None else \
+            counts[key][:, :samples].contiguous()
+        generator = torch.Generator(device="cuda").manual_seed(K * 1000 + R)
+        W, H = random_init_batch(generator, X, K, R)
+        for steps in step_counts:
+            W_k, H_k = cuda_klnmf.fused_mu_block(X, W, H, steps)
+            torch.cuda.synchronize()
+            W_r, H_r = cuda_klnmf.fused_mu_block_reference(X, W, H, steps)
+            for name, actual, expected in (("W", W_k, W_r), ("H", H_k, H_r)):
+                check(bool(torch.isfinite(actual).all()),
+                      f"non-finite kernel {name}")
+                atol = 1e-6 * float(expected.abs().max())
+                torch.testing.assert_close(actual, expected,
+                                           rtol=KERNEL_RTOL, atol=atol)
+                error = float((actual - expected).abs().max())
+                relative = float(((actual - expected).abs()
+                                  / expected.abs()).max())
+                max_abs_err = max(max_abs_err, error)
+                print(f"[3] {key} V={X.shape[0]} D={X.shape[1]} K={K} R={R} "
+                      f"steps={steps} {name}: max abs err {error:.3e}, "
+                      f"max rel err {relative:.3e}")
+
+    timings = {}
+    X = counts["sbs"]
+    for R in (100, 1):
+        generator = torch.Generator(device="cuda").manual_seed(R)
+        W, H = random_init_batch(generator, X, 5, R)
+        kernel = time_ms(
+            torch, lambda: cuda_klnmf.fused_mu_block(X, W, H, BLOCK), 200)
+        plain = time_ms(
+            torch,
+            lambda: cuda_klnmf.fused_mu_block_reference(X, W, H, BLOCK), 50)
+        timings[R] = (kernel, plain)
+        print(f"[3] one block of {BLOCK} steps, PCAWG SBS K=5 R={R}: kernel "
+              f"{kernel:.4f} ms, plain {plain:.4f} ms")
+    return max_abs_err, timings
+
+
+def phase_main_path(sal, cuda_klnmf):
+    from salamander_tpu_torch.engine import fit_loop
+    from salamander_tpu_torch.models.signature_nmf import promote_objective
+
+    def adata():
+        return sal.AnnData(sal.datasets.load_pcawg_sbs())
+
+    launches = cuda_klnmf.fused_mu_block.launches
+    model = sal.KLNMF(n_signatures=5, device="cuda", dtype="float32")
+    start = time.perf_counter()
+    model.fit(adata())
+    seconds = time.perf_counter() - start
+    n_iterations = model.history["n_iterations"]
+    final = float(model.history["objective_function"][-1])
+    fit_launches = cuda_klnmf.fused_mu_block.launches - launches
+    W = model.asignatures.X
+    print(f"[4] KLNMF(n_signatures=5).fit: {n_iterations} iterations, "
+          f"final KL {final:.4f}, {seconds:.3f} s, {fit_launches} kernel "
+          "launches")
+    check(fit_launches > 0, "the fit did not launch the kernel")
+    check(n_iterations < 10000, "the fit ran into the iteration cap")
+    check(W.shape == (5, 96) and model.adata.obsm["exposures"].shape
+          == (192, 5), "fitted shapes")
+    check(bool(np.isfinite(W).all()
+               and np.isfinite(model.adata.obsm["exposures"]).all()),
+          "non-finite parameters")
+    check(np.allclose(W.sum(axis=1), 1.0, atol=1e-4),
+          "signatures do not sum to one")
+
+    reference = sal.KLNMF(n_signatures=5, device="cuda", dtype="float32")
+    reference._setup_adata(adata())
+    reference._initialize()
+    reference._setup_fitting_parameters()
+    params0, data = reference._device_state()
+    update_fn, objective_fn = reference._build_step()
+    objective_fn = promote_objective(objective_fn, params0)
+    X = data["X"]
+
+    def plain_block(params, n_steps):
+        W_new, H_new = cuda_klnmf.fused_mu_block_reference(
+            X, params["W"][None], params["H"][None], n_steps)
+        return {"W": W_new[0], "H": H_new[0]}
+
+    start = time.perf_counter()
+    result = fit_loop(lambda p: update_fn(p, data),
+                      lambda p: objective_fn(p, data), params0,
+                      reference._fit_config(), block_update_fn=plain_block)
+    plain_seconds = time.perf_counter() - start
+    plain_final = float(result.history[result.n_evals - 1])
+    print(f"[4] same fit, plain block: {result.n_iterations} iterations, "
+          f"final KL {plain_final:.4f}, {plain_seconds:.3f} s")
+    check(abs(final - plain_final) <= FIT_RTOL * abs(plain_final),
+          "final objective differs from the plain fit")
+    check(abs(n_iterations - result.n_iterations)
+          <= 0.05 * result.n_iterations,
+          "iteration count differs from the plain fit by over 5%")
+
+
+def phase_headline(torch, sal, cuda_klnmf, random_init_batch, X_host):
+    from salamander_tpu_torch.engine import FitConfig, fit_loop_lockstep
+    from salamander_tpu_torch.ops.klnmf import make_step_functions
+
+    R, K = 100, 5
+    config = FitConfig(WINDOW, WINDOW, BLOCK, 1e-7)
+    _, objective_fn = make_step_functions()
+    X = torch.as_tensor(X_host, dtype=torch.float32, device="cuda")
+    data = {"X": X}
+
+    def kernel_run():
+        result = sal.fit_klnmf_restarts(X_host, K, R, seed=0, config=config,
+                                        device="cuda")
+        return result.losses, result.n_iterations
+
+    def plain_run():
+        generator = torch.Generator(device="cuda").manual_seed(0)
+        W0, H0 = random_init_batch(generator, X, K, R, torch.float32)
+
+        def block(params, n_steps):
+            W, H = cuda_klnmf.fused_mu_block_reference(
+                X, params["W"], params["H"], n_steps)
+            return {"W": W, "H": H}
+
+        result = fit_loop_lockstep(lambda p: objective_fn(p, data),
+                                   {"W": W0, "H": H0}, config, block)
+        losses = objective_fn(result.params, data)
+        return losses.cpu().numpy(), result.n_iterations.cpu().numpy()
+
+    rates, best = {}, {}
+    for name, run in (("kernel", kernel_run), ("plain", plain_run)):
+        seconds = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            losses, n_iterations = run()
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - start)
+        check(bool(np.isfinite(losses).all()), f"{name}: non-finite losses")
+        check(bool((n_iterations == WINDOW).all()),
+              f"{name}: every lane runs the {WINDOW}-iteration window")
+        best[name] = float(np.min(losses))
+        rates[name] = R * WINDOW / min(seconds)
+        print(f"[5] {name} path: best-of-{R} KL {best[name]:.4f}, "
+              f"{min(seconds):.4f} s best of 3 "
+              f"({', '.join(f'{s:.4f}' for s in seconds)}), "
+              f"{rates[name]:.1f} aggregate MU it/s")
+    check(abs(best["kernel"] - SBS_BEST_OF_100)
+          <= FIT_RTOL * SBS_BEST_OF_100,
+          f"best-of-100 loss {best['kernel']} not within 1e-4 of 20414")
+    check(abs(best["kernel"] - best["plain"]) <= FIT_RTOL * best["plain"],
+          "kernel and plain best-of-100 losses differ")
+    return rates
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import salamander_tpu_torch as sal
+    from salamander_tpu_torch import datasets
+    from salamander_tpu_torch.initialization.methods import (
+        random_init_batch,
+    )
+    from salamander_tpu_torch.ops import cuda_klnmf
+
+    phase_environment(torch)
+    phase_build(cuda_klnmf)
+    max_abs_err, timings = phase_kernel(torch, cuda_klnmf, datasets,
+                                        random_init_batch)
+
+    cuda_klnmf.fused_mu_block.launches = 0     # the main path starts here
+    phase_main_path(sal, cuda_klnmf)
+    X_host = datasets.load_pcawg_sbs().to_numpy().T.copy()
+    rates = phase_headline(torch, sal, cuda_klnmf, random_init_batch, X_host)
+    launches = cuda_klnmf.fused_mu_block.launches  # the main path ends here
+    check(launches > 0, "the main path launched no kernel")
+
+    block_ms = timings[100][0]
+    blocks = WINDOW // BLOCK
+    wall_ms = 1000 * (100 * WINDOW / rates["kernel"]) / blocks
+    print(f"[5] kernel time per {BLOCK}-step block {block_ms:.4f} ms vs "
+          f"{wall_ms:.4f} ms wall per block of the headline ({blocks} "
+          "blocks; the rest is the objective, the lane freeze and one host "
+          "sync per block)")
+    print(card_line())
+    print(json.dumps({"kernels": [{
+        "name": "fused_mu_block",
+        "route": "cuda",
+        "source": "salamander_tpu_torch/csrc/mu_block.cu",
+        "replaces": "salamander_tpu/ops/pallas_klnmf.py:75",
+        "launches": launches,
+        "max_abs_err": max_abs_err,
+        "ms": block_ms,
+        "plain_ms": timings[100][1],
+    }]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

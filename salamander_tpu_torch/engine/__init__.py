@@ -1,0 +1,16 @@
+"""The fit engine: the shared convergence loop, driven block by block."""
+
+from .fit import (  # noqa: F401
+    FitConfig,
+    FitResult,
+    LockstepState,
+    effective_tolerance,
+    finish_lockstep,
+    fit_loop,
+    fit_loop_lockstep,
+    init_lockstep_state,
+    make_fit_function,
+    run_lockstep_segment,
+    tolerance_floor,
+)
+from .transfer import params_from_numpy, params_to_numpy  # noqa: F401

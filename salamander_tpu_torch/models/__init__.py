@@ -1,0 +1,5 @@
+"""Model layer (L2): the public NMF model families ported so far."""
+
+from .klnmf import KLNMF  # noqa: F401
+
+__all__ = ["KLNMF"]

@@ -1,0 +1,354 @@
+"""Abstract base of the signature NMF models, held against
+salamander_tpu/models/signature_nmf.py.
+
+The same constructor hyperparameters, container conventions (exposures in
+adata.obsm['exposures'], signatures as a second AnnData) and convergence
+rule as the JAX package, with an explicit torch device and dtype: `fit`
+hands a params dict of tensors to the block-driven engine.
+
+Concrete models implement the engine hooks:
+  _device_state()              -> (params dict, data dict) of tensors
+  _build_step(given)           -> (update_fn(params, data),
+                                   objective_fn(params, data))
+  _block_update_fn(params, data, given)
+                               -> a fused block update, or None for the
+                                  plain update loop
+  _absorb_params(params)       -> write fitted arrays back into the containers
+"""
+
+from __future__ import annotations
+
+from abc import ABC, abstractmethod
+from typing import Any, Literal
+
+import numpy as np
+import pandas as pd
+import torch
+
+from .. import containers
+from ..engine import FitConfig, effective_tolerance, make_fit_function
+from ..engine.transfer import params_to_numpy
+from ..initialization.methods import INIT_METHODS
+from ..ops.precision import require_ieee_float32
+from ..utils import type_checker, value_checker
+
+EPSILON = float(np.finfo(np.float32).eps)
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def resolve_device(device=None) -> torch.device:
+    """None means the first CUDA device when one is available, else CPU."""
+    if device is None:
+        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    return torch.device(device)
+
+
+def resolve_dtype(dtype, device) -> torch.dtype:
+    """Validate and canonicalize a model compute dtype.
+
+    None means float32 on CUDA (the production configuration) and float64
+    on the CPU (the configuration the parity tests hold against the JAX
+    package under x64).
+    """
+    if dtype is None:
+        return torch.float32 if torch.device(device).type == "cuda" \
+            else torch.float64
+    name = np.dtype(dtype).name
+    if name not in _DTYPES:
+        raise ValueError(
+            f"Unsupported model dtype {dtype!r}: use 'float32' or 'float64'."
+        )
+    return _DTYPES[name]
+
+
+def cast_floating(tree: dict, dtype) -> dict:
+    """Cast every floating tensor of a dict to `dtype`."""
+    return {
+        key: leaf.to(dtype) if leaf.dtype.is_floating_point else leaf
+        for key, leaf in tree.items()
+    }
+
+
+def promote_objective(objective_fn, params0):
+    """Evaluate the convergence objective in float64 regardless of the
+    update dtype.
+
+    With float32 updates the objective's own resolution (~1e-7 relative)
+    sits at the default convergence tolerance; measuring it in float64
+    restores a meaningful convergence test at the cost of one upcast every
+    conv_test_freq iterations. Mirrors the JAX package under x64; the
+    engine still floors the tolerance at the float32 parameters'
+    resolution (engine.tolerance_floor).
+    """
+    if all(leaf.dtype == torch.float64 for leaf in params0.values()
+           if leaf.dtype.is_floating_point):
+        return objective_fn
+
+    def objective_fn_f64(params, data):
+        return objective_fn(
+            cast_floating(params, torch.float64),
+            cast_floating(data, torch.float64),
+        )
+
+    return objective_fn_f64
+
+
+class SignatureNMF(ABC):
+    """Shared structure of all NMF models used for signature analysis."""
+
+    def __init__(
+        self,
+        n_signatures: int = 1,
+        init_method: str = "nndsvd",
+        min_iterations: int = 500,
+        max_iterations: int = 10000,
+        conv_test_freq: int = 10,
+        tol: float = 1e-7,
+        dtype: str | None = None,
+        device=None,
+    ):
+        value_checker("init_method", init_method, INIT_METHODS)
+        self.n_signatures = n_signatures
+        self.init_method = init_method
+        self.min_iterations = min_iterations
+        self.max_iterations = max_iterations
+        self.conv_test_freq = conv_test_freq
+        self.tol = tol
+        self.device = resolve_device(device)
+        # compute dtype of the fit; the convergence objective is promoted
+        # to float64 (promote_objective)
+        self.dtype = str(resolve_dtype(dtype, self.device)).removeprefix(
+            "torch."
+        )
+
+        self.adata = containers.AnnData()
+        self.asignatures = containers.AnnData()
+        self.history: dict[str, Any] = {}
+        self._is_fitted = False
+
+    @property
+    def _device_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+    def _to_device(self, array) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(array),
+                               dtype=self._device_dtype, device=self.device)
+
+    # ------------------------------------------------------------------ #
+    # container views
+    # ------------------------------------------------------------------ #
+    @property
+    def mutation_types(self) -> list[str]:
+        return list(self.adata.var_names)
+
+    @property
+    def signature_names(self) -> list[str]:
+        return list(self.asignatures.obs_names)
+
+    @property
+    def sample_names(self) -> list[str]:
+        return list(self.adata.obs_names)
+
+    @property
+    def signatures(self) -> pd.DataFrame:
+        return self.asignatures.to_df()
+
+    @property
+    def exposures(self) -> pd.DataFrame:
+        if "exposures" not in self.adata.obsm:
+            raise ValueError(
+                "Learning the sample exposures requires fitting the NMF model."
+            )
+        return pd.DataFrame(
+            self.adata.obsm["exposures"],
+            index=self.sample_names,
+            columns=self.signature_names,
+        )
+
+    def compute_reconstruction(self) -> None:
+        self.adata.obsm["X_reconstructed"] = (
+            self.adata.obsm["exposures"] @ self.asignatures.X
+        )
+
+    @property
+    def data_reconstructed(self) -> pd.DataFrame:
+        if "X_reconstructed" not in self.adata.obsm:
+            self.compute_reconstruction()
+        return pd.DataFrame(
+            self.adata.obsm["X_reconstructed"],
+            index=self.sample_names,
+            columns=self.mutation_types,
+        )
+
+    @abstractmethod
+    def compute_reconstruction_errors(self) -> None:
+        """Store per-sample reconstruction errors in adata.obs."""
+
+    @property
+    def reconstruction_error(self) -> float:
+        if "reconstruction_error" not in self.adata.obs:
+            self.compute_reconstruction_errors()
+        return float(np.sum(self.adata.obs["reconstruction_error"]))
+
+    # ------------------------------------------------------------------ #
+    # abstract model interface
+    # ------------------------------------------------------------------ #
+    @property
+    @abstractmethod
+    def objective(self) -> Literal["minimize", "maximize"]:
+        """Whether the objective function is minimized or maximized."""
+
+    @abstractmethod
+    def objective_function(self) -> float:
+        """The objective value at the current container state."""
+
+    @abstractmethod
+    def _initialize(self, given_parameters=None, init_kwargs=None) -> None:
+        """Initialize all model parameters into the containers."""
+
+    @abstractmethod
+    def _setup_fitting_parameters(self, fitting_kwargs=None) -> None:
+        """Prepare additional fit-time parameters (e.g. loss weights)."""
+
+    @abstractmethod
+    def _device_state(self):
+        """Return (params dict, data dict) of tensors for the engine."""
+
+    @abstractmethod
+    def _build_step(self, given_parameters=None):
+        """Return (update_fn, objective_fn) over (params, data)."""
+
+    def _block_update_fn(self, params, data, given_parameters=None):
+        """A fused block update (params, data, n_steps) -> params for this
+        fit, or None to run the plain update loop."""
+        return None
+
+    @abstractmethod
+    def _absorb_params(self, params) -> None:
+        """Write fitted host params back into the containers."""
+
+    # ------------------------------------------------------------------ #
+    # fitting
+    # ------------------------------------------------------------------ #
+    @staticmethod
+    def _invalidate_derived(adata) -> None:
+        """Drop lazily-derived caches a new fit invalidates
+        (reconstruction errors and the reconstructed matrix of an earlier
+        fit on the same container)."""
+        if hasattr(adata.obs, "drop"):
+            adata.obs.drop(columns=["reconstruction_error"],
+                           errors="ignore", inplace=True)
+        adata.obsm.pop("X_reconstructed", None)
+
+    def _setup_adata(self, adata) -> None:
+        """Validate the count container and clip zeros (EPSILON floor)."""
+        if not hasattr(adata, "obsm") or not hasattr(adata, "X"):
+            type_checker("adata", adata, containers.AnnData)
+        self.adata = adata
+        self._invalidate_derived(self.adata)
+        self.adata.X = self.adata.X.clip(EPSILON)
+
+    def _fit_config(self) -> FitConfig:
+        return FitConfig(
+            min_iterations=self.min_iterations,
+            max_iterations=self.max_iterations,
+            conv_test_freq=self.conv_test_freq,
+            tol=self.tol,
+        )
+
+    def _check_warm_start(self, given_parameters) -> None:
+        """Validate that the model/container pair carries a previous fit's
+        state to resume from (warm_start=True skips initialization)."""
+        if given_parameters:
+            raise ValueError(
+                "warm_start=True cannot be combined with given_parameters: "
+                "initialization (which warm start skips) is what stitches "
+                "given values into the model state. Freeze parameters on a "
+                "cold fit instead."
+            )
+        asignatures = getattr(self, "asignatures", None)
+        exposures = self.adata.obsm.get("exposures") \
+            if hasattr(self.adata, "obsm") else None
+        if asignatures is None or exposures is None:
+            raise ValueError(
+                "warm_start=True resumes from the signatures and exposures "
+                "already in the model and container; fit once without "
+                "warm_start first."
+            )
+        if (asignatures.n_obs != self.n_signatures
+                or asignatures.n_vars != self.adata.n_vars
+                or np.shape(exposures) != (self.adata.n_obs,
+                                           self.n_signatures)):
+            raise ValueError(
+                "warm_start=True found state of the wrong shape: expected "
+                f"signatures ({self.n_signatures}, {self.adata.n_vars}) "
+                f"and exposures ({self.adata.n_obs}, {self.n_signatures}); "
+                f"got signatures {asignatures.shape} and exposures "
+                f"{np.shape(exposures)}."
+            )
+
+    def fit(
+        self,
+        adata,
+        given_parameters: dict[str, Any] | None = None,
+        init_kwargs: dict[str, Any] | None = None,
+        fitting_kwargs: dict[str, Any] | None = None,
+        history: bool = True,
+        verbose: Literal[0, 1] = 0,
+        verbosity_freq: int = 1000,
+        stop_on_nonfinite: bool = False,
+        mesh=None,
+        warm_start: bool = False,
+    ) -> "SignatureNMF":
+        """Fit all model parameters on self.device.
+
+        given_parameters holds a-priori known parameters to freeze,
+        init_kwargs feeds the initializer (e.g. seed), fitting_kwargs feeds
+        _setup_fitting_parameters (e.g. KLNMF loss weights).
+        stop_on_nonfinite additionally fails fast if the objective becomes
+        NaN/Inf. warm_start=True skips initialization and continues from
+        the state already in the model/container; the convergence rule
+        restarts fresh. Sharding one fit over devices (mesh=) is not
+        ported yet.
+        """
+        if mesh is not None:
+            raise NotImplementedError("mesh= is not ported to PyTorch yet")
+        self._setup_adata(adata)
+        if warm_start:
+            self._check_warm_start(given_parameters)
+        else:
+            self._initialize(given_parameters, init_kwargs)
+        self._setup_fitting_parameters(fitting_kwargs)
+
+        if self.device.type == "cuda":
+            require_ieee_float32()
+        params0, data = self._device_state()
+        update_fn, objective_fn = self._build_step(given_parameters)
+        block_update_fn = self._block_update_fn(params0, data,
+                                                given_parameters)
+        objective_fn = promote_objective(objective_fn, params0)
+        config = self._fit_config()
+        if stop_on_nonfinite:
+            config = config._replace(stop_on_nonfinite=True)
+        # the tolerance the engine enforces (promote_objective makes every
+        # objective float64), recorded so it is auditable post-fit
+        self.history["tol_effective"] = effective_tolerance(
+            config, torch.float64, params0
+        )
+
+        run = make_fit_function(
+            update_fn, objective_fn, config, verbose=bool(verbose),
+            verbosity_freq=verbosity_freq, block_update_fn=block_update_fn,
+        )
+        result = run(params0, data)
+        self._absorb_params(params_to_numpy(result.params))
+        if history:
+            n_evals = int(result.n_evals)
+            self.history["objective_function"] = list(
+                result.history[:n_evals].cpu().numpy()
+            )
+            self.history["n_iterations"] = int(result.n_iterations)
+            self.history["step_freq"] = self.conv_test_freq
+        self._is_fitted = True
+        return self

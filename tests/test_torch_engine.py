@@ -1,0 +1,256 @@
+"""The port's convergence engine (salamander_tpu_torch/engine/fit.py)
+against salamander_tpu/engine/fit.py at float64: equal iteration and
+evaluation counts, histories at rtol 1e-10, the remainder tail, the
+tolerance floor, and the lockstep loop against the per-lane loop."""
+
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from salamander_tpu import engine as jax_engine
+from salamander_tpu.ops import klnmf as jax_ops
+from salamander_tpu_torch import engine
+from salamander_tpu_torch.engine import FitConfig
+from salamander_tpu_torch.ops import klnmf as torch_ops
+
+torch.set_num_threads(1)
+
+RTOL = 1e-10
+V, K, D, R = 16, 3, 24, 4
+
+
+@pytest.fixture(scope="module")
+def problem():
+    rng = np.random.default_rng(3)
+    # counts from a rank-K truth, so the lanes converge at different blocks
+    truth = rng.dirichlet(0.3 * np.ones(V), K).T @ rng.gamma(2.0, 100.0,
+                                                            (K, D))
+    X = rng.poisson(truth).astype(float)
+    W = np.ascontiguousarray(rng.dirichlet(np.ones(V), (R, K))
+                             .transpose(0, 2, 1))
+    H = rng.uniform(1.0, 30.0, (R, K, D))
+    return X, W, H
+
+
+def jax_config(config):
+    return jax_engine.FitConfig(*config)
+
+
+def torch_fns(X):
+    X_t = torch.from_numpy(X)
+
+    def update(p):
+        W, H = torch_ops.update_WH(X_t, p["W"], p["H"])
+        return {"W": W, "H": H}
+
+    def objective(p):
+        return torch_ops.kl_divergence(X_t, p["W"], p["H"])
+
+    def block(p, n_steps):
+        for _ in range(n_steps):
+            p = update(p)
+        return p
+
+    return update, objective, block
+
+
+def jax_fns(X):
+    def update(p):
+        W, H = jax_ops.update_WH(X, p["W"], p["H"])
+        return {"W": W, "H": H}
+
+    def objective(p):
+        return jax_ops.kl_divergence(X, p["W"], p["H"])
+
+    return update, objective
+
+
+def nan_to_sentinel(history):
+    history = np.asarray(history)
+    return np.where(np.isnan(history), -1.0, history)
+
+
+CONFIGS = [
+    FitConfig(min_iterations=20, max_iterations=300, conv_test_freq=10,
+              tol=1e-5),
+    # max_iterations not divisible by conv_test_freq: a never-evaluated tail
+    FitConfig(min_iterations=10, max_iterations=73, conv_test_freq=10,
+              tol=1e-12),
+    FitConfig(min_iterations=0, max_iterations=120, conv_test_freq=7,
+              tol=1e-4),
+]
+
+
+@pytest.mark.parametrize("config", CONFIGS)
+def test_fit_loop_matches_jax(problem, config):
+    X, W, H = problem
+    update_t, objective_t, _ = torch_fns(X)
+    update_j, objective_j = jax_fns(X)
+    params = {"W": torch.from_numpy(W[0]), "H": torch.from_numpy(H[0])}
+    result = engine.fit_loop(update_t, objective_t, params, config)
+    expected = jax.jit(lambda p: jax_engine.fit_loop(
+        update_j, objective_j, p, jax_config(config)))(
+        {"W": W[0], "H": H[0]})
+
+    assert result.n_iterations == int(expected.n_iterations)
+    assert result.n_evals == int(expected.n_evals)
+    np.testing.assert_allclose(nan_to_sentinel(result.history),
+                               nan_to_sentinel(expected.history), rtol=RTOL)
+    for key in ("W", "H"):
+        np.testing.assert_allclose(result.params[key].numpy(),
+                                   np.asarray(expected.params[key]),
+                                   rtol=RTOL)
+
+
+@pytest.mark.parametrize("config", CONFIGS)
+def test_lockstep_matches_jax(problem, config):
+    X, W, H = problem
+    _, objective_t, block_t = torch_fns(X)
+    update_j, objective_j = jax_fns(X)
+    batched_update = jax.vmap(update_j)
+
+    def block_j(p, steps):
+        return jax.lax.fori_loop(0, steps, lambda _, q: batched_update(q), p)
+
+    result = engine.fit_loop_lockstep(
+        objective_t, {"W": torch.from_numpy(W), "H": torch.from_numpy(H)},
+        config, block_t)
+    expected = jax.jit(lambda p: jax_engine.fit_loop_lockstep(
+        jax.vmap(objective_j), p, jax_config(config), block_j))(
+        {"W": W, "H": H})
+
+    assert np.array_equal(result.n_iterations.numpy(),
+                          np.asarray(expected.n_iterations))
+    assert np.array_equal(result.n_evals.numpy(),
+                          np.asarray(expected.n_evals))
+    np.testing.assert_allclose(nan_to_sentinel(result.history),
+                               nan_to_sentinel(expected.history), rtol=RTOL)
+    np.testing.assert_allclose(result.params["H"].numpy(),
+                               np.asarray(expected.params["H"]), rtol=RTOL)
+
+
+def test_lockstep_matches_per_lane_loop(problem):
+    """Frozen lanes make each lane's result its own fit_loop's."""
+    X, W, H = problem
+    update_t, objective_t, block_t = torch_fns(X)
+    config = CONFIGS[0]
+    lockstep = engine.fit_loop_lockstep(
+        objective_t, {"W": torch.from_numpy(W), "H": torch.from_numpy(H)},
+        config, block_t)
+    iterations = set()
+    for lane in range(R):
+        single = engine.fit_loop(
+            update_t, objective_t,
+            {"W": torch.from_numpy(W[lane]), "H": torch.from_numpy(H[lane])},
+            config)
+        iterations.add(single.n_iterations)
+        assert int(lockstep.n_iterations[lane]) == single.n_iterations
+        assert int(lockstep.n_evals[lane]) == single.n_evals
+        np.testing.assert_allclose(
+            nan_to_sentinel(lockstep.history[lane]),
+            nan_to_sentinel(single.history), rtol=RTOL)
+        np.testing.assert_allclose(lockstep.params["W"][lane].numpy(),
+                                   single.params["W"].numpy(), rtol=RTOL)
+    assert len(iterations) > 1  # the lanes really converge apart
+
+
+def test_segment_alive_floor_resumes_exactly(problem):
+    """Stopping at an alive floor and resuming is the same loop."""
+    X, W, H = problem
+    _, objective_t, block_t = torch_fns(X)
+    config = CONFIGS[0]
+    params0 = {"W": torch.from_numpy(W), "H": torch.from_numpy(H)}
+    state = engine.init_lockstep_state(objective_t, params0, config)
+    paused = engine.run_lockstep_segment(objective_t, config, block_t,
+                                         state, alive_floor=R - 1)
+    assert int((~paused.done).sum()) <= R - 1
+    assert paused.iteration < config.max_iterations
+    resumed = engine.run_lockstep_segment(objective_t, config, block_t,
+                                          paused)
+    once = engine.fit_loop_lockstep(objective_t, params0, config, block_t)
+    final = engine.finish_lockstep(resumed, config, block_t, state.of_prev)
+    assert torch.equal(final.n_iterations, once.n_iterations)
+    assert torch.equal(final.params["W"], once.params["W"])
+
+
+def test_make_fit_function_with_block_update(problem):
+    """A block update replaces the per-step loop (the fused-kernel hook)."""
+    X, W, H = problem
+    update_fn, objective_fn = torch_ops.make_step_functions()
+    calls = []
+
+    def block(params, data, n_steps):
+        calls.append(n_steps)
+        for _ in range(n_steps):
+            params = update_fn(params, data)
+        return params
+
+    config = CONFIGS[1]
+    data = {"X": torch.from_numpy(X)}
+    params = {"W": torch.from_numpy(W[0]), "H": torch.from_numpy(H[0])}
+    plain = engine.make_fit_function(update_fn, objective_fn, config)(
+        params, data)
+    fused = engine.make_fit_function(update_fn, objective_fn, config,
+                                     block_update_fn=block)(params, data)
+    assert calls == [10] * 7 + [3]  # full blocks, then the tail
+    assert fused.n_iterations == plain.n_iterations == 73
+    assert torch.equal(fused.params["H"], plain.params["H"])
+
+
+def test_tolerance_floor_and_warning():
+    params32 = {"W": torch.ones(2, 2, dtype=torch.float32)}
+    params64 = {"W": torch.ones(2, 2, dtype=torch.float64)}
+    for dtype, jnp_dtype in ((torch.float32, jnp.float32),
+                             (torch.float64, jnp.float64)):
+        assert engine.tolerance_floor(dtype) == \
+            jax_engine.tolerance_floor(jnp_dtype)
+    config = FitConfig(tol=1e-7)
+    floor = 10 * float(np.finfo(np.float32).eps)
+    with pytest.warns(UserWarning, match="below the convergence resolution"):
+        assert engine.fit.effective_tolerance(config, torch.float64,
+                                              params32) == floor
+        engine.fit._effective_tol(config, torch.float64, params32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert engine.effective_tolerance(config, torch.float64,
+                                          params64) == 1e-7
+
+
+def test_stop_on_nonfinite():
+    config = FitConfig(min_iterations=0, max_iterations=100,
+                       conv_test_freq=5, tol=0.0, stop_on_nonfinite=True)
+    result = engine.fit_loop(
+        lambda p: {"x": p["x"] * 1e30}, lambda p: p["x"].sum(),
+        {"x": torch.ones(2, dtype=torch.float64)}, config)
+    assert result.n_iterations < 100
+    assert not np.isfinite(result.history[result.n_evals - 1].item())
+
+
+def test_params_round_trip_between_packages(problem):
+    X, W, H = problem
+    tensors = engine.params_from_numpy({"W": W, "H": H}, "cpu",
+                                       torch.float32)
+    assert tensors["W"].dtype == torch.float32
+    assert tuple(tensors["H"].shape) == (R, K, D)
+    back = engine.params_to_numpy(
+        engine.params_from_numpy({"W": W, "H": H}))
+    assert np.array_equal(back["W"], W) and np.array_equal(back["H"], H)
+
+
+def test_verbose_prints_at_each_verbosity_boundary(problem, capsys):
+    X, W, H = problem
+    update_t, objective_t, _ = torch_fns(X)
+    engine.fit_loop(
+        update_t, objective_t,
+        {"W": torch.from_numpy(W[0]), "H": torch.from_numpy(H[0])},
+        FitConfig(min_iterations=100, max_iterations=100, conv_test_freq=7),
+        verbose=True, verbosity_freq=30,
+    )
+    printed = [line.split(";")[0] for line in
+               capsys.readouterr().out.splitlines()]
+    # iterations only visit multiples of 7: print where a block crossed 30
+    assert printed == ["iteration: 35", "iteration: 63", "iteration: 91"]

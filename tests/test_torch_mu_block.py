@@ -1,0 +1,125 @@
+"""The port's fused MU block (salamander_tpu_torch/ops/cuda_klnmf.py): its
+plain version against the JAX package's Pallas block (interpret mode), and
+its routing. The CUDA kernel itself is tested on a card by
+tests/test_torch_cuda.py."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from salamander_tpu.ops import klnmf as jax_klnmf
+from salamander_tpu.ops.pallas_klnmf import fused_mu_block as pallas_mu_block
+from salamander_tpu_torch.ops import cuda_klnmf
+
+torch.set_num_threads(1)
+
+
+def make_problem(V, K, D, R=None, seed=0):
+    rng = np.random.default_rng(seed)
+    X = np.clip(rng.poisson(30, (V, D)), jax_klnmf.EPSILON, None)
+    lanes = 1 if R is None else R
+    W = rng.dirichlet(np.ones(V), (lanes, K)).transpose(0, 2, 1)
+    H = rng.uniform(size=(lanes, K, D)) * 30
+    if R is None:
+        W, H = W[0], H[0]
+    return (X.astype(np.float32), np.ascontiguousarray(W, np.float32),
+            H.astype(np.float32))
+
+
+@pytest.fixture(scope="module")
+def problem():
+    return make_problem(16, 3, 32)
+
+
+def torch_block(X, W, H, steps):
+    W_t, H_t = cuda_klnmf.fused_mu_block(
+        torch.from_numpy(X), torch.from_numpy(W)[None],
+        torch.from_numpy(H)[None], steps,
+    )
+    return W_t[0].numpy(), H_t[0].numpy()
+
+
+@pytest.mark.parametrize("steps", [1, 7, 10])
+def test_plain_block_matches_pallas(problem, steps):
+    X, W, H = problem
+    W_pl, H_pl = pallas_mu_block(X, W, H, steps, interpret=True)
+    W_t, H_t = torch_block(X, W, H, steps)
+    np.testing.assert_allclose(W_t, np.asarray(W_pl), rtol=1e-5)
+    np.testing.assert_allclose(H_t, np.asarray(H_pl), rtol=1e-5)
+
+
+def test_plain_block_runtime_step_count(problem):
+    """One traced Pallas program and one torch function serve every step
+    count (the engine's remainder tail)."""
+    X, W, H = problem
+    pallas = jax.jit(lambda s: pallas_mu_block(X, W, H, s, interpret=True))
+    for steps in (2, 5):
+        W_pl, H_pl = pallas(jnp.asarray(steps, jnp.int32))
+        W_t, H_t = torch_block(X, W, H, steps)
+        np.testing.assert_allclose(W_t, np.asarray(W_pl), rtol=1e-5)
+        np.testing.assert_allclose(H_t, np.asarray(H_pl), rtol=1e-5)
+
+
+def test_batched_lanes_match_single_problem():
+    X, W, H = (torch.from_numpy(a) for a in make_problem(16, 3, 40, R=4))
+    W_b, H_b = cuda_klnmf.fused_mu_block(X, W, H, 6)
+    for lane in range(4):
+        W_1, H_1 = cuda_klnmf.fused_mu_block(
+            X, W[lane:lane + 1], H[lane:lane + 1], 6
+        )
+        torch.testing.assert_close(W_b[lane], W_1[0], rtol=1e-6, atol=0)
+        torch.testing.assert_close(H_b[lane], H_1[0], rtol=1e-6, atol=0)
+
+
+def test_cpu_call_runs_plain_version_without_counting():
+    X, W, H = (torch.from_numpy(a) for a in make_problem(8, 2, 12, R=2))
+    before = cuda_klnmf.fused_mu_block.launches
+    W_k, H_k = cuda_klnmf.fused_mu_block(X, W, H, 3)
+    W_r, H_r = cuda_klnmf.fused_mu_block_reference(X, W, H, 3)
+    assert torch.equal(W_k, W_r) and torch.equal(H_k, H_r)
+    assert cuda_klnmf.fused_mu_block.launches == before
+
+
+def _routing_case(name):
+    X, W, H = (torch.from_numpy(a) for a in make_problem(16, 3, 20, R=2))
+    data, n_given = {"X": X}, 0
+    if name == "float64":
+        X, W, H = X.double(), W.double(), H.double()
+    elif name == "weights_kl":
+        data["weights_kl"] = torch.ones(20)
+    elif name == "weights_lhalf":
+        data["weights_lhalf"] = torch.ones(20)
+    elif name == "given_signatures":
+        n_given = 1
+    elif name == "rank_above_k_max":
+        W = torch.ones(2, 16, cuda_klnmf.K_MAX + 1)
+        H = torch.ones(2, cuda_klnmf.K_MAX + 1, 20)
+    elif name == "shared_memory":
+        W, X = torch.ones(2, 4096, 3), torch.ones(4096, 20)
+    return X, W, H, data, n_given
+
+
+@pytest.mark.parametrize("case, reason", [
+    ("cpu", "CUDA"),
+    ("float64", "float32"),
+    ("weights_kl", "weights"),
+    ("weights_lhalf", "weights"),
+    ("given_signatures", "given"),
+    ("rank_above_k_max", "K_MAX"),
+    ("shared_memory", "shared memory"),
+])
+def test_routing_decides_before_launch(case, reason):
+    """Only float32, unweighted fits without given signatures whose W fits
+    in shared memory, on a card, take the kernel."""
+    X, W, H, data, n_given = _routing_case(case)
+    assert reason in cuda_klnmf.unsupported_reason(X, W, H, data, n_given)
+    assert not cuda_klnmf.mu_block_supported(X, W, H, data, n_given)
+
+
+def test_shared_bytes_bound():
+    # PCAWG SBS at K=5 and the largest rank both fit; the bound is on V
+    assert cuda_klnmf.shared_bytes(96, 5) < 48 * 1024
+    assert cuda_klnmf.shared_bytes(96, cuda_klnmf.K_MAX) < 232448
+    assert cuda_klnmf.shared_bytes(4096, 3) > 232448
