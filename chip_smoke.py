@@ -18,8 +18,23 @@ check raises, so the script exits non-zero and prints no result):
 5. the multi-start headline: fit_klnmf_restarts R=100, k=5 over a fixed
    5,000-iteration window; the best loss must be within 1e-4 of 20414.
    Aggregate MU iterations/s of the kernel and the plain path, best of 3.
+6. the README quick start: fit_best_of(KLNMF(5, init_method="random"),
+   PCAWG SBS, n_restarts=100, base_seed=0), compacted and monolithic in
+   turns (walls printed); both launch the kernel, their best losses agree
+   at rtol 1e-4, and so does the same lanes' plain-block run from the same
+   params0.
+7. MvNMF(n_signatures=5).fit in float32 must stop below the 10,000 cap
+   with finite, column-normalized signatures (line-search evaluations per
+   iteration and the cost of one trial round printed); then
+   fit_best_of(MvNMF(5, random), n_restarts=50) compacted and monolithic,
+   best losses at rtol 1e-4.
+8. rank_scan_klnmf(X, range(2, 11), 20, seed=0) unpadded (with and without
+   compaction; launches the kernel) and padded (packed and one point per
+   call; plain ops), in turns; best loss per rank at rtol 1e-4.
 
-The last two lines are the per-kernel JSON record and
+Each of phases 4-8 runs with the kernel's launch count set to 0 just
+before it and read just after. The last two lines are the per-kernel JSON
+record and
 {"ok": true, "device": {...}}; the card's name and power limit precede
 them.
 """
@@ -280,6 +295,195 @@ def phase_headline(torch, sal, cuda_klnmf, random_init_batch, X_host):
     return rates
 
 
+def timed(torch, fn):
+    """(result, seconds) of fn() on the host clock, ending in a sync."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - start
+
+
+def sbs_adata(sal):
+    return sal.AnnData(sal.datasets.load_pcawg_sbs())
+
+
+def check_best_agree(name: str, a: float, b: float) -> None:
+    check(abs(a - b) <= FIT_RTOL * abs(b),
+          f"{name}: best losses {a} and {b} differ by more than {FIT_RTOL}")
+
+
+def phase_quickstart(torch, sal, cuda_klnmf):
+    """The README quick start: fit_best_of(KLNMF(5, random), PCAWG SBS,
+    n_restarts=100, base_seed=0), compacted and monolithic in turns, and
+    the same lanes through the plain block from the same params0."""
+    from salamander_tpu_torch.engine import fit_loop_lockstep
+    from salamander_tpu_torch.models.signature_nmf import promote_objective
+    from salamander_tpu_torch.parallel.multistart import _device_init_batch
+
+    def model():
+        return sal.KLNMF(n_signatures=5, init_method="random",
+                         device="cuda", dtype="float32")
+
+    walls = {True: [], False: []}
+    best = {}
+    for compact in (True, False, False, True):
+        before = cuda_klnmf.fused_mu_block.launches
+        summary, seconds = timed(torch, lambda: sal.fit_best_of(
+            model(), sbs_adata(sal), n_restarts=100, base_seed=0,
+            compact=compact))
+        launches = cuda_klnmf.fused_mu_block.launches - before
+        check(launches > 0, f"fit_best_of(compact={compact}) launched no "
+              "kernel")
+        check(bool(np.isfinite(summary.losses).all()), "non-finite losses")
+        walls[compact].append(seconds)
+        best[compact] = float(summary.losses.min())
+        print(f"[6] fit_best_of(KLNMF(5), R=100, compact={compact}): "
+              f"{seconds:.4f} s, best KL {best[compact]:.4f}, iterations "
+              f"{summary.n_iterations.min()}..{summary.n_iterations.max()} "
+              f"(mean {summary.n_iterations.mean():.1f}), {launches} "
+              "kernel launches")
+    check_best_agree("[6] compacted vs monolithic", best[True], best[False])
+
+    reference = model()
+    reference._setup_adata(sbs_adata(sal))
+    reference._initialize(init_kwargs={"seed": 0})
+    reference._setup_fitting_parameters()
+    _, data = reference._device_state()
+    params0 = _device_init_batch(reference, data, 100, 0)
+    _, objective_fn = reference._build_step()
+    objective_fn = promote_objective(objective_fn, params0)
+
+    def plain_block(params, n_steps):
+        W, H = cuda_klnmf.fused_mu_block_reference(
+            data["X"], params["W"], params["H"], n_steps)
+        return {"W": W, "H": H}
+
+    result, seconds = timed(torch, lambda: fit_loop_lockstep(
+        lambda p: objective_fn(p, data), params0, reference._fit_config(),
+        plain_block))
+    plain_best = float(objective_fn(result.params, data).min())
+    print(f"[6] the same lanes, plain block: {seconds:.4f} s, best KL "
+          f"{plain_best:.4f}")
+    check_best_agree("[6] kernel vs plain", best[False], plain_best)
+    print(f"[6] walls: compacted {', '.join(f'{s:.4f}' for s in walls[True])}"
+          f" s; monolithic {', '.join(f'{s:.4f}' for s in walls[False])} s")
+
+
+def phase_mvnmf(torch, sal):
+    """MvNMF(5).fit on PCAWG SBS in float32 (line-search trials counted),
+    the cost of one trial round, and fit_best_of(MvNMF(5, random), R=50)
+    compacted and monolithic in turns."""
+    from salamander_tpu_torch.ops import mvnmf as mv_ops
+
+    trials = [0]
+    real = mv_ops._renormalized_objective
+
+    def counting(*args):
+        trials[0] += 1
+        return real(*args)
+
+    mv_ops._renormalized_objective = counting
+    try:
+        model = sal.MvNMF(n_signatures=5, device="cuda", dtype="float32")
+        _, seconds = timed(torch, lambda: model.fit(sbs_adata(sal)))
+    finally:
+        mv_ops._renormalized_objective = real
+    n_iterations = model.history["n_iterations"]
+    W = model.asignatures.X
+    print(f"[7] MvNMF(n_signatures=5).fit: {n_iterations} iterations, final "
+          f"objective {model.history['objective_function'][-1]:.4f}, "
+          f"{seconds:.3f} s, {trials[0]} line-search evaluations "
+          f"({trials[0] / n_iterations:.3f} per iteration)")
+    check(n_iterations < 10000, "the MvNMF fit ran into the iteration cap")
+    check(bool(np.isfinite(W).all()
+               and np.isfinite(model.adata.obsm["exposures"]).all()),
+          "non-finite MvNMF parameters")
+    check(np.allclose(W.sum(axis=1), 1.0, atol=1e-4),
+          "MvNMF signatures do not sum to one")
+
+    params, data = model._device_state()
+    for lanes in (1, 50):
+        # columns summing to 0.5: every renormalized trial is worse, so the
+        # search backtracks 166 rounds to the gamma floor
+        W_half = (0.5 * params["W"]).expand(lanes, -1, -1).contiguous()
+        H_double = (2.0 * params["H"]).expand(lanes, -1, -1).contiguous()
+        gamma = torch.ones(lanes, dtype=torch.float32, device="cuda")
+
+        def search():
+            return mv_ops.line_search(data["X"], W_half, H_double,
+                                      model.lam, model.delta, gamma, W_half)
+
+        search()
+        (_, _, g), seconds = timed(torch, search)
+        check(bool((g < 1.2e-16).all()), "the search did not reach the floor")
+        print(f"[7] one line-search trial round at R={lanes}: "
+              f"{1000 * seconds / 166:.4f} ms (166 rounds in "
+              f"{seconds:.4f} s)")
+
+    walls = {True: [], False: []}
+    best = {}
+    for compact in (True, False, False, True):
+        trials[0] = 0
+        mv_ops._renormalized_objective = counting
+        try:
+            summary, seconds = timed(torch, lambda: sal.fit_best_of(
+                sal.MvNMF(n_signatures=5, init_method="random",
+                          device="cuda", dtype="float32"),
+                sbs_adata(sal), n_restarts=50, base_seed=0,
+                compact=compact))
+        finally:
+            mv_ops._renormalized_objective = real
+        check(bool(np.isfinite(summary.losses).all()), "non-finite losses")
+        walls[compact].append(seconds)
+        best[compact] = float(summary.losses.min())
+        print(f"[7] fit_best_of(MvNMF(5), R=50, compact={compact}): "
+              f"{seconds:.3f} s, best objective {best[compact]:.4f}, "
+              f"iterations {summary.n_iterations.min()}.."
+              f"{summary.n_iterations.max()} "
+              f"(mean {summary.n_iterations.mean():.1f}), {trials[0]} "
+              "batched line-search evaluations")
+    check_best_agree("[7] compacted vs monolithic", best[True], best[False])
+    print(f"[7] walls: compacted {', '.join(f'{s:.3f}' for s in walls[True])}"
+          f" s; monolithic {', '.join(f'{s:.3f}' for s in walls[False])} s")
+
+
+def phase_scan(torch, sal, cuda_klnmf, X_host):
+    """rank_scan_klnmf(X, range(2, 11), 20, seed=0) in every layout, in
+    turns; best loss per rank against the unpadded scan at rtol 1e-4."""
+    layouts = {
+        "unpadded": dict(pad_ranks=False, compact=False),
+        "unpadded compacted": dict(pad_ranks=False, compact=True),
+        "padded packed": dict(pad_ranks=True, pack_points=True),
+        "padded per point": dict(pad_ranks=True, pack_points=False),
+    }
+    order = ["unpadded", "padded packed", "padded per point",
+             "unpadded compacted", "padded packed", "unpadded"]
+    walls = {name: [] for name in layouts}
+    best = {}
+    for name in order:
+        before = cuda_klnmf.fused_mu_block.launches
+        results, seconds = timed(torch, lambda: sal.rank_scan_klnmf(
+            X_host, range(2, 11), 20, seed=0, device="cuda",
+            **layouts[name]))
+        launches = cuda_klnmf.fused_mu_block.launches - before
+        walls[name].append(seconds)
+        best[name] = {k: result.best_loss for k, result in results.items()}
+        print(f"[8] rank_scan_klnmf k=2..10 R=20 {name}: {seconds:.3f} s, "
+              f"{launches} kernel launches, best per rank "
+              + ", ".join(f"{k}:{loss:.2f}" for k, loss in best[name].items()))
+        if name.startswith("unpadded"):
+            check(launches > 0, f"the {name} scan launched no kernel")
+        else:
+            check(launches == 0, "the padded scan has no kernel to launch")
+    for name in layouts:
+        for k, loss in best[name].items():
+            check_best_agree(f"[8] {name} k={k}", loss, best["unpadded"][k])
+    print("[8] walls: " + "; ".join(
+        f"{name} {', '.join(f'{s:.3f}' for s in walls[name])} s"
+        for name in layouts))
+
+
 def main() -> int:
     import torch
 
@@ -299,12 +503,27 @@ def main() -> int:
     max_abs_err, timings = phase_kernel(torch, cuda_klnmf, datasets,
                                         random_init_batch)
 
-    cuda_klnmf.fused_mu_block.launches = 0     # the main path starts here
-    phase_main_path(sal, cuda_klnmf)
     X_host = datasets.load_pcawg_sbs().to_numpy().T.copy()
-    rates = phase_headline(torch, sal, cuda_klnmf, random_init_batch, X_host)
-    launches = cuda_klnmf.fused_mu_block.launches  # the main path ends here
-    check(launches > 0, "the main path launched no kernel")
+    launches = {}
+
+    def drive(path, phase, *args):
+        """Run one path with the launch count set to 0 just before it and
+        read just after."""
+        cuda_klnmf.fused_mu_block.launches = 0
+        out = phase(*args)
+        launches[path] = cuda_klnmf.fused_mu_block.launches
+        return out
+
+    drive("4 KLNMF.fit", phase_main_path, sal, cuda_klnmf)
+    rates = drive("5 fit_klnmf_restarts", phase_headline, torch, sal,
+                  cuda_klnmf, random_init_batch, X_host)
+    drive("6 fit_best_of KLNMF", phase_quickstart, torch, sal, cuda_klnmf)
+    drive("7 MvNMF", phase_mvnmf, torch, sal)
+    drive("8 rank_scan_klnmf", phase_scan, torch, sal, cuda_klnmf, X_host)
+    for path in ("4 KLNMF.fit", "5 fit_klnmf_restarts",
+                 "6 fit_best_of KLNMF", "8 rank_scan_klnmf"):
+        check(launches[path] > 0, f"path {path} launched no kernel")
+    print(f"[9] kernel launches by path: {launches}")
 
     block_ms = timings[100][0]
     blocks = WINDOW // BLOCK
@@ -319,7 +538,8 @@ def main() -> int:
         "route": "cuda",
         "source": "salamander_tpu_torch/csrc/mu_block.cu",
         "replaces": "salamander_tpu/ops/pallas_klnmf.py:75",
-        "launches": launches,
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
         "max_abs_err": max_abs_err,
         "ms": block_ms,
         "plain_ms": timings[100][1],

@@ -94,6 +94,27 @@ def promote_objective(objective_fn, params0):
     return objective_fn_f64
 
 
+def segment_progress_printer():
+    """The verbose=1 printer of segmented (compacting) multi-start fits:
+    one line per segment, from the summary dict the runner passes
+    (parallel.compaction.CompactingRunner.progress). Single-lane fits
+    print the reference's 'iteration: N; objective: X' form."""
+    def progress_cb(info):
+        if info["n_lanes"] == 1:
+            print(
+                f"iteration: {info['iteration']}; objective: "
+                f"{info['objective_min']:.2f}", flush=True,
+            )
+        else:
+            print(
+                f"iteration: {info['iteration']}; objective "
+                f"range: [{info['objective_min']:.2f}, "
+                f"{info['objective_max']:.2f}]; lanes alive: "
+                f"{info['n_alive']}/{info['n_lanes']}", flush=True,
+            )
+    return progress_cb
+
+
 class SignatureNMF(ABC):
     """Shared structure of all NMF models used for signature analysis."""
 

@@ -47,12 +47,14 @@ def shared_bytes(n_features: int, n_signatures: int) -> int:
                 + (n_features + n_signatures) * _TILE_PITCH)
 
 
-def unsupported_reason(X, W, H, data=None, n_given_signatures: int = 0):
+def unsupported_reason(X, W, H, data=None, n_given_signatures: int = 0,
+                       mask=None):
     """Why the kernel cannot run this block update, or None if it can.
 
-    The kernel covers float32, unweighted fits without given signatures,
-    with K <= K_MAX and W in shared memory, on a card. Every other
-    configuration runs the plain update (as the JAX package runs XLA).
+    The kernel covers float32, unweighted, unpadded fits without given
+    signatures, with K <= K_MAX and W in shared memory, on a card. Every
+    other configuration runs the plain update (as the JAX package runs
+    XLA); a rank `mask` marks a padded (rank-masked) fit.
     """
     data = {} if data is None else data
     if any(t.dtype != torch.float32 for t in (X, W, H)):
@@ -62,6 +64,8 @@ def unsupported_reason(X, W, H, data=None, n_given_signatures: int = 0):
         return "the kernel has no loss weights"
     if n_given_signatures:
         return "the kernel has no given signatures"
+    if mask is not None:
+        return "the kernel has no rank mask"
     n_features, n_signatures = W.shape[-2], W.shape[-1]
     if n_signatures > K_MAX:
         return f"K={n_signatures} above K_MAX={K_MAX}"
@@ -72,10 +76,12 @@ def unsupported_reason(X, W, H, data=None, n_given_signatures: int = 0):
     return None
 
 
-def mu_block_supported(X, W, H, data=None, n_given_signatures: int = 0):
+def mu_block_supported(X, W, H, data=None, n_given_signatures: int = 0,
+                       mask=None):
     """Whether a fit's block update runs the kernel (see
     unsupported_reason)."""
-    return unsupported_reason(X, W, H, data, n_given_signatures) is None
+    return unsupported_reason(X, W, H, data, n_given_signatures,
+                              mask) is None
 
 
 def _nvcc() -> str:

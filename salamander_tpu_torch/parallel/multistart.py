@@ -1,0 +1,370 @@
+"""Batched multi-start over a model, held against
+salamander_tpu/parallel/multistart.py.
+
+fit_best_of runs the restarts of one model as one lockstep batch: the
+per-restart initial parameters are stacked on a leading lane axis, the
+model's own batched-native (update, objective) step functions drive the
+convergence engine, and the best restart (by the model's objective
+direction) is absorbed back into the model's containers. A KLNMF block
+runs through the model's fused block update (the CUDA kernel where
+cuda_klnmf.mu_block_supported holds).
+
+Ported families: KLNMF and MvNMF. The JAX package also batches ARDNMF,
+CorrNMFDet and MultimodalCorrNMF; those raise NotImplementedError here
+until their slices land. The JAX package's runner cache exists to avoid
+recompiles; nothing is compiled here, so there is none.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from ..engine import FitResult, effective_tolerance
+from ..engine.transfer import params_to_numpy
+from .compaction import (
+    CompactingRunner,
+    lockstep_fit,
+    plain_block_builder,
+    resolve_compact,
+)
+
+# the families fit_best_of batches; each has a device-side batched
+# 'random' initializer
+PORTED_FAMILIES = ("KLNMF", "MvNMF")
+
+
+class MultiStartSummary(NamedTuple):
+    losses: np.ndarray        # (R,) final objective per restart
+    n_iterations: np.ndarray  # (R,)
+    best_index: int
+    history: np.ndarray       # (R, max_evals) objective traces (NaN-padded)
+    n_evals: np.ndarray       # (R,)
+    signatures: Any = None    # (R, n_features, k) every restart's W
+
+
+def _check_family(model) -> None:
+    name = type(model).__name__
+    if name not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"fit_best_of: the {name} family is not ported to PyTorch yet "
+            f"(ported: {', '.join(PORTED_FAMILIES)})"
+        )
+
+
+def _device_init_batch(model, data, n_restarts: int, base_seed: int):
+    """The batched params0 drawn on data["X"]'s device from a
+    torch.Generator seeded with base_seed (no host loop, no global numpy
+    RNG). MvNMF lanes start at gamma = 1."""
+    from ..initialization.methods import random_init_batch
+
+    X = data["X"]  # (V, D) kernel orientation
+    generator = torch.Generator(device=X.device).manual_seed(base_seed)
+    W0, H0 = random_init_batch(generator, X, model.n_signatures, n_restarts,
+                               X.dtype)
+    params = {"W": W0, "H": H0}
+    if type(model).__name__ == "MvNMF":
+        params["gamma"] = torch.ones(n_restarts, dtype=X.dtype,
+                                     device=X.device)
+    return params
+
+
+def _host_init_batch(model, n_restarts: int, base_seed: int,
+                     given_parameters, init_kwargs, fitting_kwargs,
+                     seeds_init_kwargs: bool):
+    """The model's own initializer once per restart r, with the global
+    numpy RNG reseeded to base_seed + r (and restored afterwards), stacked
+    on a leading lane axis. Returns (params0, data)."""
+    params_per_restart = []
+    data = None
+    rng_state = np.random.get_state()
+    try:
+        for restart in range(n_restarts):
+            seed = base_seed + restart
+            np.random.seed(seed)
+            kwargs = dict(init_kwargs)
+            if seeds_init_kwargs:
+                kwargs["seed"] = seed
+            model._initialize(given_parameters, kwargs)
+            model._setup_fitting_parameters(fitting_kwargs)
+            params_r, data = model._device_state()
+            params_per_restart.append(params_r)
+    finally:
+        np.random.set_state(rng_state)
+    params0 = {
+        key: torch.stack([params[key] for params in params_per_restart])
+        for key in params_per_restart[0]
+    }
+    return params0, data
+
+
+def _best_of_store(checkpoint_dir, model, n_restarts: int, base_seed: int,
+                   config, restart_chunk):
+    """ChunkStore for a fit_best_of run: identity = counts (+ weights)
+    fingerprint, model class + constructor hyperparameters, compute dtype,
+    MvNMF's line-search trial batch, restart layout."""
+    from ..checkpoint import ChunkStore, data_fingerprint
+
+    arrays = [np.asarray(model.adata.X)]
+    for weights_name in ("weights_kl", "weights_lhalf"):
+        weights = getattr(model, weights_name, None)
+        if weights is not None:
+            arrays.append(np.asarray(weights))
+    trial_batch = (model._resolve_trial_batch()
+                   if hasattr(model, "_resolve_trial_batch") else None)
+    return ChunkStore(checkpoint_dir, {
+        "task": "fit_best_of",
+        "model": type(model).__name__,
+        "n_signatures": model.n_signatures,
+        "lam": getattr(model, "lam", None),
+        "delta": getattr(model, "delta", None),
+        "init_method": model.init_method,
+        "dtype": model.dtype,
+        "line_search_trial_batch": trial_batch,
+        "n_restarts": int(n_restarts),
+        "base_seed": int(base_seed),
+        "config": list(config),
+        "restart_chunk": (
+            None if restart_chunk is None else int(restart_chunk)
+        ),
+        "data": data_fingerprint(*arrays),
+    })
+
+
+def _result_to_entry(result: FitResult, losses) -> dict:
+    """A chunk's (FitResult, losses) as npz-ready host arrays."""
+    payload = {
+        "losses": losses.cpu().numpy(),
+        "initial_objective": result.initial_objective.cpu().numpy(),
+        "history": result.history.cpu().numpy(),
+        "n_evals": result.n_evals.cpu().numpy(),
+        "n_iterations": result.n_iterations.cpu().numpy(),
+    }
+    for key, leaf in params_to_numpy(result.params).items():
+        payload[f"p_{key}"] = leaf
+    return payload
+
+
+def _entry_to_result(entry: dict, device):
+    """The (FitResult, losses) chunk of a stored entry, on `device`."""
+    def tensor(name):
+        return torch.as_tensor(entry[name], device=device)
+
+    params = {name[2:]: tensor(name) for name in entry
+              if name.startswith("p_")}
+    result = FitResult(
+        params=params,
+        initial_objective=tensor("initial_objective"),
+        history=tensor("history"),
+        n_evals=tensor("n_evals"),
+        n_iterations=tensor("n_iterations"),
+    )
+    return result, tensor("losses")
+
+
+def _concat_results(parts):
+    if len(parts) == 1:
+        return parts[0]
+    results = [part[0] for part in parts]
+    result = FitResult(
+        params={key: torch.cat([r.params[key] for r in results])
+                for key in results[0].params},
+        **{field: torch.cat([getattr(r, field) for r in results])
+           for field in ("initial_objective", "history", "n_evals",
+                         "n_iterations")},
+    )
+    return result, torch.cat([part[1] for part in parts])
+
+
+def fit_best_of(
+    model,
+    data_container,
+    n_restarts: int,
+    base_seed: int = 0,
+    given_parameters: dict[str, Any] | None = None,
+    init_kwargs: dict[str, Any] | None = None,
+    fitting_kwargs: dict[str, Any] | None = None,
+    mesh=None,
+    batched_init: bool | str = "auto",
+    compact: bool | None = None,
+    compact_min_bucket: int = 4,
+    checkpoint_dir=None,
+    restart_chunk: int | None = None,
+    verbose: int = 0,
+) -> MultiStartSummary:
+    """Fit `n_restarts` differently-initialized copies of `model` at once and
+    keep the best.
+
+    The model's init_method should be stochastic ('random', 'separableNMF'
+    or 'nndsvdar'); restart r is seeded with base_seed + r. The model ends
+    up holding the best restart's parameters (and its objective trace in
+    .history); the full loss table is returned. Everything runs on
+    model.device.
+
+    batched_init: with 'auto' (default), init_method='random' without
+    given_parameters draws every restart at once on the model's device
+    from a torch.Generator seeded with base_seed; other configurations run
+    the model's own initializer in a host loop (reseeding the global
+    numpy RNG per restart and restoring it afterwards), whose draws equal
+    the JAX package's. True forces the device path (raises if
+    unsupported), False forces the host loop.
+
+    compact (None = auto, parallel.compaction.resolve_compact): lane
+    compaction - as restarts converge they drop out of the batch in
+    halving steps. Per-lane results equal the monolithic loop's.
+
+    checkpoint_dir: preemption-safe resume (checkpoint.ChunkStore).
+    Restarts run in chunks of `restart_chunk` lanes (default: one chunk)
+    and each completed chunk is one atomic entry; a rerun with identical
+    arguments loads finished chunks and computes only the missing ones.
+    Not supported together with given_parameters (their values cannot be
+    fingerprinted into the run identity). restart_chunk without
+    checkpoint_dir simply batches the run in chunks.
+
+    verbose=1 prints one objective-range line per compaction segment.
+    mesh= is not ported yet.
+    """
+    from ..models.signature_nmf import (
+        promote_objective,
+        segment_progress_printer,
+    )
+    from ..ops.precision import require_ieee_float32
+
+    _check_family(model)
+    if mesh is not None:
+        raise NotImplementedError("mesh= is not ported to PyTorch yet")
+    if checkpoint_dir is not None and given_parameters:
+        raise ValueError(
+            "checkpoint_dir= does not support given_parameters: their "
+            "values cannot be fingerprinted into the run identity."
+        )
+    if model.device.type == "cuda":
+        require_ieee_float32()
+    model._setup_adata(data_container)
+    model._setup_fitting_parameters(fitting_kwargs)
+
+    init_kwargs = {} if init_kwargs is None else dict(init_kwargs)
+    device_init_supported = (
+        not given_parameters and model.init_method == "random"
+    )
+    if batched_init is True and not device_init_supported:
+        raise ValueError(
+            "batched_init=True requires init_method='random' and no "
+            "given_parameters."
+        )
+    use_device_init = batched_init is not False and device_init_supported
+
+    seeds_init_kwargs = "seed" in init_kwargs or model.init_method in (
+        "random", "separableNMF", "nndsvdar"
+    )
+    if not seeds_init_kwargs:
+        warnings.warn(
+            f"init_method='{model.init_method}' is deterministic: all "
+            f"{n_restarts} restarts will be identical. Use a stochastic "
+            "init ('random', 'separableNMF', 'nndsvdar') for a meaningful "
+            "multi-start.",
+            UserWarning,
+        )
+
+    if use_device_init:
+        # one host init populates the containers (shapes/names); the
+        # per-restart parameters come from one batched device draw
+        kwargs = dict(init_kwargs)
+        kwargs.setdefault("seed", base_seed)
+        rng_state = np.random.get_state()
+        try:
+            model._initialize(given_parameters, kwargs)
+        finally:
+            np.random.set_state(rng_state)
+        model._setup_fitting_parameters(fitting_kwargs)
+        _, data = model._device_state()
+        params0 = _device_init_batch(model, data, n_restarts, base_seed)
+    else:
+        params0, data = _host_init_batch(
+            model, n_restarts, base_seed, given_parameters, init_kwargs,
+            fitting_kwargs, seeds_init_kwargs,
+        )
+
+    update_fn, objective_fn = model._build_step(given_parameters)
+    objective_fn = promote_objective(objective_fn, params0)
+    config = model._fit_config()
+    model.history["tol_effective"] = effective_tolerance(
+        config, torch.float64, params0
+    )
+
+    def make_block_update(params, data_):
+        fused = model._block_update_fn(params, data_, given_parameters)
+        if fused is not None:
+            return lambda p, n: fused(p, data_, n)
+        return plain_block_builder(update_fn)(params, data_)
+
+    def run_lanes(part0):
+        """One lockstep run over a chunk of lanes: (FitResult, losses)."""
+        n_lanes = int(part0["W"].shape[0])
+        if resolve_compact(compact, config, None, n_lanes,
+                           compact_min_bucket, model.device):
+            runner = CompactingRunner(config, objective_fn,
+                                      make_block_update,
+                                      min_bucket=compact_min_bucket)
+            if verbose:
+                runner.progress = segment_progress_printer()
+            return runner.run(part0, data)
+        return lockstep_fit(objective_fn, config, make_block_update, part0,
+                            data)
+
+    store = None
+    if checkpoint_dir is not None:
+        store = _best_of_store(checkpoint_dir, model, n_restarts, base_seed,
+                               config, restart_chunk)
+    if restart_chunk is None or restart_chunk >= n_restarts:
+        chunks = [(0, n_restarts)]
+    else:
+        size = max(1, int(restart_chunk))
+        chunks = [
+            (lo, min(lo + size, n_restarts))
+            for lo in range(0, n_restarts, size)
+        ]
+    parts = []
+    for lo, hi in chunks:
+        name = f"restarts_{lo}_{hi}"
+        entry = store.load(name) if store is not None else None
+        if entry is not None:
+            parts.append(_entry_to_result(entry, model.device))
+            continue
+        result, losses = run_lanes(
+            {key: leaf[lo:hi] for key, leaf in params0.items()}
+        )
+        if store is not None:
+            store.save(name, **_result_to_entry(result, losses))
+        parts.append((result, losses))
+    result, losses = _concat_results(parts)
+
+    final_losses = losses.cpu().numpy()
+    direction = getattr(model, "objective", "minimize")
+    best = int(np.argmax(final_losses)) if direction == "maximize" else int(
+        np.argmin(final_losses)
+    )
+    model._absorb_params(params_to_numpy(
+        {key: leaf[best] for key, leaf in result.params.items()}
+    ))
+    model._is_fitted = True
+    history = result.history.cpu().numpy()
+    n_evals = result.n_evals.cpu().numpy()
+    n_iterations = result.n_iterations.cpu().numpy()
+    model.history["objective_function"] = list(
+        history[best][: int(n_evals[best])]
+    )
+    model.history["n_iterations"] = int(n_iterations[best])
+    model.history["multistart_losses"] = final_losses.tolist()
+
+    return MultiStartSummary(
+        losses=final_losses,
+        n_iterations=n_iterations,
+        best_index=best,
+        history=history,
+        n_evals=n_evals,
+        signatures=result.params["W"].cpu().numpy(),
+    )

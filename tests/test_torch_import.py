@@ -19,6 +19,18 @@ MODULES = sorted(
 )
 
 
+@pytest.mark.parametrize("name", [
+    "salamander_tpu_torch.checkpoint",
+    "salamander_tpu_torch.models.mvnmf",
+    "salamander_tpu_torch.ops.mvnmf",
+    "salamander_tpu_torch.parallel.compaction",
+    "salamander_tpu_torch.parallel.multistart",
+    "salamander_tpu_torch.parallel.restarts",
+])
+def test_the_blocked_import_covers_the_module(name):
+    assert name in MODULES
+
+
 def test_every_module_imports_with_jax_blocked():
     code = (
         "import importlib, sys\n"

@@ -163,8 +163,14 @@ def test_fit_klnmf_restarts_on_cpu(catalog):
     assert result.W.shape == (4, 96, 3) and result.H.shape == (4, 3, 48)
     assert result.best_loss == result.losses.min()
     np.testing.assert_allclose(result.best_W.sum(axis=0), 1.0, rtol=1e-12)
-    with pytest.raises(NotImplementedError):
-        port.fit_klnmf_restarts(X, 3, 4, compact=True, device="cpu")
+    # lane compaction is ported: the same lanes; meshes are not
+    packed = port.fit_klnmf_restarts(
+        X, 3, 4, seed=1, config=port.FitConfig(20, 60, 10, 1e-6),
+        dtype=torch.float64, device="cpu", compact=True,
+        compact_min_bucket=1)
+    np.testing.assert_array_equal(packed.losses, result.losses)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        port.fit_klnmf_restarts(X, 3, 4, mesh=object(), device="cpu")
 
 
 def test_fit_carried_from_jax_continues_like_jax(catalog):
