@@ -26,13 +26,29 @@ check raises, so the script exits non-zero and prints no result):
 7. MvNMF(n_signatures=5).fit in float32 must stop below the 10,000 cap
    with finite, column-normalized signatures (line-search evaluations per
    iteration and the cost of one trial round printed); then
-   fit_best_of(MvNMF(5, random), n_restarts=50) compacted and monolithic,
-   best losses at rtol 1e-4.
+   fit_best_of(MvNMF(5, random), n_restarts=50) compacted, monolithic and
+   compacted again, best losses at rtol 1e-4.
 8. rank_scan_klnmf(X, range(2, 11), 20, seed=0) unpadded (with and without
    compaction; launches the kernel) and padded (packed and one point per
    call; plain ops), in turns; best loss per rank at rtol 1e-4.
+9. CorrNMFDet(n_signatures=5, dim_embeddings=2, min 100, max 2000,
+   tol 1e-7).fit on PCAWG SBS in float32 (np.random.seed(0)): EM cycles,
+   wall, cycles/s, final ELBO, signature-side Newton steps per cycle; the
+   ELBO is finite and its history never falls by more than float32 noise.
+   Then fit_best_of(CorrNMFDet(5, dim_embeddings=2, random, max 500),
+   n_restarts=16) compacted and monolithic in turns, best ELBO at rtol
+   1e-4.
+10. ARDNMF(n_signatures=20, a=5, min 500, max 20000).fit on the synthetic
+   96 x 10,000 catalog with 8 planted signatures: the inferred rank is 8;
+   then fit_best_of(ARDNMF(20, random), n_restarts=8) compacted and
+   monolithic, best objective at rtol 1e-4, inferred rank 8.
+11. rank_scan_corrnmf(PCAWG SBS, range(2, 8), n_restarts=4,
+   dim_embeddings=2) over a fixed 200-cycle window, unpadded, padded and
+   packed, and padded one point per call, in turns; best ELBO per rank at
+   rtol 1e-4.
+Phases 9-11 run plain PyTorch ops (neither family reaches the kernel).
 
-Each of phases 4-8 runs with the kernel's launch count set to 0 just
+Each of phases 4-11 runs with the kernel's launch count set to 0 just
 before it and read just after. The last two lines are the per-kernel JSON
 record and
 {"ok": true, "device": {...}}; the card's name and power limit precede
@@ -56,6 +72,7 @@ KERNEL_RTOL = 2e-4          # float32 sums in another order, over 10 steps
 FIT_RTOL = 1e-4             # final objective, kernel vs plain fit
 BLOCK = 10                  # conv_test_freq: steps per kernel launch
 WINDOW = 5000               # iterations of every headline lane
+F32_NOISE = 64 * float(np.finfo(np.float32).eps)  # relative ELBO fall
 
 
 def check(condition: bool, message: str) -> None:
@@ -423,7 +440,9 @@ def phase_mvnmf(torch, sal):
 
     walls = {True: [], False: []}
     best = {}
-    for compact in (True, False, False, True):
+    # the monolithic R=50 run (~55-80 s) runs once, between two compacted
+    # runs, to keep the whole script near six minutes
+    for compact in (True, False, True):
         trials[0] = 0
         mv_ops._renormalized_objective = counting
         try:
@@ -484,6 +503,151 @@ def phase_scan(torch, sal, cuda_klnmf, X_host):
         for name in layouts))
 
 
+def elbo_trace_check(trace) -> float:
+    """The largest fall of a maximized objective trace, relative to the
+    value it fell from; checks it stays within float32 noise."""
+    trace = np.asarray(trace, dtype=float)
+    falls = (trace[:-1] - trace[1:]) / np.abs(trace[:-1])
+    worst = float(max(falls.max(), 0.0)) if falls.size else 0.0
+    check(worst <= F32_NOISE, f"the ELBO fell by {worst:.3e} relative")
+    return worst
+
+
+def phase_corrnmf(torch, sal):
+    """CorrNMFDet(5, dim_embeddings=2).fit on PCAWG SBS in float32, then
+    fit_best_of(R=16) compacted and monolithic in turns."""
+    from salamander_tpu_torch.ops import corrnmf as corr_ops
+
+    calls = {"steps": 0, "solves": 0}
+    real_step, real_update = corr_ops._newton_step, corr_ops.update_embeddings
+
+    def counting_step(*args):
+        calls["steps"] += 1
+        return real_step(*args)
+
+    def counting_update(*args, **kwargs):
+        calls["solves"] += 1
+        return real_update(*args, **kwargs)
+
+    hyper = dict(n_signatures=5, dim_embeddings=2, min_iterations=100,
+                 tol=1e-7, device="cuda", dtype="float32")
+    np.random.seed(0)
+    model = sal.CorrNMFDet(max_iterations=2000, **hyper)
+    corr_ops._newton_step = counting_step
+    corr_ops.update_embeddings = counting_update
+    try:
+        _, seconds = timed(torch, lambda: model.fit(sbs_adata(sal)))
+    finally:
+        corr_ops._newton_step = real_step
+        corr_ops.update_embeddings = real_update
+    cycles = model.history["n_iterations"]
+    trace = model.history["objective_function"]
+    final = float(trace[-1])
+    check(calls["solves"] == 2 * cycles, "one Newton solve per side and cycle")
+    signature_steps = (calls["steps"] - 3 * cycles) / cycles
+    worst = elbo_trace_check(trace)
+    check(np.isfinite(final), "non-finite ELBO")
+    check(bool(np.isfinite(model.asignatures.X).all()
+               and np.isfinite(model.adata.obsm["embeddings"]).all()),
+          "non-finite CorrNMF parameters")
+    print(f"[9] CorrNMFDet(5, dim_embeddings=2).fit: {cycles} EM cycles, "
+          f"{seconds:.3f} s, {cycles / seconds:.1f} cycles/s, final ELBO "
+          f"{final:.4f}, {signature_steps:.3f} signature-side Newton steps "
+          f"per cycle, largest ELBO fall {worst:.3e} relative")
+
+    walls = {True: [], False: []}
+    best = {}
+    for compact in (True, False, False, True):
+        summary, seconds = timed(torch, lambda: sal.fit_best_of(
+            sal.CorrNMFDet(init_method="random", max_iterations=500,
+                           **hyper),
+            sbs_adata(sal), n_restarts=16, base_seed=0, compact=compact))
+        check(bool(np.isfinite(summary.losses).all()), "non-finite ELBOs")
+        walls[compact].append(seconds)
+        best[compact] = float(summary.losses.max())
+        print(f"[9] fit_best_of(CorrNMFDet(5), R=16, compact={compact}): "
+              f"{seconds:.3f} s, best ELBO {best[compact]:.4f}, cycles "
+              f"{summary.n_iterations.min()}..{summary.n_iterations.max()} "
+              f"(mean {summary.n_iterations.mean():.1f})")
+    check_best_agree("[9] compacted vs monolithic", best[True], best[False])
+    print(f"[9] walls: compacted {', '.join(f'{s:.3f}' for s in walls[True])}"
+          f" s; monolithic {', '.join(f'{s:.3f}' for s in walls[False])} s")
+
+
+def phase_ardnmf(torch, sal):
+    """ARDNMF(20, a=5) rank inference on the planted-rank-8 synthetic
+    96 x 10,000 catalog: one fit, then fit_best_of(R=8) compacted and
+    monolithic."""
+    X = sal.datasets.synthetic_catalog(96, 10_000, 8, seed=0)
+
+    def adata():
+        return sal.AnnData(X.T.copy())
+
+    hyper = dict(n_signatures=20, a=5.0, min_iterations=500,
+                 max_iterations=20000, device="cuda", dtype="float32")
+    model = sal.ARDNMF(**hyper)
+    _, seconds = timed(torch, lambda: model.fit(adata(),
+                                                init_kwargs={"seed": 1}))
+    n_iterations = model.history["n_iterations"]
+    final = float(model.history["objective_function"][-1])
+    print(f"[10] ARDNMF(20, a=5).fit on 96 x 10,000 (planted rank 8): "
+          f"{n_iterations} iterations, {seconds:.3f} s, "
+          f"{n_iterations / seconds:.1f} it/s, final objective {final:.4f}, "
+          f"inferred rank {model.n_active_signatures}")
+    check(np.isfinite(final), "non-finite ARD objective")
+    check(model.n_active_signatures == 8, "the single fit missed rank 8")
+
+    best = {}
+    for compact in (True, False):
+        multi = sal.ARDNMF(init_method="random", **hyper)
+        summary, seconds = timed(torch, lambda: sal.fit_best_of(
+            multi, adata(), n_restarts=8, base_seed=0, compact=compact))
+        check(bool(np.isfinite(summary.losses).all()), "non-finite losses")
+        best[compact] = float(summary.losses.min())
+        print(f"[10] fit_best_of(ARDNMF(20), R=8, compact={compact}): "
+              f"{seconds:.3f} s, best objective {best[compact]:.4f}, "
+              f"iterations {summary.n_iterations.min()}.."
+              f"{summary.n_iterations.max()}, inferred rank "
+              f"{multi.n_active_signatures}")
+        check(multi.n_active_signatures == 8,
+              f"best-of-8 (compact={compact}) missed rank 8")
+    check_best_agree("[10] compacted vs monolithic", best[True], best[False])
+
+
+def phase_corrnmf_scan(torch, sal, X_samples):
+    """rank_scan_corrnmf(PCAWG SBS, range(2, 8), 4 restarts, m=2) over a
+    fixed 200-cycle window in every layout, in turns."""
+    from salamander_tpu_torch.engine import FitConfig
+
+    layouts = {
+        "unpadded": dict(pad_ranks=False),
+        "padded packed": dict(pad_ranks=True, pack_points=True),
+        "padded per point": dict(pad_ranks=True, pack_points=False),
+    }
+    order = ["unpadded", "padded packed", "padded per point",
+             "padded per point", "padded packed", "unpadded"]
+    walls = {name: [] for name in layouts}
+    best = {}
+    for name in order:
+        results, seconds = timed(torch, lambda: sal.rank_scan_corrnmf(
+            X_samples, range(2, 8), dim_embeddings=2, n_restarts=4,
+            config=FitConfig(200, 200, BLOCK, 1e-7), device="cuda",
+            dtype="float32", **layouts[name]))
+        walls[name].append(seconds)
+        best[name] = {k: result.best_loss for k, result in results.items()}
+        check(all(np.isfinite(loss) for loss in best[name].values()),
+              "non-finite scan ELBO")
+        print(f"[11] rank_scan_corrnmf k=2..7 R=4 m=2 {name}: "
+              f"{seconds:.3f} s, best ELBO per rank "
+              + ", ".join(f"{k}:{loss:.2f}" for k, loss in best[name].items()))
+    for name in layouts:
+        for k, loss in best[name].items():
+            check_best_agree(f"[11] {name} k={k}", loss, best["unpadded"][k])
+    print("[11] walls: " + "; ".join(
+        f"{name} {', '.join(f'{s:.3f}' for s in walls[name])} s"
+        for name in layouts))
+
+
 def main() -> int:
     import torch
 
@@ -520,10 +684,14 @@ def main() -> int:
     drive("6 fit_best_of KLNMF", phase_quickstart, torch, sal, cuda_klnmf)
     drive("7 MvNMF", phase_mvnmf, torch, sal)
     drive("8 rank_scan_klnmf", phase_scan, torch, sal, cuda_klnmf, X_host)
+    drive("9 CorrNMFDet", phase_corrnmf, torch, sal)
+    drive("10 ARDNMF", phase_ardnmf, torch, sal)
+    drive("11 rank_scan_corrnmf", phase_corrnmf_scan, torch, sal,
+          np.ascontiguousarray(X_host.T))
     for path in ("4 KLNMF.fit", "5 fit_klnmf_restarts",
                  "6 fit_best_of KLNMF", "8 rank_scan_klnmf"):
         check(launches[path] > 0, f"path {path} launched no kernel")
-    print(f"[9] kernel launches by path: {launches}")
+    print(f"kernel launches by path: {launches}")
 
     block_ms = timings[100][0]
     blocks = WINDOW // BLOCK

@@ -1,6 +1,6 @@
-"""Dataset access: the PCAWG-breast catalogs, held against
-salamander_tpu/datasets.py (its COSMIC and synthetic loaders come with the
-slices that use them).
+"""Dataset access: the PCAWG-breast catalogs and the synthetic COSMIC-scale
+catalog, held against salamander_tpu/datasets.py (its COSMIC loaders come
+with the slices that use them).
 
 The port ships no copy of the CSV assets. Search order: $SALAMANDER_DATA
 (override), then the JAX package's data directory beside this package in
@@ -15,6 +15,7 @@ from __future__ import annotations
 import os
 from pathlib import Path
 
+import numpy as np
 import pandas as pd
 
 _SEARCH_PATHS = [
@@ -59,3 +60,30 @@ def load_pcawg_indel() -> pd.DataFrame:
 def load_pcawg_sv() -> pd.DataFrame:
     """PCAWG breast-cancer SV-32 counts (192 samples x 32 channels)."""
     return _load_csv("pcawg_sv")
+
+
+def synthetic_catalog(
+    n_features: int = 96,
+    n_samples: int = 10_000,
+    n_signatures: int = 8,
+    mean_mutations: float = 5_000.0,
+    seed: int = 0,
+    return_truth: bool = False,
+):
+    """A COSMIC-scale synthetic Poisson count catalog for benchmarking
+    (copied, so the same seed gives the same catalog as the JAX package).
+
+    Signatures are Dirichlet(0.3) draws (sparse, signature-like); sample
+    loads are gamma-distributed; counts ~ Poisson(W @ H). Shapes follow the
+    kernel orientation X: (n_features, n_samples).
+    """
+    rng = np.random.default_rng(seed)
+    signatures = rng.dirichlet(0.3 * np.ones(n_features), size=n_signatures).T
+    weights = rng.dirichlet(np.ones(n_signatures), size=n_samples).T
+    loads = rng.gamma(2.0, mean_mutations / 2.0, size=n_samples)
+    expected = signatures @ (weights * loads)
+    X = rng.poisson(expected).astype(np.float64)
+    X = np.clip(X, np.finfo(np.float32).eps, None)
+    if return_truth:
+        return X, signatures, weights * loads
+    return X

@@ -7,8 +7,14 @@ torch.Generator-based batch initializer serves the multi-start fit.
 
 from .initialize import (  # noqa: F401
     EPSILON,
+    GIVEN_PARAMETERS_CORRNMF,
     GIVEN_PARAMETERS_STANDARD_NMF,
+    initialize_corrnmf,
     initialize_mat,
     initialize_standard_nmf,
 )
-from .methods import INIT_METHODS, random_init_batch  # noqa: F401
+from .methods import (  # noqa: F401
+    INIT_METHODS,
+    corrnmf_init_batch,
+    random_init_batch,
+)

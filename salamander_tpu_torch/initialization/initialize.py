@@ -8,9 +8,13 @@ Mirrors the behavior of the reference's initialization/initialize.py:
                                  signatures keep their annotations, names
                                  rolled so generated ones continue the count)
   initialize_standard_nmf :232-255
-  given-parameter validators :122-155, 221-229
+  initialize_corrnmf    :319-384 adds zero scalings, Gaussian embeddings
+                                 (global numpy RNG - seeded implicitly when
+                                 the signature init method took a seed) and
+                                 variance 1.0; rejects method='custom'
+  given-parameter validators :122-155, 221-229, 258-316
 
-The CorrNMF and multimodal initializers are not ported yet.
+The multimodal initializer is not ported yet.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from typing import Any
 import numpy as np
 
 from .. import containers
-from ..utils import dict_checker, type_checker, value_checker
+from ..utils import dict_checker, shape_checker, type_checker, value_checker
 from .methods import (
     INIT_METHODS,
     init_custom,
@@ -33,6 +37,14 @@ from .methods import (
 EPSILON = float(np.finfo(np.float32).eps)
 
 GIVEN_PARAMETERS_STANDARD_NMF = ["asignatures"]
+GIVEN_PARAMETERS_CORRNMF = [
+    "asignatures",
+    "signature_scalings",
+    "sample_scalings",
+    "signature_embeddings",
+    "sample_embeddings",
+    "variance",
+]
 
 
 def initialize_mat(
@@ -176,3 +188,107 @@ def initialize_standard_nmf(
     adata.obsm["exposures"] = exposures_mat
     return asignatures
 
+
+def _check_given_array(value, expected_shape: tuple[int, ...], name: str) -> None:
+    type_checker(name, value, np.ndarray)
+    shape_checker(name, value, expected_shape)
+
+
+# backwards-compatible named validators
+def check_given_scalings_corrnmf(given_scalings, n_expected: int, name: str) -> None:
+    _check_given_array(given_scalings, (n_expected,), name)
+
+
+def check_given_embeddings_corrnmf(
+    given_embeddings, n_expected: int, dim_expected: int, name: str
+) -> None:
+    _check_given_array(given_embeddings, (n_expected, dim_expected), name)
+
+
+def check_given_parameters_corrnmf(
+    adata, n_signatures: int, dim_embeddings: int, given_parameters: dict[str, Any]
+) -> None:
+    """Validate the CorrNMF given-parameter dict (declarative shape table)."""
+    dict_checker("given_parameters", given_parameters, GIVEN_PARAMETERS_CORRNMF)
+
+    expected_shapes = {
+        "signature_scalings": (n_signatures,),
+        "sample_scalings": (adata.n_obs,),
+        "signature_embeddings": (n_signatures, dim_embeddings),
+        "sample_embeddings": (adata.n_obs, dim_embeddings),
+    }
+    for key, shape in expected_shapes.items():
+        if key in given_parameters:
+            _check_given_array(given_parameters[key], shape, f"given_{key}")
+
+    if "asignatures" in given_parameters:
+        check_given_asignatures(given_parameters["asignatures"], adata, n_signatures)
+    if "variance" in given_parameters:
+        variance = given_parameters["variance"]
+        type_checker("given_variance", variance, [float, int])
+        if variance <= 0.0:
+            raise ValueError("The variance has to be a positive real number.")
+
+
+def initialize_corrnmf(
+    adata,
+    n_signatures: int,
+    dim_embeddings: int,
+    method: str = "nndsvd",
+    given_parameters: dict[str, Any] | None = None,
+    initialize_sample_embeddings: bool = True,
+    **kwargs,
+):
+    """Initialize signatures, scalings, embeddings and variance for CorrNMF.
+
+    Embeddings are standard-normal draws from the global numpy RNG (seeded by
+    the signature init when a 'seed' kwarg was passed, matching the
+    reference's implicit-seeding behavior).
+    """
+    if method == "custom":
+        raise ValueError(
+            "Custom parameter initializations are currently not supported "
+            "for (multimodal) correlated NMF."
+        )
+    given_parameters = {} if given_parameters is None else given_parameters.copy()
+    check_given_parameters_corrnmf(adata, n_signatures, dim_embeddings,
+                                   given_parameters)
+
+    asignatures, _ = initialize_base(
+        adata,
+        n_signatures,
+        method,
+        given_parameters.get("asignatures"),
+        **kwargs,
+    )
+
+    def given_or(key: str, default_factory):
+        return (
+            given_parameters[key]
+            if key in given_parameters
+            else default_factory()
+        )
+
+    def gaussian_embeddings(count: int):
+        # standard-normal draws from the global numpy RNG (implicitly seeded
+        # by a stochastic signature init's 'seed' kwarg)
+        return np.random.multivariate_normal(
+            np.zeros(dim_embeddings), np.identity(dim_embeddings), size=count
+        )
+
+    asignatures.obs["scalings"] = given_or(
+        "signature_scalings", lambda: np.zeros(n_signatures)
+    )
+    adata.obs["scalings"] = given_or(
+        "sample_scalings", lambda: np.zeros(adata.n_obs)
+    )
+    asignatures.obsm["embeddings"] = given_or(
+        "signature_embeddings", lambda: gaussian_embeddings(n_signatures)
+    )
+    if initialize_sample_embeddings:
+        adata.obsm["embeddings"] = given_or(
+            "sample_embeddings", lambda: gaussian_embeddings(adata.n_obs)
+        )
+
+    variance = float(given_parameters.get("variance", 1.0))
+    return asignatures, variance

@@ -17,8 +17,8 @@ Parity notes (reference initialization/methods.py):
 
 These run host-side on numpy: they execute once per fit on tiny matrices and
 must replicate numpy RNG streams bit-for-bit. The batched multi-start
-initializer (random_init_batch) lives at the bottom and draws with a
-torch.Generator on the device of the data.
+initializers (random_init_batch, corrnmf_init_batch) live at the bottom and
+draw with a torch.Generator on the device of the data.
 """
 
 from __future__ import annotations
@@ -206,3 +206,54 @@ def random_init_batch(generator, data_mat, n_signatures: int,
     W = torch.clamp_min(W, EPSILON).contiguous()
     H = torch.clamp_min(H, EPSILON).contiguous()
     return W, H
+
+
+def corrnmf_init_batch(generator, data_mat, n_signatures: int,
+                       dim_embeddings: int, n_restarts: int, dtype=None):
+    """Initialize a batch of CorrNMF parameter dicts on data_mat's device.
+
+    The batched counterpart of initialize_corrnmf with init_method 'random'
+    (reference initialization/initialize.py:319-384): Dirichlet signatures
+    (normalized exponentials), zero scalings, standard-normal embeddings,
+    unit variance; exposures derived from the scalings and embeddings.
+    data_mat is (D, V) with samples as rows (model orientation);
+    `generator` is a torch.Generator on its device. Returns the params of
+    CorrNMFDet._device_state with a leading restart axis.
+    """
+    import torch
+
+    from ..ops.corrnmf import compute_exposures
+
+    if dtype is None:
+        dtype = data_mat.dtype
+    n_samples, n_features = data_mat.shape
+    device = data_mat.device
+
+    def draw(shape, sampler):
+        values = torch.empty((n_restarts,) + shape, dtype=dtype,
+                             device=device)
+        return sampler(values)
+
+    draws = draw((n_signatures, n_features),
+                 lambda t: t.exponential_(generator=generator))
+    signatures = torch.clamp_min(draws / draws.sum(-1, keepdim=True),
+                                 EPSILON)
+    signature_embeddings = draw((n_signatures, dim_embeddings),
+                                lambda t: t.normal_(generator=generator))
+    sample_embeddings = draw((n_samples, dim_embeddings),
+                             lambda t: t.normal_(generator=generator))
+    signature_scalings = torch.zeros((n_restarts, n_signatures), dtype=dtype,
+                                     device=device)
+    sample_scalings = torch.zeros((n_restarts, n_samples), dtype=dtype,
+                                  device=device)
+    return {
+        "signatures": signatures,
+        "signature_scalings": signature_scalings,
+        "sample_scalings": sample_scalings,
+        "signature_embeddings": signature_embeddings,
+        "sample_embeddings": sample_embeddings,
+        "variance": torch.ones(n_restarts, dtype=dtype, device=device),
+        "exposures": compute_exposures(signature_scalings, sample_scalings,
+                                       signature_embeddings,
+                                       sample_embeddings),
+    }

@@ -270,6 +270,12 @@ class SignatureNMF(ABC):
         self._invalidate_derived(self.adata)
         self.adata.X = self.adata.X.clip(EPSILON)
 
+    def _update_parameters(self, given_parameters=None) -> None:
+        """Apply one update cycle eagerly (test/inspection path)."""
+        params, data = self._device_state()
+        update_fn, _ = self._build_step(given_parameters)
+        self._absorb_params(params_to_numpy(update_fn(params, data)))
+
     def _fit_config(self) -> FitConfig:
         return FitConfig(
             min_iterations=self.min_iterations,
@@ -330,8 +336,9 @@ class SignatureNMF(ABC):
         stop_on_nonfinite additionally fails fast if the objective becomes
         NaN/Inf. warm_start=True skips initialization and continues from
         the state already in the model/container; the convergence rule
-        restarts fresh. Sharding one fit over devices (mesh=) is not
-        ported yet.
+        restarts fresh. Models with `_fits_on_host` set (CorrNMF's
+        newton_cg_compat) run the reference's host loop (`_fit_host`).
+        Sharding one fit over devices (mesh=) is not ported yet.
         """
         if mesh is not None:
             raise NotImplementedError("mesh= is not ported to PyTorch yet")
@@ -342,6 +349,10 @@ class SignatureNMF(ABC):
             self._initialize(given_parameters, init_kwargs)
         self._setup_fitting_parameters(fitting_kwargs)
 
+        if getattr(self, "_fits_on_host", False):
+            return self._fit_host(
+                given_parameters, history, verbose, verbosity_freq
+            )
         if self.device.type == "cuda":
             require_ieee_float32()
         params0, data = self._device_state()
@@ -370,6 +381,39 @@ class SignatureNMF(ABC):
                 result.history[:n_evals].cpu().numpy()
             )
             self.history["n_iterations"] = int(result.n_iterations)
+            self.history["step_freq"] = self.conv_test_freq
+        self._is_fitted = True
+        return self
+
+    def _fit_host(self, given_parameters=None, history: bool = True,
+                  verbose: int = 0, verbosity_freq: int = 1000,
+                  ) -> "SignatureNMF":
+        """The reference's host fit loop, for compatibility modes whose
+        per-iteration updates run host-side (CorrNMF's newton_cg_compat).
+        Semantics: reference signature_nmf.py:315-385."""
+        # host loops run float64 throughout: the user's tol is enforced
+        self.history["tol_effective"] = float(self.tol)
+        of_values = [self.objective_function()]
+        n_iteration = 0
+        converged = False
+        while not converged:
+            n_iteration += 1
+            if verbose and n_iteration % verbosity_freq == 0:
+                print(f"iteration: {n_iteration}; "
+                      f"objective: {of_values[-1]:.2f}")
+            self._update_parameters(given_parameters)
+            if n_iteration % self.conv_test_freq == 0:
+                previous = of_values[-1]
+                of_values.append(self.objective_function())
+                rel_change = abs(previous - of_values[-1]) / abs(previous)
+                converged = (
+                    rel_change < self.tol
+                    and n_iteration >= self.min_iterations
+                )
+            converged |= n_iteration >= self.max_iterations
+        if history:
+            self.history["objective_function"] = of_values[1:]
+            self.history["n_iterations"] = n_iteration
             self.history["step_freq"] = self.conv_test_freq
         self._is_fitted = True
         return self

@@ -2,5 +2,5 @@
 leading restart axis, and the hand-written CUDA kernel of the fused
 multiplicative-update block (cuda_klnmf, built at first use)."""
 
-from . import cuda_klnmf, klnmf, mvnmf, precision  # noqa: F401
+from . import ardnmf, corrnmf, cuda_klnmf, klnmf, mvnmf, precision  # noqa: F401
 from .klnmf import EPSILON  # noqa: F401

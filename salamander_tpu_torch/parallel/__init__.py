@@ -2,6 +2,7 @@
 lane compaction and rank scans."""
 
 from .compaction import CompactingRunner, resolve_compact  # noqa: F401
+from .corrnmf_scan import CorrScanResult, rank_scan_corrnmf  # noqa: F401
 from .multistart import MultiStartSummary, fit_best_of  # noqa: F401
 from .restarts import (  # noqa: F401
     RestartResult,

@@ -14,8 +14,8 @@ uncompacted loop. One host sync per halving decides the gather.
 
 Not ported: the JAX package's guards against its accelerator's program
 kill (``CappedFitDispatcher``, the time-capped segments and their cost
-model), which the card does not need, and the extraction and CorrNMF
-runners, which wait for their slices.
+model), which the card does not need, and the extraction runner, which
+waits for its slice.
 """
 
 from __future__ import annotations
@@ -236,6 +236,25 @@ def mvnmf_compacting_runner(config: FitConfig, lam: float, delta: float,
 
     update_fn, objective_fn = mv_ops.make_masked_step_functions(lam, delta)
     return CompactingRunner(config, objective_fn,
+                            plain_block_builder(update_fn),
+                            min_bucket=min_bucket)
+
+
+def corrnmf_compacting_runner(config: FitConfig,
+                              min_bucket: int) -> CompactingRunner:
+    """The runner of (rank- and dim-)masked CorrNMF scan calls (JAX:
+    ``_cached_corrnmf_compacting_runner``): the per-lane step is the masked
+    EM cycle (ops.corrnmf.make_masked_corrnmf_step), its objective promoted
+    to float64 as in the monolithic scan, so convergence decisions match.
+    A dropped lane also stops paying for its Newton steps."""
+    from ..models.signature_nmf import promote_objective
+    from ..ops import corrnmf as corr_ops
+
+    update_fn, objective_fn = corr_ops.make_masked_corrnmf_step()
+    objective = promote_objective(
+        objective_fn, {"probe": torch.zeros((), dtype=torch.float32)}
+    )
+    return CompactingRunner(config, objective,
                             plain_block_builder(update_fn),
                             min_bucket=min_bucket)
 

@@ -9,9 +9,9 @@ direction) is absorbed back into the model's containers. A KLNMF block
 runs through the model's fused block update (the CUDA kernel where
 cuda_klnmf.mu_block_supported holds).
 
-Ported families: KLNMF and MvNMF. The JAX package also batches ARDNMF,
-CorrNMFDet and MultimodalCorrNMF; those raise NotImplementedError here
-until their slices land. The JAX package's runner cache exists to avoid
+Ported families: KLNMF, MvNMF, ARDNMF and CorrNMFDet. The JAX package
+also batches MultimodalCorrNMF, which raises NotImplementedError here until
+its slice lands. The JAX package's runner cache exists to avoid
 recompiles; nothing is compiled here, so there is none.
 """
 
@@ -34,7 +34,7 @@ from .compaction import (
 
 # the families fit_best_of batches; each has a device-side batched
 # 'random' initializer
-PORTED_FAMILIES = ("KLNMF", "MvNMF")
+PORTED_FAMILIES = ("KLNMF", "MvNMF", "ARDNMF", "CorrNMFDet")
 
 
 class MultiStartSummary(NamedTuple):
@@ -44,6 +44,14 @@ class MultiStartSummary(NamedTuple):
     history: np.ndarray       # (R, max_evals) objective traces (NaN-padded)
     n_evals: np.ndarray       # (R,)
     signatures: Any = None    # (R, n_features, k) every restart's W
+
+
+def _signature_stack(params) -> np.ndarray:
+    """Every restart's signature matrix as (R, n_features, k): W/H families
+    store W as (R, V, K); CorrNMF stores signatures as (R, K, V) rows."""
+    if "W" in params:
+        return params["W"].cpu().numpy()
+    return params["signatures"].mT.cpu().numpy()
 
 
 def _check_family(model) -> None:
@@ -58,15 +66,25 @@ def _check_family(model) -> None:
 def _device_init_batch(model, data, n_restarts: int, base_seed: int):
     """The batched params0 drawn on data["X"]'s device from a
     torch.Generator seeded with base_seed (no host loop, no global numpy
-    RNG). MvNMF lanes start at gamma = 1."""
-    from ..initialization.methods import random_init_batch
+    RNG). MvNMF lanes start at gamma = 1; ARDNMF lanes are rebalanced with
+    their closed-form lambda (ops.ardnmf.init_params)."""
+    from ..initialization.methods import corrnmf_init_batch, random_init_batch
 
-    X = data["X"]  # (V, D) kernel orientation
+    X = data["X"]
+    name = type(model).__name__
     generator = torch.Generator(device=X.device).manual_seed(base_seed)
+    if name == "CorrNMFDet":  # X is (D, V), samples as rows
+        return corrnmf_init_batch(generator, X, model.n_signatures,
+                                  model.dim_embeddings, n_restarts, X.dtype)
+    # (V, D) kernel orientation
     W0, H0 = random_init_batch(generator, X, model.n_signatures, n_restarts,
                                X.dtype)
+    if name == "ARDNMF":
+        from ..ops.ardnmf import init_params
+
+        return init_params(W0, H0, data["ard_ab"], model.prior)
     params = {"W": W0, "H": H0}
-    if type(model).__name__ == "MvNMF":
+    if name == "MvNMF":
         params["gamma"] = torch.ones(n_restarts, dtype=X.dtype,
                                      device=X.device)
     return params
@@ -104,8 +122,9 @@ def _host_init_batch(model, n_restarts: int, base_seed: int,
 def _best_of_store(checkpoint_dir, model, n_restarts: int, base_seed: int,
                    config, restart_chunk):
     """ChunkStore for a fit_best_of run: identity = counts (+ weights)
-    fingerprint, model class + constructor hyperparameters, compute dtype,
-    MvNMF's line-search trial batch, restart layout."""
+    fingerprint, model class + constructor hyperparameters (CorrNMF's
+    embedding dimension, ARDNMF's prior, a and resolved b included),
+    compute dtype, MvNMF's line-search trial batch, restart layout."""
     from ..checkpoint import ChunkStore, data_fingerprint
 
     arrays = [np.asarray(model.adata.X)]
@@ -121,6 +140,10 @@ def _best_of_store(checkpoint_dir, model, n_restarts: int, base_seed: int,
         "n_signatures": model.n_signatures,
         "lam": getattr(model, "lam", None),
         "delta": getattr(model, "delta", None),
+        "dim_embeddings": getattr(model, "dim_embeddings", None),
+        "prior": getattr(model, "prior", None),
+        "a": getattr(model, "a", None),
+        "b": getattr(model, "b_resolved_", None),
         "init_method": model.init_method,
         "dtype": model.dtype,
         "line_search_trial_batch": trial_batch,
@@ -199,7 +222,8 @@ def fit_best_of(
     keep the best.
 
     The model's init_method should be stochastic ('random', 'separableNMF'
-    or 'nndsvdar'); restart r is seeded with base_seed + r. The model ends
+    or 'nndsvdar', or any CorrNMF init, whose embeddings are random);
+    restart r is seeded with base_seed + r. The model ends
     up holding the best restart's parameters (and its objective trace in
     .history); the full loss table is returned. Everything runs on
     model.device.
@@ -260,7 +284,10 @@ def fit_best_of(
     seeds_init_kwargs = "seed" in init_kwargs or model.init_method in (
         "random", "separableNMF", "nndsvdar"
     )
-    if not seeds_init_kwargs:
+    # CorrNMF draws its embeddings from the (reseeded) global numpy RNG, so
+    # its restarts differ even under a deterministic signature init
+    draws_embeddings = hasattr(model, "dim_embeddings")
+    if not seeds_init_kwargs and not draws_embeddings:
         warnings.warn(
             f"init_method='{model.init_method}' is deterministic: all "
             f"{n_restarts} restarts will be identical. Use a stochastic "
@@ -303,7 +330,7 @@ def fit_best_of(
 
     def run_lanes(part0):
         """One lockstep run over a chunk of lanes: (FitResult, losses)."""
-        n_lanes = int(part0["W"].shape[0])
+        n_lanes = int(next(iter(part0.values())).shape[0])
         if resolve_compact(compact, config, None, n_lanes,
                            compact_min_bucket, model.device):
             runner = CompactingRunner(config, objective_fn,
@@ -366,5 +393,5 @@ def fit_best_of(
         best_index=best,
         history=history,
         n_evals=n_evals,
-        signatures=result.params["W"].cpu().numpy(),
+        signatures=_signature_stack(result.params),
     )

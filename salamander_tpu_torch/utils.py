@@ -2,10 +2,10 @@
 
 Copied from salamander_tpu/utils.py, which covers the surface of the
 reference's utils.py (type/shape/value/dict checkers :16-99, normalize_WH
-:155-158, catalog matching :161-192); its obsm/obsp and CorrNMF helpers
-come with the slices that use them. Numeric matching helpers operate on
-numpy/pandas (analysis layer stays host-side); the device-side normalize
-lives in ops.klnmf. scikit-learn is imported only by the two matching
+:155-158, catalog matching :161-192) and the host twin of the CorrNMF
+exposures; its obsm/obsp helpers come with the slices that use them.
+Numeric matching helpers operate on numpy/pandas (analysis layer stays
+host-side); the device-side normalize lives in ops.klnmf. scikit-learn is imported only by the two matching
 functions that use it, so the package imports where it is not installed.
 """
 
@@ -66,6 +66,24 @@ def normalize_WH(W: np.ndarray, H: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """
     scale = np.sum(W, axis=0)
     return W / scale, H * scale[:, None]
+
+
+def compute_exposures_numpy(signature_scalings, sample_scalings,
+                            signature_embeddings, sample_embeddings
+                            ) -> np.ndarray:
+    """Exposure matrix exp(sigma_k + tau_d + <l_k, u_d>), (samples, sigs).
+
+    Host-side (numpy) twin of ops.corrnmf.compute_exposures (reference
+    _utils_corrnmf.py:11-25), for the container-refresh paths, whose inputs
+    already live on the host.
+    """
+    logits = (
+        np.asarray(signature_scalings, dtype=float)[:, None]
+        + np.asarray(sample_scalings, dtype=float)[None, :]
+        + np.asarray(signature_embeddings, dtype=float)
+        @ np.asarray(sample_embeddings, dtype=float).T
+    )
+    return np.exp(logits).T
 
 
 def match_to_catalog(

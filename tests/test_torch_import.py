@@ -21,9 +21,15 @@ MODULES = sorted(
 
 @pytest.mark.parametrize("name", [
     "salamander_tpu_torch.checkpoint",
+    "salamander_tpu_torch.models.ardnmf",
+    "salamander_tpu_torch.models.corrnmf",
+    "salamander_tpu_torch.models.corrnmf_det",
     "salamander_tpu_torch.models.mvnmf",
+    "salamander_tpu_torch.ops.ardnmf",
+    "salamander_tpu_torch.ops.corrnmf",
     "salamander_tpu_torch.ops.mvnmf",
     "salamander_tpu_torch.parallel.compaction",
+    "salamander_tpu_torch.parallel.corrnmf_scan",
     "salamander_tpu_torch.parallel.multistart",
     "salamander_tpu_torch.parallel.restarts",
 ])
@@ -44,6 +50,20 @@ def test_every_module_imports_with_jax_blocked():
     run = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert run.returncode == 0, run.stderr
+
+
+@pytest.mark.parametrize("call, waits_for", [
+    (lambda port: port.CorrNMFDet(2, device="cpu").fit_minibatch(None),
+     "ops/svi.py"),
+    (lambda port: port.CorrNMFDet(2, device="cpu").plot_embeddings(),
+     "plot.py"),
+    (lambda port: port.ARDNMF(2, device="cpu").plot_relevance(), "plot.py"),
+], ids=["fit_minibatch", "plot_embeddings", "plot_relevance"])
+def test_unported_methods_name_the_slice_they_wait_for(call, waits_for):
+    import salamander_tpu_torch as port
+
+    with pytest.raises(NotImplementedError, match=waits_for):
+        call(port)
 
 
 def _imported_names(path):

@@ -3,7 +3,7 @@ against the JAX package's on the same host (numpy) inits at float64
 (losses at rtol 1e-8, equal iteration counts), and within the port:
 compacted against monolithic per lane identical, the device init
 deterministic per base_seed, a killed-then-resumed checkpointed run equal
-to an uninterrupted one, and the three reference defects of ROADMAP
+to an uninterrupted one, and the four reference defects of ROADMAP
 Queue 3 in this code, each with the port's choice."""
 
 import numpy as np
@@ -119,11 +119,12 @@ def test_device_init_is_deterministic_per_base_seed(frame, family):
 
 
 def test_unported_family_and_mesh_raise(frame):
-    class ARDNMF(port.KLNMF):
+    class MultimodalCorrNMF(port.KLNMF):
         pass
 
-    with pytest.raises(NotImplementedError, match="ARDNMF"):
-        port.fit_best_of(ARDNMF(device="cpu"), port.AnnData(frame.copy()), 2)
+    with pytest.raises(NotImplementedError, match="MultimodalCorrNMF"):
+        port.fit_best_of(MultimodalCorrNMF(device="cpu"),
+                         port.AnnData(frame.copy()), 2)
     with pytest.raises(NotImplementedError, match="mesh"):
         port.fit_best_of(port_model("KLNMF"), port.AnnData(frame.copy()), 2,
                          mesh=object())
@@ -184,6 +185,26 @@ def test_defect_a_checkpoint_identity_has_dtype_and_trial_batch(
     with pytest.warns(UserWarning, match="different run"):
         port.fit_best_of(model, port.AnnData(frame.copy()), R, base_seed=7,
                          checkpoint_dir=tmp_path)
+
+
+def test_defect_d_checkpoint_identity_has_ard_hyperparameters(frame,
+                                                              tmp_path):
+    """Reference defect (multistart.py:127-145): the JAX run identity
+    records ARDNMF's prior but not a and b, so a rerun with another a (or
+    b) would load the earlier run's chunks. Fixed here: a, the resolved b,
+    the prior and dim_embeddings are in the identity, and such a store is
+    discarded."""
+    hyper = {"a": 3.0, "max_iterations": 60}
+    best_of("ARDNMF", frame, hyper=hyper, checkpoint_dir=tmp_path)
+    other_a = dict(hyper, a=4.0)
+    with pytest.warns(UserWarning, match="different run"):
+        _, rerun = best_of("ARDNMF", frame, hyper=other_a,
+                           checkpoint_dir=tmp_path)
+    _, fresh = best_of("ARDNMF", frame, hyper=other_a)
+    assert_same_lanes(rerun, fresh)
+    with pytest.warns(UserWarning, match="different run"):
+        best_of("ARDNMF", frame, hyper=dict(other_a, b=5.0),
+                checkpoint_dir=tmp_path)
 
 
 def test_defect_b_checkpoint_rejects_given_parameters(frame, tmp_path):
