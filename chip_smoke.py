@@ -8,10 +8,16 @@ check raises, so the script exits non-zero and prints no result):
 
 1. environment: torch, CUDA, nvcc, triton, pandas/sklearn, the card's name
    and power limit. Exits 1 at once without a CUDA device.
-2. build csrc/mu_block.cu with nvcc (timed; ptxas's register report).
-3. the fused MU kernel against its plain PyTorch version on the card, at
-   the shapes the main path gives it (PCAWG SBS 96x192, K=5, R=100 lanes)
-   and at edge shapes, rtol 2e-4; kernel and plain times per block.
+2. build csrc/mu_block.cu with nvcc (timed; ptxas's registers and
+   spills of both kernels).
+3. the fused MU block against its plain PyTorch version on the card, at
+   rtol 2e-4: the planned kernel, the resident kernel at every cluster
+   size that holds a lane (1, 2, 4, 8 all held) and the streamed kernel,
+   at the shapes the main path gives it (PCAWG SBS 96x192, K=5, R=100,
+   R=1; the scan's R=20 up to K=10), at edge shapes and on the 96 x 10,000
+   catalog (streamed); then resident and streamed timed in turns (r, s, s,
+   r) per 10-step block at R=100, R=1 and R=20 K=10, beside the plain
+   version and the block's bound.
 4. the main path: KLNMF(n_signatures=5).fit(adata) on PCAWG SBS, float32
    on the card, which must run through the kernel; the same fit again from
    the same init with the plain block must agree.
@@ -48,8 +54,8 @@ check raises, so the script exits non-zero and prints no result):
    rtol 1e-4.
 Phases 9-11 run plain PyTorch ops (neither family reaches the kernel).
 
-Each of phases 4-11 runs with the kernel's launch count set to 0 just
-before it and read just after. The last two lines are the per-kernel JSON
+Each of phases 4-11 runs with the kernel's launch counts (in all and by
+kernel) set to 0 just before it and read just after. The last two lines are the per-kernel JSON
 record and
 {"ok": true, "device": {...}}; the card's name and power limit precede
 them.
@@ -73,6 +79,8 @@ FIT_RTOL = 1e-4             # final objective, kernel vs plain fit
 BLOCK = 10                  # conv_test_freq: steps per kernel launch
 WINDOW = 5000               # iterations of every headline lane
 F32_NOISE = 64 * float(np.finfo(np.float32).eps)  # relative ELBO fall
+F32_PEAK = 67e12            # H100 SXM float32 FLOP/s outside tensor cores
+HBM_RATE = 3.35e12          # H100 SXM device memory bytes/s
 
 
 def check(condition: bool, message: str) -> None:
@@ -112,15 +120,46 @@ def phase_environment(torch) -> None:
     print(f"[1] nvidia-smi: {card_line()}")
 
 
+def ptxas_report(log: str):
+    """[(kernel, registers, spill store bytes, spill load bytes, stack
+    bytes)] from ptxas -v output."""
+    import re
+
+    rows, kernel, frame = [], None, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = entry.group(1)
+            args = re.findall(r"Li(\d+)E", name)
+            kernel = ("mu_block_resident_kernel<" + ", ".join(args) + ">"
+                      if "resident" in name else "mu_block_streamed_kernel")
+        sizes = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+        if sizes:
+            frame = [int(x) for x in sizes.groups()]
+        used = re.search(r"Used (\d+) registers", line)
+        if used and kernel is not None and frame is not None:
+            rows.append((kernel, int(used.group(1)), frame[1], frame[2],
+                         frame[0]))
+            kernel, frame = None, None
+    return rows
+
+
 def phase_build(cuda_klnmf):
     start = time.perf_counter()
     library = cuda_klnmf.build()
     cuda_klnmf._library()
     seconds = time.perf_counter() - start
     print(f"[2] built {library.relative_to(ROOT)} in {seconds:.2f} s")
-    for line in library.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[2] ptxas: {line.strip()}")
+    rows = ptxas_report(library.with_suffix(".log").read_text())
+    for kernel, registers, stores, loads, stack in rows:
+        print(f"[2] ptxas {kernel}: {registers} registers, {stores} B spill "
+              f"stores, {loads} B spill loads, {stack} B stack frame")
+    expected = 1 + sum(len(cuda_klnmf.chunk_counts(rank))
+                       for rank in cuda_klnmf._RANK_PARTS)
+    check(len(rows) == expected,
+          f"ptxas reported {len(rows)} kernels, not {expected}")
+    check(all(row[2] == row[3] == 0 for row in rows), "a kernel spills")
 
 
 def time_ms(torch, fn, repeats: int) -> float:
@@ -138,64 +177,126 @@ def time_ms(torch, fn, repeats: int) -> float:
     return start.elapsed_time(end) / repeats
 
 
+def block_bound(R: int, V: int, K: int, D: int, steps: int):
+    """(ms, "operations" or "bytes"): the least time an H100 could take
+    for `steps` joint updates of R lanes. Per step and lane 6*V*D*K FLOP of
+    the three depth-K contractions, V*D divisions, ~4*V*K (W') and 2*K*D
+    (H') elementwise operations, at the 67 TFLOP/s float32 peak outside
+    the tensor cores; bytes: X read once, W and H read and written once, at
+    3.35 TB/s."""
+    flops = steps * R * (6 * V * D * K + V * D + 4 * V * K + 2 * K * D)
+    n_bytes = 4 * (V * D + 2 * R * V * K + 2 * R * K * D)
+    ops_ms, bytes_ms = 1e3 * flops / F32_PEAK, 1e3 * n_bytes / HBM_RATE
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else \
+        (bytes_ms, "bytes")
+
+
 def phase_kernel(torch, cuda_klnmf, datasets, random_init_batch):
-    """Kernel vs plain on the card; returns (max_abs_err, timings)."""
+    """Both kernels against the plain version on the card; the resident
+    and streamed kernels timed in turns. Returns (max_abs_err, timings)."""
     catalogs = {
-        "sbs": datasets.load_pcawg_sbs(),
-        "indel": datasets.load_pcawg_indel(),
-        "sv": datasets.load_pcawg_sv(),
+        "sbs": datasets.load_pcawg_sbs().to_numpy().T,
+        "indel": datasets.load_pcawg_indel().to_numpy().T,
+        "sv": datasets.load_pcawg_sv().to_numpy().T,
+        "synthetic": datasets.synthetic_catalog(96, 10_000, 8, seed=0),
     }
-    counts = {key: torch.as_tensor(frame.to_numpy().T.copy(),
+    counts = {key: torch.as_tensor(np.ascontiguousarray(array),
                                    dtype=torch.float32, device="cuda")
-              for key, frame in catalogs.items()}
+              for key, array in catalogs.items()}
     cases = [  # (catalog, K, R, samples, step counts)
-        ("sbs", 5, 100, None, (1, 7, 10, 3)),
+        ("sbs", 5, 100, None, (1, 7, 10, 3, 0)),
         ("sbs", 5, 1, None, (10,)),
+        ("sbs", 5, 20, None, (10,)),
+        ("sbs", 5, 40, None, (10,)),
+        ("sbs", 10, 20, None, (10,)),
         ("indel", 5, 4, None, (10,)),
         ("sv", 5, 4, None, (10,)),
         ("sbs", 1, 4, None, (10,)),
         ("sbs", 20, 4, None, (10,)),
         ("sbs", 5, 4, 100, (10,)),  # D = 100: not a multiple of the tile
+        ("sbs", 5, 1, 100, (10,)),  # D = 100 caps the cluster at 4
+        ("synthetic", 5, 20, None, (10,)),  # 96 x 10,000: streamed
     ]
     print(f"[3] tolerance: rtol {KERNEL_RTOL}, atol 1e-6 x max|plain| per "
           "tensor (entries at the eps clip)")
     max_abs_err = 0.0
+    clusters_held = set()
     for key, K, R, samples, step_counts in cases:
         X = counts[key] if samples is None else \
             counts[key][:, :samples].contiguous()
+        V, D = X.shape
         generator = torch.Generator(device="cuda").manual_seed(K * 1000 + R)
         W, H = random_init_batch(generator, X, K, R)
+        plan = cuda_klnmf.launch_plan(X, W)
+        names = [("planned", plan.cluster)] + cuda_klnmf._kernels_taking(
+            V, K, D)
         for steps in step_counts:
-            W_k, H_k = cuda_klnmf.fused_mu_block(X, W, H, steps)
-            torch.cuda.synchronize()
             W_r, H_r = cuda_klnmf.fused_mu_block_reference(X, W, H, steps)
-            for name, actual, expected in (("W", W_k, W_r), ("H", H_k, H_r)):
-                check(bool(torch.isfinite(actual).all()),
-                      f"non-finite kernel {name}")
-                atol = 1e-6 * float(expected.abs().max())
-                torch.testing.assert_close(actual, expected,
-                                           rtol=KERNEL_RTOL, atol=atol)
-                error = float((actual - expected).abs().max())
-                relative = float(((actual - expected).abs()
-                                  / expected.abs()).max())
-                max_abs_err = max(max_abs_err, error)
-                print(f"[3] {key} V={X.shape[0]} D={X.shape[1]} K={K} R={R} "
-                      f"steps={steps} {name}: max abs err {error:.3e}, "
-                      f"max rel err {relative:.3e}")
+            for variant, cluster in names:
+                if variant == "planned":
+                    W_k, H_k = cuda_klnmf.fused_mu_block(X, W, H, steps)
+                else:
+                    W_k, H_k = cuda_klnmf._fused_mu_block_variant(
+                        X, W, H, steps, variant, cluster)
+                    if variant == "resident":
+                        clusters_held.add(cluster)
+                torch.cuda.synchronize()
+                errors = []
+                for name, actual, expected in (("W", W_k, W_r),
+                                               ("H", H_k, H_r)):
+                    check(bool(torch.isfinite(actual).all()),
+                          f"non-finite kernel {name}")
+                    atol = 1e-6 * float(expected.abs().max())
+                    torch.testing.assert_close(actual, expected,
+                                               rtol=KERNEL_RTOL, atol=atol)
+                    error = float((actual - expected).abs().max())
+                    relative = float(((actual - expected).abs()
+                                      / expected.abs()).max())
+                    max_abs_err = max(max_abs_err, error)
+                    errors.append(f"{name} abs {error:.3e} rel "
+                                  f"{relative:.3e}")
+                label = (f"planned {plan.variant} C={plan.cluster}"
+                         if variant == "planned" else
+                         f"{variant} C={cluster}")
+                print(f"[3] {key} V={V} D={D} K={K} R={R} steps={steps} "
+                      f"{label}: max err {'; '.join(errors)}")
+    check(clusters_held == {1, 2, 4, 8},
+          f"the resident kernel was held at clusters {clusters_held}")
+    check(cuda_klnmf.launch_plan(counts["sbs"], torch.empty(
+        100, 96, 5, device="cuda")).variant == "resident",
+        "the headline shape does not take the resident kernel")
 
     timings = {}
     X = counts["sbs"]
-    for R in (100, 1):
+    V, D = X.shape
+    for K, R in ((5, 100), (5, 1), (10, 20)):
         generator = torch.Generator(device="cuda").manual_seed(R)
-        W, H = random_init_batch(generator, X, 5, R)
-        kernel = time_ms(
-            torch, lambda: cuda_klnmf.fused_mu_block(X, W, H, BLOCK), 200)
+        W, H = random_init_batch(generator, X, K, R)
+        plan = cuda_klnmf.launch_plan(X, W)
+        check(plan.variant == "resident", f"K={K} R={R} is not resident")
+        runs = {"resident": [], "streamed": []}
+        for variant in ("resident", "streamed", "streamed", "resident"):
+            runs[variant].append(time_ms(
+                torch, lambda: cuda_klnmf._fused_mu_block_variant(
+                    X, W, H, BLOCK, variant, plan.cluster if variant ==
+                    "resident" else 1), 200))
         plain = time_ms(
             torch,
             lambda: cuda_klnmf.fused_mu_block_reference(X, W, H, BLOCK), 50)
-        timings[R] = (kernel, plain)
-        print(f"[3] one block of {BLOCK} steps, PCAWG SBS K=5 R={R}: kernel "
-              f"{kernel:.4f} ms, plain {plain:.4f} ms")
+        bound_ms, bound_by = block_bound(R, V, K, D, BLOCK)
+        timings[(K, R)] = {
+            "K": K, "R": R, "cluster": plan.cluster,
+            "resident_ms": runs["resident"], "streamed_ms": runs["streamed"],
+            "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / min(runs["resident"]),
+        }
+        print(f"[3] one block of {BLOCK} steps, PCAWG SBS K={K} R={R}: "
+              f"resident (C={plan.cluster}) "
+              f"{', '.join(f'{t:.4f}' for t in runs['resident'])} ms, "
+              f"streamed {', '.join(f'{t:.4f}' for t in runs['streamed'])} "
+              f"ms (in turns r, s, s, r), plain {plain:.4f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by}), resident at "
+              f"{100 * bound_ms / min(runs['resident']):.1f}% of the bound")
     return max_abs_err, timings
 
 
@@ -668,14 +769,18 @@ def main() -> int:
                                         random_init_batch)
 
     X_host = datasets.load_pcawg_sbs().to_numpy().T.copy()
-    launches = {}
+    launches, by_variant = {}, {}
 
     def drive(path, phase, *args):
-        """Run one path with the launch count set to 0 just before it and
+        """Run one path with the launch counts set to 0 just before it and
         read just after."""
+        counts = cuda_klnmf.fused_mu_block.launches_by_variant
         cuda_klnmf.fused_mu_block.launches = 0
+        for variant in counts:
+            counts[variant] = 0
         out = phase(*args)
         launches[path] = cuda_klnmf.fused_mu_block.launches
+        by_variant[path] = dict(counts)
         return out
 
     drive("4 KLNMF.fit", phase_main_path, sal, cuda_klnmf)
@@ -691,9 +796,13 @@ def main() -> int:
     for path in ("4 KLNMF.fit", "5 fit_klnmf_restarts",
                  "6 fit_best_of KLNMF", "8 rank_scan_klnmf"):
         check(launches[path] > 0, f"path {path} launched no kernel")
+        check(by_variant[path]["resident"] > 0,
+              f"path {path} did not run the resident kernel")
     print(f"kernel launches by path: {launches}")
+    print(f"kernel launches by path and kernel: {by_variant}")
 
-    block_ms = timings[100][0]
+    headline = timings[(5, 100)]
+    block_ms = min(headline["resident_ms"])
     blocks = WINDOW // BLOCK
     wall_ms = 1000 * (100 * WINDOW / rates["kernel"]) / blocks
     print(f"[5] kernel time per {BLOCK}-step block {block_ms:.4f} ms vs "
@@ -708,9 +817,18 @@ def main() -> int:
         "replaces": "salamander_tpu/ops/pallas_klnmf.py:75",
         "launches": sum(launches.values()),
         "launches_by_path": launches,
+        "launches_by_kernel": {
+            variant: sum(counts[variant] for counts in by_variant.values())
+            for variant in ("resident", "streamed")},
         "max_abs_err": max_abs_err,
+        "variant": "resident",
+        "cluster": headline["cluster"],
         "ms": block_ms,
-        "plain_ms": timings[100][1],
+        "plain_ms": headline["plain_ms"],
+        "bound_ms": headline["bound_ms"],
+        "bound_by": headline["bound_by"],
+        "library_ms": None,
+        "timings": list(timings.values()),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

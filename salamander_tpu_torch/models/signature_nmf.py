@@ -38,10 +38,14 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
 def resolve_device(device=None) -> torch.device:
-    """None means the first CUDA device when one is available, else CPU."""
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    return torch.device(device)
+    """None means the current CUDA device; without one it raises, so a
+    fit never moves to the CPU unasked (pass device="cpu" for that)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise ValueError("no CUDA device found: pass device='cpu' to run "
+                         "on the CPU")
+    return torch.device("cuda")
 
 
 def resolve_dtype(dtype, device) -> torch.dtype:

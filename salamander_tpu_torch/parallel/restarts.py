@@ -83,8 +83,8 @@ def _to_device(array, dtype, device) -> torch.Tensor:
 def _restart_inputs(X, n_signatures, n_restarts, seed, weights_kl,
                     weights_lhalf, dtype, device):
     """The batched random init and the data dict of a multi-start KLNMF
-    fit. device=None means the first CUDA device when one is available,
-    else the CPU; the draws come from a torch.Generator seeded with `seed`
+    fit. device=None means the current CUDA device (resolve_device raises
+    without one); the draws come from a torch.Generator seeded with `seed`
     on that device."""
     device = resolve_device(device)
     if device.type == "cuda":
@@ -152,7 +152,7 @@ def fit_klnmf_restarts(
     """Fit `n_restarts` random-initialized KLNMF models at once.
 
     X is (n_features, n_samples) in kernel orientation. device=None means
-    the first CUDA device when one is available, else the CPU. The initial
+    the current CUDA device (resolve_device raises without one). The initial
     draws come from a torch.Generator seeded with `seed` on that device.
     Pass a prebuilt `runner` (build_klnmf_restart_runner) to reuse one
     across calls.

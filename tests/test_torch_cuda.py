@@ -1,5 +1,6 @@
-"""Tests that need an NVIDIA GPU: the port's CUDA kernel against its plain
-PyTorch version. They skip without a card.
+"""Tests that need an NVIDIA GPU: the port's CUDA kernels (resident at
+every cluster size, and streamed) against their plain PyTorch version.
+They skip without a card.
 
 This file imports neither jax nor salamander_tpu, so it also runs where JAX
 is not installed: on the card, run
@@ -39,27 +40,94 @@ def assert_kernel_close(actual, expected):
     torch.testing.assert_close(actual, expected, rtol=2e-4, atol=atol)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("V, K, D, R", [
-    (96, 5, 192, 100),   # PCAWG SBS headline shape
-    (96, 5, 192, 1),
+SHAPES = [
+    (96, 5, 192, 100),   # PCAWG SBS headline shape (resident, C=1)
+    (96, 5, 192, 1),     # a single fit (C=8)
+    (96, 5, 192, 20),    # C=4
+    (96, 5, 192, 40),    # C=2
+    (96, 10, 192, 20),   # the rank scan's K=10 point
     (83, 5, 192, 4),     # indel channels
     (32, 5, 192, 4),     # SV channels
     (96, 1, 192, 4),
     (96, 20, 192, 4),
     (96, 5, 100, 4),     # D not a multiple of the tile
-])
+    (96, 5, 100, 1),     # D limits the cluster to 4
+    (83, 5, 17, 3),      # D not a multiple of 4: 4-byte copies of X
+]
+STEP_COUNTS = (1, 7, 10, 3, 0)
+
+
+def card_problem(device, V, K, D, R):
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in make_problem(V, K, D, R, seed=V + K + D + R))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V, K, D, R", SHAPES)
 def test_kernel_matches_plain_on_card(cuda_device, V, K, D, R):
-    X, W, H = (torch.from_numpy(a).to(cuda_device)
-               for a in make_problem(V, K, D, R, seed=V + K + D + R))
-    for steps in (1, 7, 10, 3):
+    """The planned kernel (fused_mu_block) against the plain version."""
+    X, W, H = card_problem(cuda_device, V, K, D, R)
+    plan = cuda_klnmf.launch_plan(X, W)
+    for steps in STEP_COUNTS:
         before = cuda_klnmf.fused_mu_block.launches
+        by_variant = cuda_klnmf.fused_mu_block.launches_by_variant[
+            plan.variant]
         W_k, H_k = cuda_klnmf.fused_mu_block(X, W, H, steps)
         torch.cuda.synchronize()
         assert cuda_klnmf.fused_mu_block.launches == before + 1
+        assert cuda_klnmf.fused_mu_block.launches_by_variant[
+            plan.variant] == by_variant + 1
         W_r, H_r = cuda_klnmf.fused_mu_block_reference(X, W, H, steps)
         assert_kernel_close(W_k, W_r)
         assert_kernel_close(H_k, H_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V, K, D, R", SHAPES + [(96, 5, 10000, 20)])
+def test_each_kernel_matches_plain_on_card(cuda_device, V, K, D, R):
+    """Both kernels, the resident one at every cluster size that holds a
+    lane, against the plain version at 0, 1, 3, 7 and 10 steps; 0 steps
+    copy the inputs."""
+    X, W, H = card_problem(cuda_device, V, K, D, R)
+    names = cuda_klnmf._kernels_taking(V, K, D)
+    assert ("streamed", 1) in names
+    if D == 10000:
+        assert cuda_klnmf.launch_plan(X, W).variant == "streamed"
+    for steps in STEP_COUNTS:
+        W_r, H_r = cuda_klnmf.fused_mu_block_reference(X, W, H, steps)
+        for variant, cluster in names:
+            W_k, H_k = cuda_klnmf._fused_mu_block_variant(
+                X, W, H, steps, variant, cluster)
+            torch.cuda.synchronize()
+            if steps == 0:
+                assert torch.equal(W_k, W) and torch.equal(H_k, H)
+            assert_kernel_close(W_k, W_r)
+            assert_kernel_close(H_k, H_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V, K, D, R", [(96, 5, 192, 100), (96, 5, 192, 1),
+                                        (96, 10, 192, 20), (83, 5, 17, 3)])
+def test_two_launches_are_bit_equal(cuda_device, V, K, D, R):
+    """Fixed reduction orders and no atomics: the same inputs give the same
+    bits, in every kernel."""
+    X, W, H = card_problem(cuda_device, V, K, D, R)
+    for variant, cluster in cuda_klnmf._kernels_taking(V, K, D):
+        first = cuda_klnmf._fused_mu_block_variant(X, W, H, 10, variant,
+                                                   cluster)
+        second = cuda_klnmf._fused_mu_block_variant(X, W, H, 10, variant,
+                                                    cluster)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_the_library_agrees_with_the_plan(cuda_device):
+    """mu_block_plan in the source and plan_launch agree (the library
+    checks it at load) and the headline shape takes the resident kernel."""
+    cuda_klnmf._library()
+    X, W, _ = card_problem(cuda_device, 96, 5, 192, 100)
+    assert cuda_klnmf.launch_plan(X, W).variant == "resident"
 
 
 @pytest.mark.cuda

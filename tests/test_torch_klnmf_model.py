@@ -17,6 +17,7 @@ from salamander_tpu.parallel.restarts import (
     build_klnmf_restart_runner as jax_restart_runner,
 )
 from salamander_tpu_torch.engine import params_from_numpy, params_to_numpy
+from salamander_tpu_torch.models.signature_nmf import resolve_device
 
 torch.set_num_threads(1)
 
@@ -56,6 +57,26 @@ def test_port_defaults_to_float64_on_the_cpu():
                       dtype="float32").dtype == "float32"
     with pytest.raises(ValueError, match="Unsupported"):
         port.KLNMF(n_signatures=2, device="cpu", dtype="float16")
+
+
+@pytest.mark.parametrize("call", [
+    lambda: resolve_device(None),
+    lambda: port.KLNMF(2),
+    lambda: port.fit_klnmf_restarts(np.ones((4, 6)), 2, 2),
+])
+def test_no_device_without_a_card_raises(monkeypatch, call):
+    """device=None never means the CPU: without a card it asks for
+    device='cpu'."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="pass device='cpu'"):
+        call()
+
+
+def test_resolve_device_takes_the_card_or_what_it_is_given(monkeypatch):
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert port.KLNMF(2, device="cpu").device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None).type == "cuda"
 
 
 # flat starts every signature equal: a saddle whose symmetry the last bit

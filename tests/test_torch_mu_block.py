@@ -123,3 +123,47 @@ def test_shared_bytes_bound():
     assert cuda_klnmf.shared_bytes(96, 5) < 48 * 1024
     assert cuda_klnmf.shared_bytes(96, cuda_klnmf.K_MAX) < 232448
     assert cuda_klnmf.shared_bytes(4096, 3) > 232448
+    # the resident kernel holds PCAWG SBS's X (72 KiB) with W and H
+    assert 96 * 192 * 4 < cuda_klnmf.resident_shared_bytes(96, 5, 192, 1) \
+        <= 232448
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("R, V, K, D, variant, cluster", [
+    (100, 96, 5, 192, "resident", 1),    # the headline: 100 lanes, 132 SMs
+    (1, 96, 5, 192, "resident", 8),      # KLNMF.fit: one lane on 8 SMs
+    (40, 96, 5, 192, "resident", 2),
+    (20, 96, 10, 192, "resident", 4),    # the rank scan's lanes
+    (1, 96, 5, 100, "resident", 4),      # >= 16 samples a CTA caps C at 4
+    (20, 96, 10, 10000, "streamed", 1),  # X does not fit: the streamed one
+    (100, 96, 32, 192, "streamed", 1),
+    (1, 4096, 3, 20, None, 1),           # neither kernel takes V=4096
+    (1, 96, 33, 192, None, 1),           # K above K_MAX
+])
+def test_launch_plan(R, V, K, D, variant, cluster):
+    plan = cuda_klnmf.plan_launch(R, V, K, D, H100_SMS)
+    assert (plan.variant, plan.cluster) == (variant, cluster)
+    assert plan.threads == cuda_klnmf.THREADS
+    if variant == "resident":
+        assert plan.shared_bytes == cuda_klnmf.resident_shared_bytes(
+            V, K, D, cluster)
+    elif variant == "streamed":
+        assert plan.shared_bytes == cuda_klnmf.shared_bytes(V, K)
+
+
+@pytest.mark.parametrize("K", [1, 5, 8, 9, 16, 17, 32])
+def test_every_planned_launch_fits_shared_memory(K):
+    shapes = [(R, V, D) for R in (1, 20, 40, 100, 200)
+              for V in (32, 83, 96, 200, 1000)
+              for D in (1, 16, 17, 100, 192, 1000, 10000)]
+    for R, V, D in shapes:
+        plan = cuda_klnmf.plan_launch(R, V, K, D, H100_SMS)
+        assert plan.shared_bytes <= 232448
+        assert (plan.variant is None) == (plan.shared_bytes == 0)
+        if plan.variant == "resident" and plan.cluster > 1:
+            assert -(-D // plan.cluster) >= 16
+        # support does not depend on the SM count
+        assert (cuda_klnmf.plan_launch(R, V, K, D, 1).variant is None) == \
+            (plan.variant is None)

@@ -107,8 +107,9 @@ def test_transform_matches_jax(catalog):
 def test_single_step_helpers_match_jax(catalog):
     adata_j, adata_t = containers_of(catalog.iloc[:N_SAMPLES])
     models = []
-    for cls, adata in ((JaxMvNMF, adata_j), (MvNMF, adata_t)):
-        model = cls(n_signatures=2, init_method="random")
+    for cls, adata, device in ((JaxMvNMF, adata_j, {}),
+                               (MvNMF, adata_t, {"device": "cpu"})):
+        model = cls(n_signatures=2, init_method="random", **device)
         model._setup_adata(adata)
         model._initialize(init_kwargs={"seed": 1})
         model._setup_fitting_parameters()
