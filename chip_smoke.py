@@ -17,7 +17,10 @@ check raises, so the script exits non-zero and prints no result):
    R=1; the scan's R=20 up to K=10), at edge shapes and on the 96 x 10,000
    catalog (streamed); then resident and streamed timed in turns (r, s, s,
    r) per 10-step block at R=100, R=1 and R=20 K=10, beside the plain
-   version and the block's bound.
+   version and the block's bound. Then a per-lane X (R=20 PCAWG SBS
+   resamples, K=5): every kernel against the plain version, lanes copying
+   one X bit-equal to the shared-X launch, and the block timed with a
+   per-lane and a shared X in turns.
 4. the main path: KLNMF(n_signatures=5).fit(adata) on PCAWG SBS, float32
    on the card, which must run through the kernel; the same fit again from
    the same init with the plain block must agree.
@@ -53,9 +56,21 @@ check raises, so the script exits non-zero and prints no result):
    packed, and padded one point per call, in turns; best ELBO per rank at
    rtol 1e-4.
 Phases 9-11 run plain PyTorch ops (neither family reaches the kernel).
+12. extract_signatures(PCAWG SBS, range(2, 11), n_bootstraps=20, seed=0)
+   grouped (each rank's lanes through the kernel with a per-lane X) and
+   padded (one rank-masked batch of plain ops), in turns: walls, lane
+   iterations, launches, suggested rank, min stabilities; each rank's best
+   replicate loss agrees across the layouts at rtol 1e-4.
+13. assign_exposures and assign_signatures(rel_tol=0.02) of PCAWG SBS
+   against COSMIC-79 (fails on any sample over the reported budget), then
+   decompose_signatures of phase 12's rank-5 consensus.
+14. bootstrap_stability(KLNMF(5).fit(PCAWG SBS), 20) through the kernel
+   (per-lane X) and the plain block, best loss at rtol 1e-4; then
+   bootstrap_exposures(PCAWG SBS, COSMIC-79, 50).
 
-Each of phases 4-11 runs with the kernel's launch counts (in all and by
-kernel) set to 0 just before it and read just after. The last two lines are the per-kernel JSON
+Each of phases 4-14 runs with the kernel's launch counts (in all, by
+kernel and by shared or per-lane X) set to 0 just before it and read just
+after. The last two lines are the per-kernel JSON
 record and
 {"ok": true, "device": {...}}; the card's name and power limit precede
 them.
@@ -177,15 +192,17 @@ def time_ms(torch, fn, repeats: int) -> float:
     return start.elapsed_time(end) / repeats
 
 
-def block_bound(R: int, V: int, K: int, D: int, steps: int):
+def block_bound(R: int, V: int, K: int, D: int, steps: int,
+                per_lane_x: bool = False):
     """(ms, "operations" or "bytes"): the least time an H100 could take
     for `steps` joint updates of R lanes. Per step and lane 6*V*D*K FLOP of
     the three depth-K contractions, V*D divisions, ~4*V*K (W') and 2*K*D
     (H') elementwise operations, at the 67 TFLOP/s float32 peak outside
-    the tensor cores; bytes: X read once, W and H read and written once, at
-    3.35 TB/s."""
+    the tensor cores; bytes: X (one, or one per lane) read once, W and H
+    read and written once, at 3.35 TB/s."""
     flops = steps * R * (6 * V * D * K + V * D + 4 * V * K + 2 * K * D)
-    n_bytes = 4 * (V * D + 2 * R * V * K + 2 * R * K * D)
+    n_x = R if per_lane_x else 1
+    n_bytes = 4 * (n_x * V * D + 2 * R * V * K + 2 * R * K * D)
     ops_ms, bytes_ms = 1e3 * flops / F32_PEAK, 1e3 * n_bytes / HBM_RATE
     return (ops_ms, "operations") if ops_ms >= bytes_ms else \
         (bytes_ms, "bytes")
@@ -297,7 +314,105 @@ def phase_kernel(torch, cuda_klnmf, datasets, random_init_batch):
               f"ms (in turns r, s, s, r), plain {plain:.4f} ms, bound "
               f"{bound_ms:.5f} ms ({bound_by}), resident at "
               f"{100 * bound_ms / min(runs['resident']):.1f}% of the bound")
-    return max_abs_err, timings
+    per_lane_err, timings["per_lane"] = phase_kernel_per_lane_x(
+        torch, cuda_klnmf, catalogs["sbs"])
+    return max(max_abs_err, per_lane_err), timings
+
+
+def resamples(counts: np.ndarray, R: int, seed: int) -> np.ndarray:
+    """R multinomial resamples (R, V, D) of a (V, D) count matrix, each
+    sample's total kept, EPSILON-clipped as a fit clips its counts."""
+    rng = np.random.default_rng(seed)
+    totals = counts.sum(0).astype(np.int64)
+    lanes = np.stack([
+        np.stack([rng.multinomial(n, column / column.sum())
+                  for n, column in zip(totals, counts.T)], axis=1)
+        for _ in range(R)])
+    return np.clip(lanes, np.finfo(np.float32).eps, None)
+
+
+def phase_kernel_per_lane_x(torch, cuda_klnmf, counts_host):
+    """X (R, V, D), one count matrix per lane (the bootstrap and extraction
+    lanes): R = 20 PCAWG SBS resamples at K = 5, the resident kernel at
+    every cluster size that holds a lane and the streamed kernel, against
+    the plain version at rtol 2e-4; lanes that all copy one X give the
+    bits of the shared-X (lane stride 0) launch. Then the planned kernel
+    timed with a per-lane and a shared X in turns. Returns (max_abs_err,
+    timing)."""
+    from salamander_tpu_torch.initialization.methods import (
+        random_init_batch,
+    )
+
+    R, K = 20, 5
+    X = torch.as_tensor(resamples(counts_host, R, seed=0),
+                        dtype=torch.float32, device="cuda")
+    V, D = X.shape[1:]
+    generator = torch.Generator(device="cuda").manual_seed(20)
+    W, H = random_init_batch(generator, X[0], K, R)
+    names = cuda_klnmf._kernels_taking(V, K, D)
+    check({c for v, c in names if v == "resident"} == {1, 2, 4, 8}
+          and ("streamed", 1) in names,
+          f"per-lane X: the kernels taking it are {names}")
+    max_abs_err = 0.0
+    for steps in (1, 10):
+        W_r, H_r = cuda_klnmf.fused_mu_block_reference(X, W, H, steps)
+        for variant, cluster in names:
+            W_k, H_k = cuda_klnmf._fused_mu_block_variant(
+                X, W, H, steps, variant, cluster)
+            torch.cuda.synchronize()
+            errors = []
+            for name, actual, expected in (("W", W_k, W_r), ("H", H_k, H_r)):
+                check(bool(torch.isfinite(actual).all()),
+                      f"per-lane X: non-finite kernel {name}")
+                torch.testing.assert_close(
+                    actual, expected, rtol=KERNEL_RTOL,
+                    atol=1e-6 * float(expected.abs().max()))
+                error = float((actual - expected).abs().max())
+                relative = float(((actual - expected).abs()
+                                  / expected.abs()).max())
+                max_abs_err = max(max_abs_err, error)
+                errors.append(f"{name} abs {error:.3e} rel {relative:.3e}")
+            print(f"[3] per-lane X (R={R}, {V}x{D} resamples) K={K} "
+                  f"steps={steps} {variant} C={cluster}: max err "
+                  f"{'; '.join(errors)}")
+    shared = X[0].contiguous()
+    copies = shared.expand_as(X).contiguous()
+    for variant, cluster in names:
+        one = cuda_klnmf._fused_mu_block_variant(shared, W, H, BLOCK, variant,
+                                                 cluster)
+        lanes = cuda_klnmf._fused_mu_block_variant(copies, W, H, BLOCK,
+                                                   variant, cluster)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(one, lanes)),
+              f"per-lane copies of X differ from the shared X ({variant} "
+              f"C={cluster})")
+    print(f"[3] per-lane X: lanes copying one X equal the shared-X launch "
+          f"bit for bit in all {len(names)} kernels")
+
+    plan = cuda_klnmf.launch_plan(X, W)
+    check(plan.variant == "resident", "per-lane X R=20 is not resident")
+    runs = {"per_lane": [], "shared": []}
+    for which in ("per_lane", "shared", "shared", "per_lane"):
+        source = X if which == "per_lane" else shared
+        runs[which].append(time_ms(
+            torch, lambda: cuda_klnmf.fused_mu_block(source, W, H, BLOCK),
+            200))
+    plain = time_ms(
+        torch, lambda: cuda_klnmf.fused_mu_block_reference(X, W, H, BLOCK), 50)
+    bound_ms, bound_by = block_bound(R, V, K, D, BLOCK, per_lane_x=True)
+    per_lane_ms = ", ".join(f"{t:.4f}" for t in runs["per_lane"])
+    shared_ms = ", ".join(f"{t:.4f}" for t in runs["shared"])
+    print(f"[3] one block of {BLOCK} steps, per-lane X K={K} R={R}: resident "
+          f"(C={plan.cluster}) {per_lane_ms} ms, shared X {shared_ms} ms "
+          f"(in turns p, s, s, p), plain {plain:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}), per-lane at "
+          f"{100 * bound_ms / min(runs['per_lane']):.1f}% of the bound")
+    return max_abs_err, {
+        "K": K, "R": R, "x": "per_lane", "cluster": plan.cluster,
+        "resident_ms": runs["per_lane"], "shared_x_ms": runs["shared"],
+        "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+        "share_of_bound": bound_ms / min(runs["per_lane"]),
+    }
 
 
 def phase_main_path(sal, cuda_klnmf):
@@ -749,6 +864,153 @@ def phase_corrnmf_scan(torch, sal, X_samples):
         for name in layouts))
 
 
+def per_lane_launches(cuda_klnmf) -> int:
+    return cuda_klnmf.fused_mu_block.launches_by_x["per_lane"]
+
+
+def phase_extraction(torch, sal, cuda_klnmf):
+    """Cell 7: extract_signatures(PCAWG SBS, range(2, 11), n_bootstraps=20,
+    seed=0) in the grouped layout (each rank's lanes through the kernel
+    with a per-lane X) and the padded one (one rank-masked batch of plain
+    ops), in turns; each rank's best replicate loss agrees across them at
+    rtol 1e-4. Returns the grouped run's result."""
+    from salamander_tpu_torch import extraction
+
+    data = sal.datasets.load_pcawg_sbs()
+    choose = extraction._choose_layout
+    results, walls = {}, {"grouped": [], "padded": []}
+    for layout in ("grouped", "padded", "padded", "grouped"):
+        if layout == "padded":
+            extraction._choose_layout = lambda *args: "padded"
+        launches, per_lane = (cuda_klnmf.fused_mu_block.launches,
+                              per_lane_launches(cuda_klnmf))
+        try:
+            result, seconds = timed(torch, lambda: sal.extract_signatures(
+                data, range(2, 11), n_bootstraps=20, seed=0, device="cuda"))
+        finally:
+            extraction._choose_layout = choose
+        launches = cuda_klnmf.fused_mu_block.launches - launches
+        per_lane = per_lane_launches(cuda_klnmf) - per_lane
+        check(result.layout == layout, f"ran {result.layout}, not {layout}")
+        if layout == "grouped":
+            check(launches > 0 and per_lane == launches,
+                  "the grouped extraction did not launch the kernel with a "
+                  "per-lane X")
+        else:
+            check(launches == 0, "the padded extraction has no kernel")
+        table = result.table
+        check(bool(np.isfinite(table.to_numpy()).all()),
+              "non-finite extraction table")
+        iterations = np.concatenate(list(
+            result.replicate_iterations.values()))
+        walls[layout].append(seconds)
+        results[layout] = result
+        print(f"[12] extract_signatures(PCAWG SBS, k=2..10, B=20) {layout}: "
+              f"{seconds:.3f} s, {launches} kernel launches ({per_lane} with "
+              f"a per-lane X), lane iterations {iterations.min()}.."
+              f"{iterations.max()} (sum {iterations.sum()}), suggested rank "
+              f"{result.suggested_rank}")
+        print(f"[12] {layout} min stability per rank: " + ", ".join(
+            f"{k}:{s:.4f}" for k, s in table["min_stability"].items()))
+        print(f"[12] {layout} best replicate loss per rank: " + ", ".join(
+            f"{k}:{losses.min():.3f}"
+            for k, losses in result.replicate_losses.items()))
+    grouped, padded = results["grouped"], results["padded"]
+    for k in grouped.replicate_losses:
+        check_best_agree(f"[12] k={k} grouped vs padded",
+                         float(grouped.replicate_losses[k].min()),
+                         float(padded.replicate_losses[k].min()))
+    print("[12] walls: " + "; ".join(
+        f"{name} {', '.join(f'{s:.3f}' for s in walls[name])} s"
+        for name in walls))
+    return grouped
+
+
+def phase_assignment(torch, sal, consensus):
+    """Cell 8: assign_exposures and assign_signatures(rel_tol=0.02) of PCAWG
+    SBS against COSMIC v3.3.1 (79 signatures), then decompose_signatures
+    of the extraction's rank-5 consensus. Fails on any sample over the
+    reported budget."""
+    data = sal.datasets.load_pcawg_sbs()
+    catalog = sal.datasets.load_cosmic_sbs_catalog()
+    dense, seconds = timed(torch, lambda: sal.assign_exposures(
+        data, catalog, device="cuda"))
+    check(dense.shape == (data.shape[0], catalog.shape[0])
+          and bool(np.isfinite(dense.to_numpy()).all()), "dense exposures")
+    print(f"[13] assign_exposures(PCAWG SBS x COSMIC-79): {seconds:.3f} s")
+    rel_tol = 0.02
+    result, seconds = timed(torch, lambda: sal.assign_signatures(
+        data, catalog, rel_tol=rel_tol, device="cuda"))
+    kl_dense = result.kl_dense.to_numpy()
+    kl_sparse = result.kl_sparse.to_numpy()
+    over = int(np.sum(kl_sparse > (1.0 + rel_tol) * kl_dense))
+    support = result.n_active.to_numpy()
+    print(f"[13] assign_signatures(rel_tol={rel_tol}): {seconds:.3f} s, "
+          f"{result.meta['n_rounds']} rounds, mean support "
+          f"{support.mean():.3f} ({support.min()}..{support.max()}) of 79, "
+          f"{len(result.assigned_signatures())} signatures used, {over} "
+          "samples over the budget, mean kl_sparse / kl_dense "
+          f"{np.mean(kl_sparse / kl_dense):.6f}")
+    check(bool(np.isfinite(kl_sparse).all()), "non-finite kl_sparse")
+    check(over == 0, f"{over} samples over the reported budget")
+    exposures = result.exposures.to_numpy()
+    check(bool((exposures[~result.active.to_numpy()] == 0).all()),
+          "exposures off the support")
+    decomposition, seconds = timed(torch, lambda: sal.tools
+                                   .decompose_signatures(consensus, catalog,
+                                                         device="cuda"))
+    check(bool(np.isfinite(decomposition.weights.to_numpy()).all()),
+          "non-finite decomposition")
+    print(f"[13] decompose_signatures(rank-5 consensus): {seconds:.3f} s, "
+          f"{decomposition!r}")
+    for name, row in decomposition.weights.iterrows():
+        parts = row[row > 0].sort_values(ascending=False)
+        print(f"[13] {name} = " + " + ".join(
+            f"{w:.3f}*{c}" for c, w in parts.iloc[:4].items())
+            + f" + ... ({len(parts)} components)")
+
+
+def phase_bootstrap(torch, sal, cuda_klnmf):
+    """bootstrap_stability(KLNMF(5).fit(PCAWG SBS), 20): the replicates
+    through the kernel with a per-lane X, then through the plain block;
+    best loss at rtol 1e-4. Then bootstrap_exposures(PCAWG SBS, COSMIC-79,
+    50)."""
+    model = sal.KLNMF(n_signatures=5, device="cuda", dtype="float32")
+    model.fit(sbs_adata(sal))
+    KLNMF = type(model)
+    fused = KLNMF._block_update_fn
+    best, walls = {}, {}
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            KLNMF._block_update_fn = lambda self, *args: None
+        launches = per_lane_launches(cuda_klnmf)
+        try:
+            result, seconds = timed(torch, lambda: sal.bootstrap_stability(
+                model, 20))
+        finally:
+            KLNMF._block_update_fn = fused
+        launches = per_lane_launches(cuda_klnmf) - launches
+        if route == "kernel":
+            check(launches > 0, "bootstrap_stability did not launch the "
+                  "kernel with a per-lane X")
+        check(bool(np.isfinite(result.losses).all()), "non-finite losses")
+        best[route], walls[route] = float(result.losses.min()), seconds
+        print(f"[14] bootstrap_stability(KLNMF(5), 20) {route}: "
+              f"{seconds:.3f} s, {launches} per-lane kernel launches, best "
+              f"loss {best[route]:.4f}, stability " + ", ".join(
+                  f"{s:.4f}" for s in result.stability))
+    check_best_agree("[14] kernel vs plain", best["kernel"], best["plain"])
+    catalog = sal.datasets.load_cosmic_sbs_catalog()
+    result, seconds = timed(torch, lambda: sal.bootstrap_exposures(
+        sal.datasets.load_pcawg_sbs(), catalog, 50, device="cuda"))
+    check(bool(np.isfinite(result.std.to_numpy()).all()),
+          "non-finite bootstrap spread")
+    present = (result.presence.to_numpy() >= 0.95).sum(axis=1)
+    print(f"[14] bootstrap_exposures(PCAWG SBS x COSMIC-79, 50): "
+          f"{seconds:.3f} s, signatures present in >= 95% of replicates per "
+          f"sample {present.mean():.3f} ({present.min()}..{present.max()})")
+
+
 def main() -> int:
     import torch
 
@@ -769,18 +1031,20 @@ def main() -> int:
                                         random_init_batch)
 
     X_host = datasets.load_pcawg_sbs().to_numpy().T.copy()
-    launches, by_variant = {}, {}
+    launches, by_variant, by_x = {}, {}, {}
 
     def drive(path, phase, *args):
         """Run one path with the launch counts set to 0 just before it and
         read just after."""
-        counts = cuda_klnmf.fused_mu_block.launches_by_variant
-        cuda_klnmf.fused_mu_block.launches = 0
-        for variant in counts:
-            counts[variant] = 0
+        kernel = cuda_klnmf.fused_mu_block
+        kernel.launches = 0
+        for counts in (kernel.launches_by_variant, kernel.launches_by_x):
+            for key in counts:
+                counts[key] = 0
         out = phase(*args)
-        launches[path] = cuda_klnmf.fused_mu_block.launches
-        by_variant[path] = dict(counts)
+        launches[path] = kernel.launches
+        by_variant[path] = dict(kernel.launches_by_variant)
+        by_x[path] = dict(kernel.launches_by_x)
         return out
 
     drive("4 KLNMF.fit", phase_main_path, sal, cuda_klnmf)
@@ -793,13 +1057,23 @@ def main() -> int:
     drive("10 ARDNMF", phase_ardnmf, torch, sal)
     drive("11 rank_scan_corrnmf", phase_corrnmf_scan, torch, sal,
           np.ascontiguousarray(X_host.T))
+    extracted = drive("12 extract_signatures", phase_extraction, torch, sal,
+                      cuda_klnmf)
+    drive("13 assignment", phase_assignment, torch, sal,
+          extracted.consensus[5])
+    drive("14 bootstrap", phase_bootstrap, torch, sal, cuda_klnmf)
     for path in ("4 KLNMF.fit", "5 fit_klnmf_restarts",
-                 "6 fit_best_of KLNMF", "8 rank_scan_klnmf"):
+                 "6 fit_best_of KLNMF", "8 rank_scan_klnmf",
+                 "12 extract_signatures", "14 bootstrap"):
         check(launches[path] > 0, f"path {path} launched no kernel")
         check(by_variant[path]["resident"] > 0,
               f"path {path} did not run the resident kernel")
+    for path in ("12 extract_signatures", "14 bootstrap"):
+        check(by_x[path]["per_lane"] > 0,
+              f"path {path} launched no kernel with a per-lane X")
     print(f"kernel launches by path: {launches}")
     print(f"kernel launches by path and kernel: {by_variant}")
+    print(f"kernel launches by path, shared or per-lane X: {by_x}")
 
     headline = timings[(5, 100)]
     block_ms = min(headline["resident_ms"])
@@ -820,6 +1094,9 @@ def main() -> int:
         "launches_by_kernel": {
             variant: sum(counts[variant] for counts in by_variant.values())
             for variant in ("resident", "streamed")},
+        "launches_by_x": {
+            x: sum(counts[x] for counts in by_x.values())
+            for x in ("shared", "per_lane")},
         "max_abs_err": max_abs_err,
         "variant": "resident",
         "cluster": headline["cluster"],

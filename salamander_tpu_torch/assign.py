@@ -1,0 +1,492 @@
+"""Signature assignment: refit a cohort's exposures against a FIXED, known
+signature catalog (e.g. COSMIC), densely or sparsely; held against
+salamander_tpu/assign.py.
+
+The dense refit is one masked multiplicative-update solve over the whole
+cohort; the sparse search is greedy backward elimination with every
+(sample, candidate removal) pair evaluated as one batched tensor per round
+(ops/assign.py).
+
+Typical use::
+
+    catalog = sal.datasets.load_cosmic_sbs_catalog()   # signatures x 96
+    res = sal.assign_signatures(adata, catalog, rel_tol=0.02)
+    res.exposures     # samples x signatures, exact zeros off-support
+    res.active        # bool samples x signatures
+
+Everything runs on ``device`` (None: the current CUDA device, raising
+without one) in the compute dtype of ``resolve_dtype``: float32 on a card,
+float64 on the CPU. Sample chunks are sized by a memory model of the
+candidate tensors against the card's free memory, where the JAX package
+sizes them by its accelerator's program kill. mesh= is not ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any
+
+import numpy as np
+import pandas as pd
+import torch
+
+from .models.signature_nmf import resolve_device, resolve_dtype
+from .ops import assign as ops
+from .ops.klnmf import EPSILON
+from .ops.precision import require_ieee_float32
+
+__all__ = [
+    "AssignmentResult",
+    "BootstrapExposuresResult",
+    "assign_exposures",
+    "assign_signatures",
+    "bootstrap_exposures",
+]
+
+# share of the card's free memory one chunk's working tensors may take
+_FREE_MEMORY_SHARE = 0.5
+
+
+def _extract_counts(data) -> tuple[np.ndarray, pd.Index, pd.Index]:
+    """Counts as (V, D) float plus (obs_names, var_names).
+
+    Accepts the package/scverse AnnData duck type (samples x features) or
+    a samples-x-features DataFrame. The input is never modified.
+    """
+    if hasattr(data, "obsm") and hasattr(data, "X"):
+        X = np.asarray(data.X, dtype=np.float64)
+        return X.T.copy(), pd.Index(data.obs_names), pd.Index(data.var_names)
+    if isinstance(data, pd.DataFrame):
+        return (
+            data.to_numpy(dtype=np.float64).T.copy(),
+            pd.Index(data.index.astype(str)),
+            pd.Index(data.columns.astype(str)),
+        )
+    raise TypeError(
+        "data must be an AnnData-like container or a samples-x-features "
+        f"DataFrame, got {type(data).__name__}."
+    )
+
+
+def _align_catalog(catalog, var_names: pd.Index) -> tuple[np.ndarray, list[str]]:
+    """Catalog -> column-stochastic W (V, K) aligned to the data's feature
+    order, plus signature names.
+
+    Accepts a signatures-x-features DataFrame (the datasets loader
+    convention), a features-x-signatures DataFrame (auto-detected via the
+    index), or an AnnData-like of signatures. Features must match the
+    data's as a set; order is realigned here. Columns are EPSILON-floored
+    and renormalized to sum one (the package-wide signature convention).
+    """
+    if hasattr(catalog, "obsm") and hasattr(catalog, "X"):
+        catalog = pd.DataFrame(
+            np.asarray(catalog.X),
+            index=pd.Index(catalog.obs_names),
+            columns=pd.Index(catalog.var_names),
+        )
+    if not isinstance(catalog, pd.DataFrame):
+        raise TypeError(
+            "catalog must be a DataFrame or an AnnData-like of signatures, "
+            f"got {type(catalog).__name__}."
+        )
+    features = set(var_names)
+    if set(catalog.columns.astype(str)) == features:
+        frame = catalog
+    elif set(catalog.index.astype(str)) == features:
+        frame = catalog.T
+    else:
+        raise ValueError(
+            "catalog features do not match the data's var_names: "
+            f"{len(features)} data features, catalog is "
+            f"{catalog.shape[0]} x {catalog.shape[1]}."
+        )
+    frame = frame.loc[:, var_names]
+    W = np.maximum(frame.to_numpy(dtype=np.float64).T, EPSILON)
+    W = W / W.sum(axis=0, keepdims=True)
+    return W, [str(name) for name in frame.index]
+
+
+def _setup(device, dtype, mesh):
+    """(device, dtype) of an assignment call; mesh= raises."""
+    if mesh is not None:
+        raise NotImplementedError("mesh= is not ported to PyTorch yet")
+    device = resolve_device(device)
+    if device.type == "cuda":
+        require_ieee_float32()
+    if isinstance(dtype, torch.dtype):
+        dtype = str(dtype).removeprefix("torch.")
+    return device, resolve_dtype(dtype, device)
+
+
+def _memory_budget(device) -> int | None:
+    """Bytes that one chunk's working tensors may take: a share of the
+    card's free memory; None (unlimited) on the CPU."""
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    return int(_FREE_MEMORY_SHARE * free)
+
+
+def _memory_lanes(device, bytes_per_lane: float, n: int) -> int:
+    """How many of n lanes (samples or replicates) fit the memory budget
+    at bytes_per_lane each; all n on the CPU."""
+    budget = _memory_budget(device)
+    if budget is None:
+        return n
+    return max(1, min(n, int(budget / bytes_per_lane)))
+
+
+def _host(tensor) -> np.ndarray:
+    return tensor.cpu().numpy()
+
+
+@dataclass
+class AssignmentResult:
+    """Sparse catalog assignment of a cohort.
+
+    exposures: (samples x signatures) refit exposures, exact zeros off the
+      per-sample support. active: bool (samples x signatures) supports.
+    kl_dense / kl_sparse: per-sample KL of the full-catalog refit vs the
+      sparse one. n_active: per-sample support sizes.
+    """
+
+    exposures: pd.DataFrame
+    active: pd.DataFrame
+    kl_dense: pd.Series
+    kl_sparse: pd.Series
+    n_active: pd.Series
+    meta: dict[str, Any] = field(default_factory=dict)
+
+    @property
+    def signature_names(self) -> list[str]:
+        return list(self.exposures.columns)
+
+    def assigned_signatures(self) -> list[str]:
+        """Catalog signatures active in at least one sample."""
+        return list(self.active.columns[self.active.to_numpy().any(axis=0)])
+
+
+def assign_exposures(data, catalog, max_iterations: int = 10_000,
+                     tol: float = 1e-7, mesh=None, device=None,
+                     dtype=None) -> pd.DataFrame:
+    """Dense catalog refit: exposures for every sample over the FULL
+    catalog (all signatures active), KLNMF H-updates to convergence, as
+    one batched refit of the whole cohort. Equivalent to the reference's
+    fit(given_parameters={'asignatures': catalog}) exposures, without
+    learning anything. Returns a samples x signatures DataFrame.
+    """
+    device, dtype = _setup(device, dtype, mesh)
+    X, obs_names, var_names = _extract_counts(data)
+    W, sig_names = _align_catalog(catalog, var_names)
+    X_dev = torch.as_tensor(X, dtype=dtype, device=device)
+    W_dev = torch.as_tensor(W, dtype=dtype, device=device)
+    mask = torch.ones((W.shape[1], X.shape[1]), dtype=torch.bool,
+                      device=device)
+    H, _ = ops.refit_exposures(X_dev, W_dev, mask,
+                               max_iterations=max_iterations, tol=tol)
+    return pd.DataFrame(_host(H).T, index=obs_names, columns=sig_names)
+
+
+def candidate_bytes_per_sample(n_features: int, n_signatures: int,
+                               itemsize: int) -> int:
+    """The memory model of one sample in an elimination round: the
+    candidate exposures twice at (K, K) (state and update) and the
+    products WH and aux at (K, V)."""
+    K, V = n_signatures, n_features
+    return itemsize * (2 * K * K + 2 * K * V)
+
+
+def assign_signatures(
+    data,
+    catalog,
+    rel_tol: float = 0.02,
+    abs_tol: float = 0.0,
+    candidate_iters: int = 50,
+    polish_iterations: int = 200,
+    max_iterations: int = 10_000,
+    tol: float = 1e-7,
+    batch_size: int | None = None,
+    mesh=None,
+    checkpoint_dir=None,
+    device=None,
+    dtype=None,
+) -> AssignmentResult:
+    """Sparse per-sample signature assignment against a fixed catalog.
+
+    Greedy backward elimination from the dense refit: each sample keeps
+    the (greedily) smallest signature subset whose KL stays within
+    ``(1 + rel_tol) * kl_dense + abs_tol`` of its full-catalog refit, and
+    the reported numbers honour that budget exactly
+    (ops/assign._finalize_contract).
+
+    ``batch_size`` bounds device memory: samples run in equal-width chunks
+    (the tail chunk padded with copies of its first sample and trimmed).
+    None runs one chunk unless the memory model of the candidate tensors
+    (candidate_bytes_per_sample: H twice at (K, K, B), WH and aux at
+    (K, V, B)) exceeds half the card's free memory; then the chunk is the
+    most samples that fit. Samples are independent; the only chunking
+    effect is that the convergence test aggregates the objective per
+    chunk, so refits may stop a block earlier or later.
+
+    ``checkpoint_dir``: preemption-safe resume (checkpoint.ChunkStore):
+    every completed chunk is written atomically, and a rerun with the same
+    data, arguments, compute dtype and chunk layout skips past completed
+    chunks. A store from a different run is warned about and discarded.
+    """
+    device, dtype = _setup(device, dtype, mesh)
+    X, obs_names, var_names = _extract_counts(data)
+    W, sig_names = _align_catalog(catalog, var_names)
+    V, D = X.shape
+    K = W.shape[1]
+    W_dev = torch.as_tensor(W, dtype=dtype, device=device)
+    if batch_size is None:
+        fits = _memory_lanes(device, candidate_bytes_per_sample(
+            V, K, torch.finfo(dtype).bits // 8), D)
+        batch_size = None if fits >= D else fits
+
+    store = None
+    if checkpoint_dir is not None:
+        from .checkpoint import ChunkStore, data_fingerprint
+
+        store = ChunkStore(checkpoint_dir, {
+            "pipeline": "assign_signatures",
+            "format": 1,
+            "data": data_fingerprint(X, W),
+            "rel_tol": float(rel_tol),
+            "abs_tol": float(abs_tol),
+            "candidate_iters": int(candidate_iters),
+            "polish_iterations": int(polish_iterations),
+            "max_iterations": int(max_iterations),
+            "tol": float(tol),
+            "batch_size": None if batch_size is None else int(batch_size),
+            "dtype": str(dtype).removeprefix("torch."),
+        })
+
+    def run(chunk: np.ndarray) -> dict[str, np.ndarray]:
+        out = ops.eliminate_signatures(
+            torch.as_tensor(chunk, dtype=dtype, device=device), W_dev,
+            rel_tol, abs_tol, candidate_iters=candidate_iters,
+            polish_iterations=polish_iterations,
+            max_polish_iterations=max_iterations, polish_tol=tol,
+        )
+        n_rounds = out.pop("n_rounds")
+        fetched = {key: _host(value) for key, value in out.items()}
+        fetched["n_rounds"] = int(n_rounds)
+        return fetched
+
+    width = D if batch_size is None or batch_size >= D else int(batch_size)
+    parts = []
+    for start in range(0, D, width):
+        stop = min(start + width, D)
+        name = f"chunk_{start:08d}"
+        if store is not None:
+            cached = store.load(name, match={"start": start, "stop": stop})
+            if cached is not None:
+                cached["n_rounds"] = int(cached["n_rounds"])
+                parts.append(cached)
+                continue
+        chunk = X[:, start:stop]
+        pad = width - chunk.shape[1]
+        if pad:
+            chunk = np.concatenate(
+                [chunk, np.repeat(chunk[:, :1], pad, axis=1)], axis=1
+            )
+        out = run(chunk)
+        if pad:
+            out = {
+                key: value[..., :-pad] if np.ndim(value) else value
+                for key, value in out.items()
+            }
+        if store is not None:
+            store.save(name, match={"start": start, "stop": stop}, **out)
+        parts.append(out)
+
+    def cat(key):
+        return np.concatenate([part[key] for part in parts], axis=-1)
+
+    active = cat("mask").astype(bool)
+    return AssignmentResult(
+        exposures=pd.DataFrame(cat("H").T, index=obs_names, columns=sig_names),
+        active=pd.DataFrame(active.T, index=obs_names, columns=sig_names),
+        kl_dense=pd.Series(cat("kl_dense"), index=obs_names, name="kl_dense"),
+        kl_sparse=pd.Series(cat("kl_sparse"), index=obs_names,
+                            name="kl_sparse"),
+        n_active=pd.Series(cat("n_active"), index=obs_names, name="n_active"),
+        meta={
+            "rel_tol": rel_tol,
+            "abs_tol": abs_tol,
+            "candidate_iters": candidate_iters,
+            "n_rounds": max(part["n_rounds"] for part in parts),
+            "batch_size": width,
+        },
+    )
+
+
+@dataclass
+class BootstrapExposuresResult:
+    """Bootstrap uncertainty of catalog-refit exposures.
+
+    mean/std: (samples x signatures) over replicates (replicate 0, the
+    point estimate on the original counts, is excluded from the moments).
+    quantiles: {q: DataFrame} over replicates. presence: P(relative
+    exposure >= min_fraction) per (sample, signature). point: the
+    original-counts refit.
+    """
+
+    point: pd.DataFrame
+    mean: pd.DataFrame
+    std: pd.DataFrame
+    quantiles: dict[float, pd.DataFrame]
+    presence: pd.DataFrame
+    meta: dict[str, Any] = field(default_factory=dict)
+
+
+def chunk_seed(seed: int, chunk: int) -> int:
+    """The torch.Generator seed of replicate chunk `chunk` under `seed`
+    (the JAX package splits one key per chunk)."""
+    return int(np.random.SeedSequence([int(seed), int(chunk)])
+               .generate_state(1, np.uint64)[0])
+
+
+def bootstrap_exposures(
+    data,
+    catalog,
+    n_replicates: int = 200,
+    seed: int = 0,
+    method: str = "multinomial",
+    quantiles: tuple[float, ...] = (0.05, 0.5, 0.95),
+    min_fraction: float = 0.05,
+    active=None,
+    max_iterations: int = 10_000,
+    tol: float = 1e-7,
+    replicate_batch: int | None = None,
+    mesh=None,
+    checkpoint_dir=None,
+    device=None,
+    dtype=None,
+) -> BootstrapExposuresResult:
+    """Uncertainty of catalog-refit exposures by count bootstrap.
+
+    Resamples every sample's counts ``n_replicates - 1`` times
+    ('multinomial': redraw each sample's total over features, the
+    SigProfiler-style nonparametric bootstrap; 'poisson': X_b ~ Poisson(X),
+    the parametric bootstrap under the model's own likelihood) and refits
+    exposures against the FIXED catalog, every replicate of a chunk as one
+    flat refit (ops/assign.bootstrap_refit).
+
+    ``active`` restricts each sample to a support (bool samples x
+    signatures DataFrame/array, e.g. ``AssignmentResult.active``):
+    off-support entries are exact zeros in every replicate.
+
+    ``replicate_batch`` bounds device memory: replicates run in chunks of
+    that many (replicate 0 of every chunk is the original X, kept once as
+    the point estimate). None runs one chunk unless ~3.5 copies of each
+    replicate's (V + K, D) buffers, twice, exceed half the card's free
+    memory. Chunk i draws from a torch.Generator seeded with
+    chunk_seed(seed, i).
+
+    Returns a BootstrapExposuresResult; `presence` is the fraction of
+    replicates where a signature carries at least ``min_fraction`` of the
+    sample's exposure mass.
+
+    ``checkpoint_dir``: preemption-safe resume of completed replicate
+    chunks; ``quantiles`` and ``min_fraction`` are host post-processing
+    and not part of the store's identity, the compute dtype is.
+    """
+    device, dtype = _setup(device, dtype, mesh)
+    X, obs_names, var_names = _extract_counts(data)
+    W, sig_names = _align_catalog(catalog, var_names)
+    K, D = W.shape[1], X.shape[1]
+    if n_replicates < 2:
+        raise ValueError("n_replicates must be >= 2")
+
+    if active is None:
+        mask = np.ones((K, D), dtype=bool)
+    else:
+        mask_arr = (
+            active.to_numpy() if hasattr(active, "to_numpy")
+            else np.asarray(active)
+        )
+        if mask_arr.shape != (D, K):
+            raise ValueError(
+                f"active must be (n_samples, n_signatures) = ({D}, {K}), "
+                f"got {mask_arr.shape}"
+            )
+        mask = mask_arr.T.astype(bool)
+
+    X_dev = torch.as_tensor(X, dtype=dtype, device=device)
+    W_dev = torch.as_tensor(W, dtype=dtype, device=device)
+    mask_dev = torch.as_tensor(mask, device=device)
+
+    if replicate_batch is None:
+        itemsize = torch.finfo(dtype).bits // 8
+        per_rep = 3.5 * itemsize * D * (2 * X.shape[0] + 2 * K)
+        replicate_batch = _memory_lanes(device, per_rep, n_replicates)
+    chunk = max(2, min(int(replicate_batch), n_replicates))
+    n_resamples = n_replicates - 1
+    n_chunks = -(-n_resamples // (chunk - 1))
+    store = None
+    if checkpoint_dir is not None:
+        from .checkpoint import ChunkStore, data_fingerprint
+
+        store = ChunkStore(checkpoint_dir, {
+            "pipeline": "bootstrap_exposures",
+            "format": 1,
+            "data": data_fingerprint(X, W, mask),
+            "n_replicates": int(n_replicates),
+            "seed": int(seed),
+            "method": str(method),
+            "max_iterations": int(max_iterations),
+            "tol": float(tol),
+            "chunk": int(chunk),
+            "dtype": str(dtype).removeprefix("torch."),
+        })
+    point_H = None
+    resamples_H = []
+    got = 0
+    for i in range(n_chunks):
+        name = f"chunk_{i:06d}"
+        cached = store.load(name) if store is not None else None
+        if cached is not None:
+            H = cached["H"]
+        else:
+            generator = torch.Generator(device=device).manual_seed(
+                chunk_seed(seed, i))
+            H = _host(ops.bootstrap_refit(
+                X_dev, W_dev, mask_dev, generator, chunk, method=method,
+                max_iterations=max_iterations, tol=tol,
+            ))
+            if store is not None:
+                store.save(name, H=H)
+        if point_H is None:
+            point_H = H[:1]
+        take = min(chunk - 1, n_resamples - got)
+        resamples_H.append(H[1:1 + take])
+        got += take
+    H_all = np.concatenate([point_H] + resamples_H, axis=0)  # (B, K, D)
+    E = np.swapaxes(H_all, 1, 2)                             # (B, D, K)
+
+    def frame(a):
+        return pd.DataFrame(a, index=obs_names, columns=sig_names)
+
+    resamples = E[1:]
+    fractions = resamples / np.maximum(
+        resamples.sum(axis=2, keepdims=True), EPSILON
+    )
+    return BootstrapExposuresResult(
+        point=frame(E[0]),
+        mean=frame(resamples.mean(axis=0)),
+        std=frame(resamples.std(axis=0, ddof=1)),
+        quantiles={
+            float(q): frame(np.quantile(resamples, q, axis=0))
+            for q in quantiles
+        },
+        presence=frame((fractions >= min_fraction).mean(axis=0)),
+        meta={
+            "n_replicates": n_replicates,
+            "method": method,
+            "seed": seed,
+            "min_fraction": min_fraction,
+            "sparse": active is not None,
+        },
+    )

@@ -1,6 +1,7 @@
-"""Dataset access: the PCAWG-breast catalogs and the synthetic COSMIC-scale
-catalog, held against salamander_tpu/datasets.py (its COSMIC loaders come
-with the slices that use them).
+"""Dataset access: the PCAWG-breast catalogs, the COSMIC SBS and indel
+signature catalogs and the synthetic COSMIC-scale catalog, held against
+salamander_tpu/datasets.py (its HRDetect loader comes with the slice that
+uses it).
 
 The port ships no copy of the CSV assets. Search order: $SALAMANDER_DATA
 (override), then the JAX package's data directory beside this package in
@@ -27,6 +28,8 @@ FILES = {
     "pcawg_sbs": "pcawg_breast_sbs.csv",
     "pcawg_indel": "pcawg_breast_indel.csv",
     "pcawg_sv": "pcawg_breast_sv.csv",
+    "cosmic_sbs": "COSMIC_v3.3.1_SBS_GRCh38.csv",
+    "cosmic_indel": "COSMIC_v3.4_ID_GRCh37.txt",
 }
 
 
@@ -44,6 +47,7 @@ def _resolve(filename: str) -> Path:
 
 
 def _load_csv(key: str) -> pd.DataFrame:
+    # the COSMIC .txt catalog is comma-separated despite its suffix
     return pd.read_csv(_resolve(FILES[key]), index_col=0).T
 
 
@@ -60,6 +64,17 @@ def load_pcawg_indel() -> pd.DataFrame:
 def load_pcawg_sv() -> pd.DataFrame:
     """PCAWG breast-cancer SV-32 counts (192 samples x 32 channels)."""
     return _load_csv("pcawg_sv")
+
+
+def load_cosmic_sbs_catalog() -> pd.DataFrame:
+    """COSMIC v3.3.1 SBS signature catalog (signatures x 96 channels);
+    the file stores channels x signatures."""
+    return _load_csv("cosmic_sbs")
+
+
+def load_cosmic_indel_catalog() -> pd.DataFrame:
+    """COSMIC v3.4 indel signature catalog (signatures x 83 channels)."""
+    return _load_csv("cosmic_indel")
 
 
 def synthetic_catalog(

@@ -4,8 +4,10 @@ PyTorch version.
 
 Held against salamander_tpu/ops/pallas_klnmf.py::fused_mu_block, with a
 leading restart axis: W (R, V, K) and H (R, K, D) advance by ``n_steps``
-joint updates against one X (V, D). ``n_steps`` is a run-time argument, so
-one binary serves the fit loop's full blocks and its remainder tail.
+joint updates against one X (V, D), or against each lane's own X (R, V, D)
+(a bootstrap resample per lane: the JAX kernel under ``vmap`` over X too).
+``n_steps`` is a run-time argument, so one binary serves the fit loop's
+full blocks and its remainder tail.
 
 Two kernels compute the block. The resident kernel keeps a lane's X, W and
 H in shared memory for every step, on a thread block cluster of C CTAs per
@@ -161,7 +163,8 @@ def unsupported_reason(X, W, H, data=None, n_given_signatures: int = 0,
 
     The kernels cover float32, unweighted, unpadded fits without given
     signatures, with K <= K_MAX and a lane that one of them holds in
-    shared memory, on a card. Every other configuration runs the plain
+    shared memory, on a card; X is (V, D), or (R, V, D) with one count
+    matrix per lane of W (R, V, K). Every other configuration runs the plain
     update (as the JAX package runs XLA); a rank `mask` marks a padded
     (rank-masked) fit. Whether a kernel takes the shapes does not depend
     on the card's SM count (see plan_launch).
@@ -177,6 +180,10 @@ def unsupported_reason(X, W, H, data=None, n_given_signatures: int = 0,
     if mask is not None:
         return "the kernel has no rank mask"
     n_features, n_signatures = W.shape[-2], W.shape[-1]
+    if X.dim() == 3 and (W.dim() != 3 or X.shape[0] != W.shape[0]):
+        return "a per-lane X needs one lane of W per lane of X"
+    if X.dim() not in (2, 3):
+        return "X is (V, D) or (R, V, D)"
     if n_signatures > K_MAX:
         return f"K={n_signatures} above K_MAX={K_MAX}"
     n_lanes = W.shape[0] if W.dim() == 3 else 1
@@ -272,7 +279,8 @@ _PLAN_CHECKS = ((100, 96, 5, 192), (1, 96, 5, 192), (40, 96, 5, 192),
 def _library():
     lib = ctypes.CDLL(str(build()))
     pointer, integer = ctypes.c_void_p, ctypes.c_int
-    lib.mu_block_launch.argtypes = [pointer] * 6 + [integer] * 7 + [pointer]
+    lib.mu_block_launch.argtypes = [pointer] * 6 + [integer] * 7 + [
+        ctypes.c_longlong, pointer]
     lib.mu_block_launch.restype = integer
     lib.mu_block_error_string.argtypes = [integer]
     lib.mu_block_error_string.restype = ctypes.c_char_p
@@ -315,7 +323,8 @@ def _sm_count(device_index: int) -> int:
 
 def fused_mu_block_reference(X, W, H, n_steps: int):
     """Plain PyTorch version: n_steps joint updates (ops.klnmf.update_WH)
-    of W (R, V, K) and H (R, K, D) against X (V, D)."""
+    of W (R, V, K) and H (R, K, D) against X (V, D) or (R, V, D), which
+    broadcasts."""
     for _ in range(int(n_steps)):
         W, H = update_WH(X, W, H)
     return W, H
@@ -325,11 +334,12 @@ def _check_kernel_inputs(X, W, H):
     reason = unsupported_reason(X, W, H)
     if reason is not None:
         raise ValueError(f"fused_mu_block cannot launch: {reason}")
-    if X.dim() != 2 or W.dim() != 3 or H.dim() != 3:
-        raise ValueError("fused_mu_block takes X (V, D), W (R, V, K) and "
-                         "H (R, K, D)")
-    (V, D), (R, V_w, K) = X.shape, W.shape
-    if V_w != V or tuple(H.shape) != (R, K, D):
+    if X.dim() not in (2, 3) or W.dim() != 3 or H.dim() != 3:
+        raise ValueError("fused_mu_block takes X (V, D) or (R, V, D), "
+                         "W (R, V, K) and H (R, K, D)")
+    (V, D), (R, V_w, K) = X.shape[-2:], W.shape
+    if V_w != V or tuple(H.shape) != (R, K, D) or \
+            (X.dim() == 3 and X.shape[0] != R):
         raise ValueError(f"shapes disagree: X {tuple(X.shape)}, W "
                          f"{tuple(W.shape)}, H {tuple(H.shape)}")
     if len({t.device for t in (X, W, H)}) != 1:
@@ -340,7 +350,8 @@ def _check_kernel_inputs(X, W, H):
 
 def _launch(X, W, H, n_steps: int, plan: LaunchPlan):
     R, V, K = W.shape
-    D = X.shape[1]
+    D = X.shape[-1]
+    x_stride = V * D if X.dim() == 3 else 0
     W_out = torch.empty_like(W)
     H_out = torch.empty_like(H)
     H_scratch = torch.empty_like(H) if plan.variant == "streamed" else None
@@ -352,7 +363,7 @@ def _launch(X, W, H, n_steps: int, plan: LaunchPlan):
             H_out.data_ptr(),
             None if H_scratch is None else H_scratch.data_ptr(),
             R, V, K, D, int(n_steps), _VARIANT_CODES[plan.variant],
-            plan.cluster, stream,
+            plan.cluster, x_stride, stream,
         )
     if status != 0:
         message = lib.mu_block_error_string(status).decode()
@@ -360,25 +371,28 @@ def _launch(X, W, H, n_steps: int, plan: LaunchPlan):
                            f"{plan.cluster}) failed: {message} ({status})")
     fused_mu_block.launches += 1
     fused_mu_block.launches_by_variant[plan.variant] += 1
+    fused_mu_block.launches_by_x["per_lane" if x_stride else "shared"] += 1
     return W_out, H_out
 
 
 def launch_plan(X, W) -> LaunchPlan:
-    """The plan fused_mu_block launches for X (V, D) and W (R, V, K) on
-    their card."""
+    """The plan fused_mu_block launches for X (V, D) or (R, V, D) and W
+    (R, V, K) on their card. A lane's shared memory does not depend on
+    whether X is shared, so neither does the plan."""
     R, V, K = W.shape
-    return plan_launch(R, V, K, X.shape[1], _sm_count(X.device.index))
+    return plan_launch(R, V, K, X.shape[-1], _sm_count(X.device.index))
 
 
 def fused_mu_block(X, W, H, n_steps: int):
     """Advance W (R, V, K) and H (R, K, D) by n_steps joint multiplicative
-    updates against X (V, D).
+    updates against X (V, D), or against each lane's own X (R, V, D).
 
     CPU tensors run fused_mu_block_reference. CUDA tensors launch the
     kernel that plan_launch picks from the shapes, on the current stream,
     or raise if neither kernel takes them. Each launch adds one to
-    ``fused_mu_block.launches`` and to its kernel's entry of
-    ``fused_mu_block.launches_by_variant``.
+    ``fused_mu_block.launches``, to its kernel's entry of
+    ``fused_mu_block.launches_by_variant`` and to the entry of
+    ``fused_mu_block.launches_by_x`` for a shared or a per-lane X.
     """
     if all(t.device.type == "cpu" for t in (X, W, H)):
         return fused_mu_block_reference(X, W, H, n_steps)
@@ -388,6 +402,7 @@ def fused_mu_block(X, W, H, n_steps: int):
 
 fused_mu_block.launches = 0
 fused_mu_block.launches_by_variant = {"resident": 0, "streamed": 0}
+fused_mu_block.launches_by_x = {"shared": 0, "per_lane": 0}
 
 
 def _fused_mu_block_variant(X, W, H, n_steps: int, variant: str,
@@ -397,7 +412,7 @@ def _fused_mu_block_variant(X, W, H, n_steps: int, variant: str,
     holding each kernel against the plain version on the card."""
     _check_kernel_inputs(X, W, H)
     R, V, K = W.shape
-    D = X.shape[1]
+    D = X.shape[-1]
     if variant == "resident":
         shared = resident_shared_bytes(V, K, D, cluster)
         if cluster not in _CLUSTERS or not shared:
@@ -427,7 +442,8 @@ def _kernels_taking(V: int, K: int, D: int):
 
 def fused_block_update(params, data, n_steps: int):
     """Engine block update through the kernel: params {"W", "H"} with or
-    without a leading restart axis, data {"X"}."""
+    without a leading restart axis, data {"X"} shared (V, D) or per lane
+    (R, V, D)."""
     W, H = params["W"], params["H"]
     single = W.dim() == 2
     if single:

@@ -5,7 +5,8 @@ Conventions (kernel orientation, transposed wrt the container layer):
   X: (..., n_features V, n_samples D) counts
   W: (..., V, n_signatures K) signatures, columns sum to one
   H: (..., K, D) exposures
-  weights_*: (D,) per-sample weights or None
+  weights_*: (..., D) per-sample weights or None (a leading axis when
+             each lane fits its own samples, as a bootstrap replicate does)
   n_given_signatures: int - leading columns of W held fixed.
 
 Every function is batched-native: a leading restart axis on W and H (and
@@ -83,6 +84,12 @@ def _freeze_given_columns(W_new, W_old, n_given: int):
     return torch.where(given, W_old, W_new)
 
 
+def _columns(weights):
+    """Per-sample weights (..., D) shaped to scale the sample columns of a
+    (..., rows, D) matrix."""
+    return None if weights is None else weights.unsqueeze(-2)
+
+
 def _clip(values):
     # torch.clamp_min keeps NaN, as jnp.maximum does
     return torch.clamp_min(values, EPSILON)
@@ -100,7 +107,7 @@ def update_W(X, W, H, weights_kl=None, n_given_signatures: int = 0):
 
     aux = X / mm(W, H)
     if weights_kl is not None:
-        aux = aux * weights_kl
+        aux = aux * _columns(weights_kl)
     W_new = W * mm(aux, H.mT)
     W_new = W_new / W_new.sum(-2, keepdim=True)
     clipped = _clip(W_new)
@@ -112,6 +119,7 @@ def update_W(X, W, H, weights_kl=None, n_given_signatures: int = 0):
 
 def _update_H_from_aux(H, W, aux, weights_kl=None, weights_lhalf=None):
     """Shared H update given the precomputed ratio aux = X / (W @ H)."""
+    weights_kl, weights_lhalf = _columns(weights_kl), _columns(weights_lhalf)
     WtAux = mm(W.mT, aux)
     if weights_lhalf is None:
         return _clip(H * WtAux)
@@ -151,7 +159,7 @@ def update_WH(
     if n_given_signatures == n_signatures:
         W_new = W
     else:
-        scaled_aux = aux if weights_kl is None else weights_kl * aux
+        scaled_aux = aux if weights_kl is None else _columns(weights_kl) * aux
         W_new = W * mm(scaled_aux, H.mT)
         W_new = W_new / W_new.sum(-2, keepdim=True)
         W_new = _freeze_given_columns(W_new, W, n_given_signatures)
@@ -234,7 +242,8 @@ def make_masked_step_functions(n_given_signatures: int = 0):
         if n_given_signatures == n_signatures:
             W_new = W
         else:
-            scaled_aux = aux if weights_kl is None else weights_kl * aux
+            scaled_aux = aux if weights_kl is None else \
+                _columns(weights_kl) * aux
             W_new = W * mm(scaled_aux, H.mT)
             # padded columns have all-zero numerators; keep their sum at 1
             column_sums = W_new.sum(-2, keepdim=True)

@@ -1,6 +1,7 @@
 """Scaling layer: batched multi-start fits (restart axis as a tensor axis),
-lane compaction and rank scans."""
+lane compaction, rank scans and bootstrap stability."""
 
+from .bootstrap import BootstrapResult, bootstrap_stability  # noqa: F401
 from .compaction import CompactingRunner, resolve_compact  # noqa: F401
 from .corrnmf_scan import CorrScanResult, rank_scan_corrnmf  # noqa: F401
 from .multistart import MultiStartSummary, fit_best_of  # noqa: F401

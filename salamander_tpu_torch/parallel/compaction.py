@@ -10,12 +10,14 @@ lanes are still unconverged; the survivors are gathered (``nonzero`` +
 and resumed there. Finished lanes, their in-place history rows included,
 are scattered back into full-size buffers by lane id. A lane's updates
 never depend on its co-tenants, so per-lane results are those of the
-uncompacted loop. One host sync per halving decides the gather.
+uncompacted loop. One host sync per halving decides the gather. With
+``batched_data=True`` every lane fits its own data (a bootstrap resample):
+each data leaf carries the leading lane axis and is gathered with the
+survivors' state.
 
 Not ported: the JAX package's guards against its accelerator's program
 kill (``CappedFitDispatcher``, the time-capped segments and their cost
-model), which the card does not need, and the extraction runner, which
-waits for its slice.
+model), which the card does not need.
 """
 
 from __future__ import annotations
@@ -86,6 +88,10 @@ class CompactingRunner:
     bucket's tensors, so it can route a KLNMF block to the CUDA kernel
     before any launch). `progress`, when set, is called once per segment
     with a summary dict (iteration, lanes alive, objective range).
+
+    batched_data=True: every data leaf carries the leading lane axis (each
+    lane fits its own counts), and the survivors' data rows are gathered
+    with ``index_select`` alongside their state.
     """
 
     def __init__(
@@ -94,11 +100,13 @@ class CompactingRunner:
         objective_fn: Callable[[Any, Any], torch.Tensor],
         make_block_update: BlockBuilder,
         min_bucket: int = 8,
+        batched_data: bool = False,
     ):
         self.config = config
         self.objective_fn = objective_fn
         self.make_block_update = make_block_update
         self.min_bucket = max(1, int(min_bucket))
+        self.batched_data = bool(batched_data)
         self.progress: Callable[[dict], None] | None = None
 
     def _report(self, state: LockstepState, n_lanes: int) -> None:
@@ -123,9 +131,10 @@ class CompactingRunner:
         full_blocks = (int(config.max_iterations)
                        // int(config.conv_test_freq))
 
-        def objective(params):
-            return self.objective_fn(params, data)
+        def objective_on(lane_data):
+            return lambda params: self.objective_fn(params, lane_data)
 
+        objective = objective_on(data)
         state = init_lockstep_state(objective, params0, config)
         _effective_tol(config, state.of_prev.dtype, params0)  # warn once
         initial_objective = state.of_prev
@@ -133,11 +142,13 @@ class CompactingRunner:
         ids = torch.arange(n_restarts, device=state.done.device)
 
         bucket = n_restarts
+        data_bucket = data  # shrinks with the lanes under batched_data
         while True:
             target = self._next_bucket(bucket)
             floor = 0 if target is None else target
             state = run_lockstep_segment(
-                objective, config, self.make_block_update(state.params, data),
+                objective_on(data_bucket), config,
+                self.make_block_update(state.params, data_bucket),
                 state, alive_floor=floor,
             )
             self._report(state, bucket)
@@ -150,6 +161,9 @@ class CompactingRunner:
                 break
             state = _take_lanes(state, alive)
             ids = ids.index_select(0, alive)
+            if self.batched_data:
+                data_bucket = {key: leaf.index_select(0, alive)
+                               for key, leaf in data_bucket.items()}
             bucket = int(alive.numel())
 
         result = finish_lockstep(
@@ -257,6 +271,46 @@ def corrnmf_compacting_runner(config: FitConfig,
     return CompactingRunner(config, objective,
                             plain_block_builder(update_fn),
                             min_bucket=min_bucket)
+
+
+def extraction_compacting_runner(config: FitConfig, promote: bool,
+                                 min_bucket: int, family: str = "klnmf",
+                                 lam: float = 1.0, delta: float = 1.0,
+                                 n_given: int = 0,
+                                 masked: bool = True) -> CompactingRunner:
+    """The runner of de novo extraction's discovery fit (JAX:
+    ``_cached_extraction_compacting_runner``): KLNMF (or MvNMF) lanes where
+    every lane fits its OWN bootstrap resample (batched_data=True).
+
+    masked=True is the rank-masked flavor (the K-padded layout, with
+    ``n_given`` frozen leading signatures); masked=False steps unpadded
+    KLNMF lanes of one rank, whose blocks take the CUDA kernel with a
+    per-lane X where cuda_klnmf.mu_block_supported holds. `promote`
+    evaluates the convergence objective in float64
+    (models.signature_nmf.promote_objective), as the lockstep loop does.
+    lam/delta parameterize the MvNMF family only."""
+    if family == "mvnmf":
+        from ..ops import mvnmf as mv_ops
+
+        update_fn, objective_fn = mv_ops.make_masked_step_functions(
+            lam, delta, n_given_signatures=n_given)
+        make_block_update = plain_block_builder(update_fn)
+    else:
+        from ..ops import klnmf as ops
+
+        if masked:
+            update_fn, objective_fn = ops.make_masked_step_functions(
+                n_given_signatures=n_given)
+        else:
+            update_fn, objective_fn = ops.make_step_functions()
+        make_block_update = klnmf_block_builder(update_fn)
+    if promote:
+        from ..models.signature_nmf import promote_objective
+
+        objective_fn = promote_objective(
+            objective_fn, {"probe": torch.zeros((), dtype=torch.float32)})
+    return CompactingRunner(config, objective_fn, make_block_update,
+                            min_bucket=min_bucket, batched_data=True)
 
 
 def resolve_compact(compact, config: FitConfig, mesh, n_restarts: int,

@@ -1,6 +1,7 @@
 """Tests that need an NVIDIA GPU: the port's CUDA kernels (resident at
-every cluster size, and streamed) against their plain PyTorch version.
-They skip without a card.
+every cluster size, and streamed) against their plain PyTorch version,
+with one X shared by all lanes and with one X per lane. They skip without
+a card.
 
 This file imports neither jax nor salamander_tpu, so it also runs where JAX
 is not installed: on the card, run
@@ -119,6 +120,59 @@ def test_two_launches_are_bit_equal(cuda_device, V, K, D, R):
                                                     cluster)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def per_lane_problem(device, R=20, K=5, seed=0):
+    """R multinomial resamples of PCAWG SBS (one X per lane) with random
+    W and H."""
+    from salamander_tpu_torch import datasets
+
+    counts = datasets.load_pcawg_sbs().to_numpy().T  # (96, 192)
+    rng = np.random.default_rng(seed)
+    totals = counts.sum(0).astype(np.int64)
+    lanes = np.stack([
+        np.stack([rng.multinomial(n, column / column.sum())
+                  for n, column in zip(totals, counts.T)], axis=1)
+        for _ in range(R)])
+    X = np.clip(lanes, EPSILON, None).astype(np.float32)
+    _, W, H = make_problem(96, K, 192, R, seed=seed)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (X, W, H))
+
+
+@pytest.mark.cuda
+def test_per_lane_x_matches_plain_on_card(cuda_device):
+    """X (R, V, D): R = 20 PCAWG resamples at K = 5, the resident kernel at
+    every cluster size that holds a lane and the streamed kernel, against
+    the plain version at rtol 2e-4."""
+    X, W, H = per_lane_problem(cuda_device)
+    names = cuda_klnmf._kernels_taking(96, 5, 192)
+    assert {c for v, c in names if v == "resident"} == {1, 2, 4, 8}
+    assert ("streamed", 1) in names
+    for steps in (1, 10, 0):
+        W_r, H_r = cuda_klnmf.fused_mu_block_reference(X, W, H, steps)
+        for variant, cluster in names:
+            W_k, H_k = cuda_klnmf._fused_mu_block_variant(
+                X, W, H, steps, variant, cluster)
+            torch.cuda.synchronize()
+            assert_kernel_close(W_k, W_r)
+            assert_kernel_close(H_k, H_r)
+
+
+@pytest.mark.cuda
+def test_shared_x_equals_identical_lanes_bitwise(cuda_device):
+    """A per-lane X whose lanes are copies of one X gives the bits of the
+    shared-X (stride 0) launch, in every kernel."""
+    X, W, H = per_lane_problem(cuda_device)
+    shared = X[0].contiguous()
+    copies = shared.expand_as(X).contiguous()
+    for variant, cluster in cuda_klnmf._kernels_taking(96, 5, 192):
+        one = cuda_klnmf._fused_mu_block_variant(shared, W, H, 10, variant,
+                                                 cluster)
+        lanes = cuda_klnmf._fused_mu_block_variant(copies, W, H, 10,
+                                                   variant, cluster)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(one, lanes))
 
 
 @pytest.mark.cuda

@@ -20,18 +20,24 @@ MODULES = sorted(
 
 
 @pytest.mark.parametrize("name", [
+    "salamander_tpu_torch.assign",
     "salamander_tpu_torch.checkpoint",
+    "salamander_tpu_torch.extraction",
+    "salamander_tpu_torch.io",
     "salamander_tpu_torch.models.ardnmf",
     "salamander_tpu_torch.models.corrnmf",
     "salamander_tpu_torch.models.corrnmf_det",
     "salamander_tpu_torch.models.mvnmf",
     "salamander_tpu_torch.ops.ardnmf",
+    "salamander_tpu_torch.ops.assign",
     "salamander_tpu_torch.ops.corrnmf",
     "salamander_tpu_torch.ops.mvnmf",
+    "salamander_tpu_torch.parallel.bootstrap",
     "salamander_tpu_torch.parallel.compaction",
     "salamander_tpu_torch.parallel.corrnmf_scan",
     "salamander_tpu_torch.parallel.multistart",
     "salamander_tpu_torch.parallel.restarts",
+    "salamander_tpu_torch.tools",
 ])
 def test_the_blocked_import_covers_the_module(name):
     assert name in MODULES

@@ -82,6 +82,50 @@ def test_cpu_call_runs_plain_version_without_counting():
     assert cuda_klnmf.fused_mu_block.launches == before
 
 
+@pytest.mark.parametrize("steps", [1, 10])
+def test_per_lane_plain_block_matches_vmapped_pallas(steps):
+    """X (R, V, D), one count matrix per lane: the plain version against the
+    Pallas block under vmap over X, W and H."""
+    rng = np.random.default_rng(3)
+    X0, W, H = make_problem(16, 3, 32, R=4)
+    X = np.stack([rng.poisson(X0).astype(np.float32) + 1.0
+                  for _ in range(4)])
+    vmapped = jax.vmap(lambda x, w, h: pallas_mu_block(x, w, h, steps,
+                                                       interpret=True))
+    W_pl, H_pl = vmapped(X, W, H)
+    W_t, H_t = cuda_klnmf.fused_mu_block(torch.from_numpy(X),
+                                         torch.from_numpy(W),
+                                         torch.from_numpy(H), steps)
+    np.testing.assert_allclose(W_t.numpy(), np.asarray(W_pl), rtol=1e-5)
+    np.testing.assert_allclose(H_t.numpy(), np.asarray(H_pl), rtol=1e-5)
+
+
+def test_per_lane_block_equals_lane_by_lane():
+    X0, W, H = (torch.from_numpy(a) for a in make_problem(16, 3, 40, R=3))
+    X = torch.stack([X0 + lane for lane in range(3)])
+    W_b, H_b = cuda_klnmf.fused_mu_block(X, W, H, 6)
+    for lane in range(3):
+        W_1, H_1 = cuda_klnmf.fused_mu_block(
+            X[lane], W[lane:lane + 1], H[lane:lane + 1], 6)
+        torch.testing.assert_close(W_b[lane], W_1[0], rtol=1e-6, atol=0)
+        torch.testing.assert_close(H_b[lane], H_1[0], rtol=1e-6, atol=0)
+
+
+def test_per_lane_routing():
+    """A per-lane X takes the kernel's route where its lanes match W's; the
+    launch plan does not depend on whether X is shared."""
+    X, W, H = (torch.from_numpy(a) for a in make_problem(16, 3, 20, R=2))
+    lanes = X.expand(2, -1, -1)
+    assert cuda_klnmf.unsupported_reason(lanes, W, H) == \
+        cuda_klnmf.unsupported_reason(X, W, H) == \
+        "the tensors are not on a CUDA device"
+    assert "one lane of W per lane of X" in cuda_klnmf.unsupported_reason(
+        X.expand(3, -1, -1), W, H)
+    with pytest.raises(ValueError, match="one lane of W per lane"):
+        cuda_klnmf._check_kernel_inputs(X.expand(3, -1, -1).contiguous(),
+                                        W, H)
+
+
 def _routing_case(name):
     X, W, H = (torch.from_numpy(a) for a in make_problem(16, 3, 20, R=2))
     data, n_given = {"X": X}, 0
