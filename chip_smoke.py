@@ -35,8 +35,8 @@ check raises, so the script exits non-zero and prints no result):
 7. MvNMF(n_signatures=5).fit in float32 must stop below the 10,000 cap
    with finite, column-normalized signatures (line-search evaluations per
    iteration and the cost of one trial round printed); then
-   fit_best_of(MvNMF(5, random), n_restarts=50) compacted, monolithic and
-   compacted again, best losses at rtol 1e-4.
+   fit_best_of(MvNMF(5, random), n_restarts=50) compacted and monolithic
+   (one run each), best losses at rtol 1e-4.
 8. rank_scan_klnmf(X, range(2, 11), 20, seed=0) unpadded (with and without
    compaction; launches the kernel) and padded (packed and one point per
    call; plain ops), in turns; best loss per rank at rtol 1e-4.
@@ -67,8 +67,23 @@ Phases 9-11 run plain PyTorch ops (neither family reaches the kernel).
 14. bootstrap_stability(KLNMF(5).fit(PCAWG SBS), 20) through the kernel
    (per-lane X) and the plain block, best loss at rtol 1e-4; then
    bootstrap_exposures(PCAWG SBS, COSMIC-79, 50).
+15. MultimodalCorrNMF in float32, plain PyTorch ops (no kernel launches):
+   ([5, 4, 3], dim_embeddings=3, min 100, max 1000).fit on PCAWG breast
+   {sbs 96, indel 83, sv 32} x 192 (np.random.seed(0)): wall, EM cycles,
+   cycles/s, final ELBO; the ELBO trace never falls by more than float32
+   noise and its last value equals objective_function() on the absorbed
+   state at rtol 1e-5. fit_best_of(random init, max 500, R=16,
+   base_seed=0) compacted and monolithic in turns, best ELBO at rtol 1e-4.
+   The synthetic {96, 83} x 100,000 cohort (default_rng(1)),
+   ns_signatures [4, 3], R=4, max 500, tol 1e-6: the bytes reckoned
+   first, then wall, aggregate joint cycles/s, best ELBO, peak allocated
+   memory. bootstrap_stability(the fitted model, 8): wall, mean stability
+   per modality. Then 20 cycles of the cohort best-of-4 and 50 cycles of
+   the first fit under torch.profiler: device busy share (traced device
+   time over the untraced wall), kernels per EM cycle and the kernels that
+   take most of the device time.
 
-Each of phases 4-14 runs with the kernel's launch counts (in all, by
+Each of phases 4-15 runs with the kernel's launch counts (in all, by
 kernel and by shared or per-lane X) set to 0 just before it and read just
 after. The last two lines are the per-kernel JSON
 record and
@@ -133,6 +148,15 @@ def phase_environment(torch) -> None:
           and torch.get_float32_matmul_precision() == "highest",
           "float32 matmuls must be IEEE (no TF32)")
     print(f"[1] nvidia-smi: {card_line()}")
+    from salamander_tpu_torch import assign
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    budget = assign._memory_budget(torch.device("cuda"))
+    check(budget == int(assign._DEVICE_MEMORY_SHARE * total),
+          "the memory budget is not a fixed share of the total memory")
+    print(f"[1] device memory {total / 1e9:.2f} GB in all; memory budget of "
+          f"a batch's working tensors {budget / 1e9:.2f} GB "
+          f"({assign._DEVICE_MEMORY_SHARE} of it, whatever is free)")
 
 
 def ptxas_report(log: str):
@@ -656,9 +680,9 @@ def phase_mvnmf(torch, sal):
 
     walls = {True: [], False: []}
     best = {}
-    # the monolithic R=50 run (~55-80 s) runs once, between two compacted
-    # runs, to keep the whole script near six minutes
-    for compact in (True, False, True):
+    # one run of each layout (the monolithic one takes ~55-90 s): the
+    # whole script, phase 15 included, stays near eight to ten minutes
+    for compact in (True, False):
         trials[0] = 0
         mv_ops._renormalized_objective = counting
         try:
@@ -1011,6 +1035,220 @@ def phase_bootstrap(torch, sal, cuda_klnmf):
           f"sample {present.mean():.3f} ({present.min()}..{present.max()})")
 
 
+def pcawg_mdata(sal):
+    """PCAWG breast {sbs 96, indel 83, sv 32} x 192 from the vendored
+    CSVs."""
+    return sal.MuData({
+        "sbs": sal.AnnData(sal.datasets.load_pcawg_sbs()),
+        "indel": sal.AnnData(sal.datasets.load_pcawg_indel()),
+        "sv": sal.AnnData(sal.datasets.load_pcawg_sv()),
+    })
+
+
+def synthetic_cohort(n_samples: int = 100_000) -> dict:
+    """The {96, 83} x n_samples planted cohort of the JAX package's
+    multimodal cohort benchmark, drawn as it draws it (default_rng(1))."""
+    rng = np.random.default_rng(1)
+    mods = {}
+    for name, V, K in (("sbs", 96, 4), ("indel", 83, 3)):
+        W = rng.dirichlet(np.ones(V) * 0.3, size=K)
+        H = rng.gamma(2.0, 25.0, size=(n_samples, K))
+        mods[name] = rng.poisson(H @ W).astype(np.float32) + np.float32(1.0)
+    return mods
+
+
+def device_busy(torch, fn, n_cycles: int, top: int = 0):
+    """Device busy share of fn(): fn runs once on the host clock, then once
+    under torch.profiler (CUDA activity only; its wall is not used, since
+    tracing thousands of launches slows the host). Returns a dict: busy
+    (device time of the traced run over the untraced wall), kernels and
+    wall_ms and device_ms per cycle, and the `top` kernels by device time
+    as (name, share of device time); None when the profiler saw no
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, wall = timed(torch, fn)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [event for event in prof.events()
+               if event.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(event.device_time for event in kernels)  # microseconds
+    if not kernels or device_us <= 0:
+        return None
+    by_name: dict[str, float] = {}
+    for event in kernels:
+        by_name[event.name] = by_name.get(event.name, 0.0) + event.device_time
+    ranked = sorted(by_name.items(), key=lambda item: -item[1])[:top]
+    return {
+        "busy": device_us / 1e6 / wall,
+        "kernels": len(kernels) / n_cycles,
+        "wall_ms": 1000 * wall / n_cycles,
+        "device_ms": device_us / 1000 / n_cycles,
+        "top": [(name[:60], time_us / device_us) for name, time_us in ranked],
+    }
+
+
+def print_busy(label: str, busy, n_cycles: int) -> None:
+    if busy is None:
+        print(f"[15] {label}: torch.profiler recorded no device time: busy "
+              "share not measured")
+        return
+    print(f"[15] {label}, {n_cycles} cycles (set-up, init and the float64 "
+          f"ELBO evaluations included), untraced wall against traced device "
+          f"time: device busy {100 * busy['busy']:.1f}%, "
+          f"{busy['kernels']:.0f} kernels a cycle, {busy['wall_ms']:.3f} ms "
+          f"of wall and {busy['device_ms']:.3f} ms of device time a cycle")
+    for name, share in busy["top"]:
+        print(f"[15]   {100 * share:5.1f}% of device time: {name}")
+
+
+def phase_multimodal(torch, sal):
+    """MultimodalCorrNMF: the PCAWG breast fit, its best-of-16 in both
+    layouts, the 100,000-sample cohort best-of-4, the joint bootstrap and
+    the cycle's device busy share. Float32 on the card, plain ops."""
+    from salamander_tpu_torch.ops import corrnmf as corr_ops
+
+    hyper = dict(ns_signatures=[5, 4, 3], dim_embeddings=3,
+                 min_iterations=100, device="cuda", dtype="float32")
+    calls = {"steps": 0}
+    real_step = corr_ops._newton_step
+
+    def counting_step(*args):
+        calls["steps"] += 1
+        return real_step(*args)
+
+    np.random.seed(0)
+    model = sal.MultimodalCorrNMF(max_iterations=1000, **hyper)
+    corr_ops._newton_step = counting_step
+    try:
+        _, seconds = timed(torch, lambda: model.fit(pcawg_mdata(sal)))
+    finally:
+        corr_ops._newton_step = real_step
+    cycles = model.history["n_iterations"]
+    trace = model.history["objective_function"]
+    final = float(trace[-1])
+    worst = elbo_trace_check(trace)
+    check(np.isfinite(final), "non-finite ELBO")
+    absorbed = model.objective_function()
+    check(cycles % BLOCK != 0
+          or abs(final - absorbed) <= 1e-5 * abs(absorbed),
+          f"final ELBO {final} is not objective_function() {absorbed} on "
+          "the absorbed state")
+    for name in model.mod_names:
+        check(bool(np.isfinite(model.asignatures[name].X).all()
+                   and np.isfinite(model.mdata[name].obsm["exposures"]).all()),
+              f"non-finite {name} parameters")
+    signature_steps = (calls["steps"] - 3 * cycles) / cycles
+    print(f"[15] MultimodalCorrNMF([5, 4, 3], dim_embeddings=3).fit on "
+          f"PCAWG sbs/indel/sv x {model.mdata.n_obs}: {cycles} EM cycles, "
+          f"{seconds:.3f} s, {cycles / seconds:.1f} cycles/s, final ELBO "
+          f"{final:.4f} (objective_function() {absorbed:.4f}), "
+          f"{signature_steps:.3f} signature-side Newton steps per cycle "
+          f"over the 3 modalities, largest ELBO fall {worst:.3e} relative, "
+          f"variance {model.variance:.4f}")
+
+    walls = {True: [], False: []}
+    best = {}
+    for compact in (True, False, False, True):
+        summary, seconds = timed(torch, lambda: sal.fit_best_of(
+            sal.MultimodalCorrNMF(init_method="random", max_iterations=500,
+                                  tol=1e-7, **hyper),
+            pcawg_mdata(sal), n_restarts=16, base_seed=0, compact=compact))
+        check(bool(np.isfinite(summary.losses).all()), "non-finite ELBOs")
+        walls[compact].append(seconds)
+        best[compact] = float(summary.losses.max())
+        print(f"[15] fit_best_of(MultimodalCorrNMF, R=16, compact="
+              f"{compact}): {seconds:.3f} s, best ELBO {best[compact]:.4f}, "
+              f"cycles {summary.n_iterations.min()}.."
+              f"{summary.n_iterations.max()} (mean "
+              f"{summary.n_iterations.mean():.1f}), "
+              f"{summary.n_iterations.sum() / seconds:.1f} aggregate "
+              "cycles/s")
+    check_best_agree("[15] compacted vs monolithic", best[True], best[False])
+    print(f"[15] walls: compacted "
+          f"{', '.join(f'{s:.3f}' for s in walls[True])} s; monolithic "
+          f"{', '.join(f'{s:.3f}' for s in walls[False])} s")
+
+    # the cohort cell: reckon the bytes before running
+    D, R, sum_k, n_backtrack = 100_000, 4, 7, 41
+    x_bytes = 4 * D * (96 + 83)
+    candidate_bytes = 4 * D * n_backtrack * sum_k
+    print(f"[15] cohort {{96, 83}} x {D}: X {x_bytes / 1e6:.1f} MB "
+          f"(float64 for an ELBO evaluation {2 * x_bytes / 1e6:.1f} MB); the "
+          f"joint sample Newton step's Armijo candidates (R, D, "
+          f"{n_backtrack}, {sum_k}) float32 {candidate_bytes / 1e6:.1f} MB a "
+          f"lane, {R * candidate_bytes / 1e6:.1f} MB for R={R}")
+    cohort, seconds = timed(torch, synthetic_cohort)
+    print(f"[15] cohort drawn on the host in {seconds:.3f} s")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cohort_model = sal.MultimodalCorrNMF(
+        ns_signatures=[4, 3], dim_embeddings=3, init_method="random",
+        min_iterations=100, max_iterations=500, conv_test_freq=10, tol=1e-6,
+        device="cuda", dtype="float32")
+    summary, seconds = timed(torch, lambda: sal.fit_best_of(
+        cohort_model,
+        sal.MuData({k: sal.AnnData(v.copy()) for k, v in cohort.items()}),
+        R, base_seed=0))
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(np.isfinite(summary.losses).all()),
+          "non-finite cohort ELBOs")
+    check(peak < 40e9, f"the cohort cell allocated {peak / 1e9:.1f} GB")
+    total = int(summary.n_iterations.sum())
+    print(f"[15] fit_best_of(MultimodalCorrNMF([4, 3]), cohort, R={R}): "
+          f"{seconds:.3f} s, {total} joint cycles "
+          f"({summary.n_iterations.min()}..{summary.n_iterations.max()}), "
+          f"{total / seconds:.1f} aggregate joint cycles/s, best ELBO "
+          f"{float(summary.losses.max()):.1f}, peak allocated "
+          f"{peak / 1e9:.3f} GB")
+    cohort_cycles = 20
+
+    def cohort_probe():
+        sal.fit_best_of(
+            sal.MultimodalCorrNMF(
+                ns_signatures=[4, 3], dim_embeddings=3, init_method="random",
+                min_iterations=cohort_cycles, max_iterations=cohort_cycles,
+                tol=1e-6, device="cuda", dtype="float32"),
+            sal.MuData({k: sal.AnnData(v.copy()) for k, v in cohort.items()}),
+            R, base_seed=0)
+
+    print_busy(f"cohort best-of-{R} under torch.profiler",
+               device_busy(torch, cohort_probe, cohort_cycles, top=6),
+               cohort_cycles)
+    del cohort, cohort_model, summary
+    torch.cuda.empty_cache()
+
+    result, seconds = timed(torch, lambda: sal.bootstrap_stability(model, 8))
+    check(bool(np.isfinite(result.losses).all()),
+          "non-finite bootstrap ELBOs")
+    columns = list(result.similarities.columns)
+    offset, per_mod = 0, []
+    for name, k in zip(model.mod_names, model.ns_signatures):
+        share = result.stability.iloc[offset:offset + k]
+        check(list(share.index) == columns[offset:offset + k]
+              and all(label.startswith(name) for label in share.index),
+              f"stability columns of {name} out of order")
+        per_mod.append(f"{name} {share.mean():.4f}")
+        offset += k
+    print(f"[15] bootstrap_stability(MultimodalCorrNMF, 8): {seconds:.3f} s, "
+          f"mean stability " + ", ".join(per_mod) + f", best ELBO "
+          f"{float(result.losses.max()):.4f}")
+
+    probe_cycles = 50
+    probe = sal.MultimodalCorrNMF(
+        max_iterations=probe_cycles,
+        **dict(hyper, min_iterations=probe_cycles))
+
+    def pcawg_probe():
+        np.random.seed(0)
+        probe.fit(pcawg_mdata(sal))
+
+    print_busy("PCAWG fit under torch.profiler",
+               device_busy(torch, pcawg_probe, probe_cycles, top=4),
+               probe_cycles)
+
+
 def main() -> int:
     import torch
 
@@ -1062,6 +1300,7 @@ def main() -> int:
     drive("13 assignment", phase_assignment, torch, sal,
           extracted.consensus[5])
     drive("14 bootstrap", phase_bootstrap, torch, sal, cuda_klnmf)
+    drive("15 MultimodalCorrNMF", phase_multimodal, torch, sal)
     for path in ("4 KLNMF.fit", "5 fit_klnmf_restarts",
                  "6 fit_best_of KLNMF", "8 rank_scan_klnmf",
                  "12 extract_signatures", "14 bootstrap"):

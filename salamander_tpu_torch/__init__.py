@@ -6,8 +6,8 @@ modules mirror salamander_tpu's paths, each held against the file of the
 same name there; this package imports neither jax nor salamander_tpu.
 
 Ported so far: containers, datasets (PCAWG, COSMIC), the KLNMF ops and
-kernel, the convergence engine, initialization, the KLNMF, MvNMF, ARDNMF
-and CorrNMFDet models, the batched multi-start fits (fit_best_of, lane
+kernel, the convergence engine, initialization, the KLNMF, MvNMF, ARDNMF,
+CorrNMFDet and MultimodalCorrNMF models, the batched multi-start fits (fit_best_of, lane
 compaction, checkpointed chunks), the KLNMF/MvNMF rank scans, the padded
 CorrNMF (k, m) scan, catalog assignment (dense, sparse, bootstrap), de
 novo consensus extraction, bootstrap stability and the catalog
@@ -40,7 +40,13 @@ from .assign import (  # noqa: F401
 from .containers import AnnData, MuData  # noqa: F401
 from .engine import FitConfig  # noqa: F401
 from .extraction import ExtractionResult, extract_signatures  # noqa: F401
-from .models import ARDNMF, KLNMF, CorrNMFDet, MvNMF  # noqa: F401
+from .models import (  # noqa: F401
+    ARDNMF,
+    KLNMF,
+    CorrNMFDet,
+    MultimodalCorrNMF,
+    MvNMF,
+)
 from .parallel import (  # noqa: F401
     BootstrapResult,
     CorrScanResult,
@@ -72,6 +78,7 @@ __all__ = [
     "KLNMF",
     "MuData",
     "MultiStartSummary",
+    "MultimodalCorrNMF",
     "MvNMF",
     "RestartResult",
     "assign",

@@ -16,9 +16,13 @@ Typical use::
 
 Everything runs on ``device`` (None: the current CUDA device, raising
 without one) in the compute dtype of ``resolve_dtype``: float32 on a card,
-float64 on the CPU. Sample chunks are sized by a memory model of the
-candidate tensors against the card's free memory, where the JAX package
-sizes them by its accelerator's program kill. mesh= is not ported.
+float64 on the CPU. How much runs at once on the card follows from a
+memory model of the working tensors against a fixed share of the card's
+total memory (never its free memory), and decides no result: candidates
+run a fixed step count per sample, bootstrap replicates converge each on
+their own and draw from a generator keyed by (seed, replicate), and the
+stores hold no memory-sized chunk. The JAX package sizes its chunks by its
+accelerator's program kill. mesh= is not ported.
 """
 
 from __future__ import annotations
@@ -43,8 +47,10 @@ __all__ = [
     "bootstrap_exposures",
 ]
 
-# share of the card's free memory one chunk's working tensors may take
-_FREE_MEMORY_SHARE = 0.5
+# share of the card's TOTAL memory that the working tensors of one batch may
+# take: a function of the device alone, so one seed gives one result and one
+# store layout whatever else holds memory on the card
+_DEVICE_MEMORY_SHARE = 0.4
 
 
 def _extract_counts(data) -> tuple[np.ndarray, pd.Index, pd.Index]:
@@ -119,12 +125,14 @@ def _setup(device, dtype, mesh):
 
 
 def _memory_budget(device) -> int | None:
-    """Bytes that one chunk's working tensors may take: a share of the
-    card's free memory; None (unlimited) on the CPU."""
+    """Bytes that one batch's working tensors may take: a fixed share of
+    the card's total memory; None (unlimited) on the CPU. A batch that does
+    not fit after all raises its out-of-memory error: a retry at a smaller
+    size would make results depend on the allocator's state."""
     if device.type != "cuda":
         return None
-    free, _ = torch.cuda.mem_get_info(device)
-    return int(_FREE_MEMORY_SHARE * free)
+    total = torch.cuda.get_device_properties(device).total_memory
+    return int(_DEVICE_MEMORY_SHARE * total)
 
 
 def _memory_lanes(device, bytes_per_lane: float, n: int) -> int:
@@ -219,14 +227,15 @@ def assign_signatures(
     the reported numbers honour that budget exactly
     (ops/assign._finalize_contract).
 
-    ``batch_size`` bounds device memory: samples run in equal-width chunks
-    (the tail chunk padded with copies of its first sample and trimmed).
-    None runs one chunk unless the memory model of the candidate tensors
-    (candidate_bytes_per_sample: H twice at (K, K, B), WH and aux at
-    (K, V, B)) exceeds half the card's free memory; then the chunk is the
-    most samples that fit. Samples are independent; the only chunking
-    effect is that the convergence test aggregates the objective per
-    chunk, so refits may stop a block earlier or later.
+    ``batch_size`` runs the samples in equal-width chunks (the tail chunk
+    padded with copies of its first sample and trimmed); None is one chunk.
+    Samples are independent; the only chunking effect is that the
+    convergence test aggregates the objective per chunk, so refits may stop
+    a block earlier or later. Device memory needs no ``batch_size``: within
+    a chunk the candidate tensors (candidate_bytes_per_sample: H twice at
+    (K, K, B), WH and aux at (K, V, B)) are evaluated for as many samples
+    at once as fit the memory budget (_memory_budget), which changes no
+    result and no store.
 
     ``checkpoint_dir``: preemption-safe resume (checkpoint.ChunkStore):
     every completed chunk is written atomically, and a rerun with the same
@@ -239,10 +248,9 @@ def assign_signatures(
     V, D = X.shape
     K = W.shape[1]
     W_dev = torch.as_tensor(W, dtype=dtype, device=device)
-    if batch_size is None:
-        fits = _memory_lanes(device, candidate_bytes_per_sample(
-            V, K, torch.finfo(dtype).bits // 8), D)
-        batch_size = None if fits >= D else fits
+    width = D if batch_size is None or batch_size >= D else int(batch_size)
+    candidate_chunk = _memory_lanes(device, candidate_bytes_per_sample(
+        V, K, torch.finfo(dtype).bits // 8), width)
 
     store = None
     if checkpoint_dir is not None:
@@ -268,13 +276,13 @@ def assign_signatures(
             rel_tol, abs_tol, candidate_iters=candidate_iters,
             polish_iterations=polish_iterations,
             max_polish_iterations=max_iterations, polish_tol=tol,
+            candidate_chunk=candidate_chunk,
         )
         n_rounds = out.pop("n_rounds")
         fetched = {key: _host(value) for key, value in out.items()}
         fetched["n_rounds"] = int(n_rounds)
         return fetched
 
-    width = D if batch_size is None or batch_size >= D else int(batch_size)
     parts = []
     for start in range(0, D, width):
         stop = min(start + width, D)
@@ -341,10 +349,12 @@ class BootstrapExposuresResult:
     meta: dict[str, Any] = field(default_factory=dict)
 
 
-def chunk_seed(seed: int, chunk: int) -> int:
-    """The torch.Generator seed of replicate chunk `chunk` under `seed`
-    (the JAX package splits one key per chunk)."""
-    return int(np.random.SeedSequence([int(seed), int(chunk)])
+def replicate_seed(seed: int, replicate: int) -> int:
+    """The torch.Generator seed of resample `replicate` under `seed`: a
+    replicate's counts depend on (seed, replicate) alone, whichever
+    replicates share its batch (the JAX package splits one key per
+    chunk)."""
+    return int(np.random.SeedSequence([int(seed), int(replicate)])
                .generate_state(1, np.uint64)[0])
 
 
@@ -371,27 +381,29 @@ def bootstrap_exposures(
     ('multinomial': redraw each sample's total over features, the
     SigProfiler-style nonparametric bootstrap; 'poisson': X_b ~ Poisson(X),
     the parametric bootstrap under the model's own likelihood) and refits
-    exposures against the FIXED catalog, every replicate of a chunk as one
-    flat refit (ops/assign.bootstrap_refit).
+    exposures against the FIXED catalog, the replicates as lanes of one
+    batched refit in which each converges on its own
+    (ops/assign.bootstrap_refit).
 
     ``active`` restricts each sample to a support (bool samples x
     signatures DataFrame/array, e.g. ``AssignmentResult.active``):
     off-support entries are exact zeros in every replicate.
 
-    ``replicate_batch`` bounds device memory: replicates run in chunks of
-    that many (replicate 0 of every chunk is the original X, kept once as
-    the point estimate). None runs one chunk unless ~3.5 copies of each
-    replicate's (V + K, D) buffers, twice, exceed half the card's free
-    memory. Chunk i draws from a torch.Generator seeded with
-    chunk_seed(seed, i).
+    ``replicate_batch`` bounds device memory: replicates run in batches of
+    that many. None runs as many at once as fit the memory budget
+    (_memory_budget) at ~3.5 copies of each replicate's (V + K, D) buffers,
+    twice. Replicate 0 is the original X (the point estimate); replicate
+    b >= 1 draws from a torch.Generator seeded with replicate_seed(seed, b).
+    The batch size changes no result: resamples and refits are per
+    replicate.
 
     Returns a BootstrapExposuresResult; `presence` is the fraction of
     replicates where a signature carries at least ``min_fraction`` of the
     sample's exposure mass.
 
-    ``checkpoint_dir``: preemption-safe resume of completed replicate
-    chunks; ``quantiles`` and ``min_fraction`` are host post-processing
-    and not part of the store's identity, the compute dtype is.
+    ``checkpoint_dir``: preemption-safe resume, one entry per completed
+    replicate; ``quantiles``, ``min_fraction`` and the batch size are not
+    part of the store's identity, the compute dtype is.
     """
     device, dtype = _setup(device, dtype, mesh)
     X, obs_names, var_names = _extract_counts(data)
@@ -422,48 +434,45 @@ def bootstrap_exposures(
         itemsize = torch.finfo(dtype).bits // 8
         per_rep = 3.5 * itemsize * D * (2 * X.shape[0] + 2 * K)
         replicate_batch = _memory_lanes(device, per_rep, n_replicates)
-    chunk = max(2, min(int(replicate_batch), n_replicates))
-    n_resamples = n_replicates - 1
-    n_chunks = -(-n_resamples // (chunk - 1))
+    batch = max(1, min(int(replicate_batch), n_replicates))
     store = None
     if checkpoint_dir is not None:
         from .checkpoint import ChunkStore, data_fingerprint
 
         store = ChunkStore(checkpoint_dir, {
             "pipeline": "bootstrap_exposures",
-            "format": 1,
+            "format": 2,
             "data": data_fingerprint(X, W, mask),
             "n_replicates": int(n_replicates),
             "seed": int(seed),
             "method": str(method),
             "max_iterations": int(max_iterations),
             "tol": float(tol),
-            "chunk": int(chunk),
             "dtype": str(dtype).removeprefix("torch."),
         })
-    point_H = None
-    resamples_H = []
-    got = 0
-    for i in range(n_chunks):
-        name = f"chunk_{i:06d}"
-        cached = store.load(name) if store is not None else None
-        if cached is not None:
-            H = cached["H"]
-        else:
-            generator = torch.Generator(device=device).manual_seed(
-                chunk_seed(seed, i))
-            H = _host(ops.bootstrap_refit(
-                X_dev, W_dev, mask_dev, generator, chunk, method=method,
-                max_iterations=max_iterations, tol=tol,
-            ))
+    H_all = [None] * n_replicates
+    if store is not None:
+        for b in range(n_replicates):
+            cached = store.load(f"replicate_{b:06d}")
+            if cached is not None:
+                H_all[b] = cached["H"]
+    missing = [b for b in range(n_replicates) if H_all[b] is None]
+    for lo in range(0, len(missing), batch):
+        lanes = missing[lo:lo + batch]
+        generators = [
+            None if b == 0 else torch.Generator(device=device).manual_seed(
+                replicate_seed(seed, b))
+            for b in lanes
+        ]  # replicate 0 is the original X
+        H = _host(ops.bootstrap_refit(
+            X_dev, W_dev, mask_dev, generators, method=method,
+            max_iterations=max_iterations, tol=tol,
+        ))
+        for b, H_b in zip(lanes, H):
+            H_all[b] = H_b
             if store is not None:
-                store.save(name, H=H)
-        if point_H is None:
-            point_H = H[:1]
-        take = min(chunk - 1, n_resamples - got)
-        resamples_H.append(H[1:1 + take])
-        got += take
-    H_all = np.concatenate([point_H] + resamples_H, axis=0)  # (B, K, D)
+                store.save(f"replicate_{b:06d}", H=H_b)
+    H_all = np.stack(H_all, axis=0)                          # (B, K, D)
     E = np.swapaxes(H_all, 1, 2)                             # (B, D, K)
 
     def frame(a):

@@ -25,6 +25,8 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from .tree import tree_leaves, tree_map
+
 
 class FitConfig(NamedTuple):
     """Convergence-rule hyperparameters shared by every model family.
@@ -59,7 +61,7 @@ def _effective_tol(config: FitConfig, objective_dtype, params0,
     relative jitter into even a float64 objective."""
     tol = float(config.tol)
     floor = tolerance_floor(objective_dtype)
-    for leaf in params0.values():
+    for leaf in tree_leaves(params0):
         if leaf.dtype.is_floating_point:
             floor = max(floor, tolerance_floor(leaf.dtype))
     if tol < floor:
@@ -81,7 +83,7 @@ def effective_tolerance(config: FitConfig, objective_dtype, params0) -> float:
 
 
 class FitResult(NamedTuple):
-    params: dict[str, torch.Tensor]
+    params: dict  # a tree of tensors (engine.tree)
     initial_objective: torch.Tensor
     history: torch.Tensor        # (max_evals,) or (R, max_evals), NaN-padded
     n_evals: Any                 # int, or (R,) tensor for lockstep fits
@@ -162,7 +164,7 @@ class LockstepState(NamedTuple):
     advances in lockstep blocks.
     """
 
-    params: dict[str, torch.Tensor]
+    params: dict                # a tree of tensors (engine.tree)
     of_prev: torch.Tensor       # (R,) objective at each lane's last eval
     history: torch.Tensor       # (R, max_evals) NaN-padded traces
     n_evals: torch.Tensor       # (R,)
@@ -173,13 +175,14 @@ class LockstepState(NamedTuple):
 
 
 def _masked_advance(block_update_fn: BlockUpdate, params, frozen, n_steps):
-    """Advance every lane by n_steps, then restore the frozen lanes."""
-    params_new = block_update_fn(params, n_steps)
-    out = {}
-    for key, old in params.items():
+    """Advance every lane by n_steps, then restore the frozen lanes (on
+    every leaf of the tree: a leaf left out would let a frozen lane
+    drift)."""
+    def restore(old, new):
         lanes = frozen.reshape((frozen.shape[0],) + (1,) * (old.dim() - 1))
-        out[key] = torch.where(lanes, old, params_new[key])
-    return out
+        return torch.where(lanes, old, new)
+
+    return tree_map(restore, params, block_update_fn(params, n_steps))
 
 
 def init_lockstep_state(

@@ -32,9 +32,10 @@ The clustering runs on the host (copied): Hungarian matching on (k x k)
 cosine matrices and silhouettes.
 
 Memory: the discovery fit holds per-lane data, ``len(ranks) * n_bootstraps
-* V * D`` elements. Beyond the lane budget (``max_lane_gb``; None: half
-the card's free memory, unlimited on the CPU) the lanes run as
-consecutive equal chunks with results identical to one chunk. The B
+* V * D`` elements. Beyond the lane budget (``max_lane_gb``; None: a
+fixed share of the card's total memory, unlimited on the CPU) the lanes
+run as consecutive equal chunks with results identical to one chunk, and
+a store keeps one entry per lane, so it resumes under any budget. The B
 resamples stay resident across chunks while they fit 2 GiB; beyond it they
 are drawn anew per chunk from the same seed.
 
@@ -380,8 +381,10 @@ def _lane_chunk_size(n_lanes: int, max_lane_gb, dtype, n_features: int,
     """Lanes per discovery chunk. Per-lane residency during a block: the
     lane's bootstrap counts plus the aux quotient and the WH product
     (3.5 V x D buffers) and the factor pairs twice (state and scatter
-    target), against max_lane_gb, or half the card's free memory
-    (unlimited on the CPU)."""
+    target), against max_lane_gb, or the memory budget of the device
+    (assign._memory_budget: a fixed share of the card's total memory,
+    unlimited on the CPU). The size decides no result and is no part of a
+    store's identity: lanes are fitted and stored one by one."""
     from .assign import _memory_budget
 
     if max_lane_gb is not None and max_lane_gb <= 0:
@@ -463,15 +466,16 @@ def extract_signatures(
     where min_iterations < max_iterations); survivors' bootstrap counts are
     gathered with their state. Per-lane results equal the lockstep loop's.
 
-    max_lane_gb: device-memory budget of the discovery lanes (None: half
-    the card's free memory; unlimited on the CPU). Chunked results equal
-    one chunk's: lane draws are (seed, rank, replicate)-keyed.
+    max_lane_gb: device-memory budget of the discovery lanes (None: a
+    fixed share of the card's total memory; unlimited on the CPU). Chunked
+    results equal one chunk's: lane draws are (seed, rank, replicate)-keyed.
 
-    checkpoint_dir: preemption-safe resume of completed discovery chunks
+    checkpoint_dir: preemption-safe resume of completed discovery lanes
+    (one entry each, so a rerun under another memory budget resumes too)
     and per-rank consensus refits (checkpoint.ChunkStore). Its identity
-    holds the data, the arguments, the compute dtype and the lane layout;
-    a store of a different run is warned about and discarded. mesh= is not
-    ported.
+    holds the data, the arguments, the compute dtype and the lane layout,
+    not the chunk size; a store of a different run is warned about and
+    discarded. mesh= is not ported.
     """
     from .assign import _align_catalog, _extract_counts
     from .models.signature_nmf import resolve_device, resolve_dtype
@@ -547,7 +551,7 @@ def extract_signatures(
 
         ckpt = ChunkStore(checkpoint_dir, {
             "pipeline": "extract_signatures",
-            "format": 1,
+            "format": 2,
             "data": data_fingerprint(X_host),
             "given": (None if W_given_host is None
                       else data_fingerprint(W_given_host)),
@@ -564,25 +568,23 @@ def extract_signatures(
             "tol": float(tol),
             "dtype": str(dtype).removeprefix("torch."),
             "n_lanes": int(n_lanes),
-            "chunk_size": int(chunk_size),
             "compact": bool(use_runner),
             "layout": layout,
         })
 
-    W_parts, loss_parts, iter_parts = [], [], []
+    lane_results: list = [None] * n_lanes  # (W (V, Kp), loss, iterations)
+    if ckpt is not None:
+        for lane in range(n_lanes):
+            cached = ckpt.load(f"lane_{lane:06d}")
+            if cached is not None:
+                lane_results[lane] = (cached["W"], cached["loss"],
+                                      cached["iterations"])
     for start in range(0, n_lanes, chunk_size):
         stop = min(start + chunk_size, n_lanes)
-        if ckpt is not None:
-            cached = ckpt.load(
-                f"chunk_{start:06d}",
-                match={"start": start, "stop": stop},
-            )
-            if cached is not None:
-                W_parts.append(np.asarray(cached["W"]))
-                loss_parts.append(np.asarray(cached["loss"]))
-                iter_parts.append(np.asarray(cached["iterations"]))
-                continue
-        sl = slice(start, stop)
+        sl = np.array([lane for lane in range(start, stop)
+                       if lane_results[lane] is None], dtype=int)
+        if sl.size == 0:
+            continue
         X_boot = X_boot_shared if X_boot_shared is not None else resample()
         params0, lane_data = _prepare_lanes(
             X_boot, seed, lane_ranks[sl], lane_replicates[sl], n_padded,
@@ -599,21 +601,17 @@ def extract_signatures(
                 use_runner)
         W_c, loss_c, iter_c = (W_c.cpu().numpy(), loss_c.cpu().numpy(),
                                iter_c.cpu().numpy())
-        W_parts.append(W_c)
-        loss_parts.append(loss_c)
-        iter_parts.append(iter_c)
-        if ckpt is not None:
-            ckpt.save(
-                f"chunk_{start:06d}",
-                match={"start": start, "stop": stop},
-                W=W_c, loss=loss_c, iterations=iter_c,
-            )
+        for j, lane in enumerate(sl):
+            lane_results[lane] = (W_c[j], loss_c[j], iter_c[j])
+            if ckpt is not None:
+                ckpt.save(f"lane_{lane:06d}", W=W_c[j], loss=loss_c[j],
+                          iterations=iter_c[j])
         del params0, lane_data, X_boot
 
     X_boot_shared = None  # free the resamples before the consensus refit
-    W_lanes = np.concatenate(W_parts, axis=0)  # (L, V, Kp)
-    losses = np.concatenate(loss_parts, axis=0)
-    lane_iterations = np.concatenate(iter_parts, axis=0)
+    W_lanes = np.stack([lane[0] for lane in lane_results])  # (L, V, Kp)
+    losses = np.stack([lane[1] for lane in lane_results])
+    lane_iterations = np.stack([lane[2] for lane in lane_results])
 
     rows = []
     consensus_by_rank: dict[int, pd.DataFrame] = {}

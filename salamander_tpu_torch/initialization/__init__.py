@@ -11,10 +11,12 @@ from .initialize import (  # noqa: F401
     GIVEN_PARAMETERS_STANDARD_NMF,
     initialize_corrnmf,
     initialize_mat,
+    initialize_mmcorrnmf,
     initialize_standard_nmf,
 )
 from .methods import (  # noqa: F401
     INIT_METHODS,
     corrnmf_init_batch,
+    mm_corrnmf_init_batch,
     random_init_batch,
 )

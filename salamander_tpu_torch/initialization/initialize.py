@@ -12,9 +12,12 @@ Mirrors the behavior of the reference's initialization/initialize.py:
                                  (global numpy RNG - seeded implicitly when
                                  the signature init method took a seed) and
                                  variance 1.0; rejects method='custom'
-  given-parameter validators :122-155, 221-229, 258-316
-
-The multimodal initializer is not ported yet.
+  initialize_mmcorrnmf  :419-465 per-modality CorrNMF inits (modality by
+                                 modality, in order), then ONE draw of the
+                                 shared sample embeddings from the global
+                                 numpy RNG; generated names get the
+                                 '{modality} ' prefix
+  given-parameter validators :122-155, 221-229, 258-316, 387-416
 """
 
 from __future__ import annotations
@@ -288,6 +291,78 @@ def initialize_corrnmf(
     if initialize_sample_embeddings:
         adata.obsm["embeddings"] = given_or(
             "sample_embeddings", lambda: gaussian_embeddings(adata.n_obs)
+        )
+
+    variance = float(given_parameters.get("variance", 1.0))
+    return asignatures, variance
+
+
+def check_given_parameters_mmcorrnmf(
+    mdata, ns_signatures: list[int], dim_embeddings: int,
+    given_parameters: dict[str, Any],
+) -> None:
+    valid_keys = list(mdata.mod.keys()) + ["sample_embeddings", "variance"]
+    dict_checker("given_parameters", given_parameters, valid_keys)
+
+    for (mod_name, adata), n_signatures in zip(mdata.mod.items(), ns_signatures):
+        given_mod = given_parameters.get(mod_name, {})
+        check_given_parameters_corrnmf(adata, n_signatures, dim_embeddings, given_mod)
+        if "sample_embeddings" in given_mod:
+            raise KeyError(
+                "The sample embeddings are shared across modalities in multimodal "
+                "correlated NMF. They cannot be provided as given parameters on the "
+                "modality level."
+            )
+        if "variance" in given_mod:
+            raise KeyError(
+                "The variance parameter of multimodal correlated NMF is shared "
+                "across modalities. It cannot be provided as a given parameter on "
+                "the modality level."
+            )
+
+
+def initialize_mmcorrnmf(
+    mdata,
+    ns_signatures: list[int],
+    dim_embeddings: int,
+    method: str = "nndsvd",
+    given_parameters: dict[str, Any] | None = None,
+    **kwargs,
+):
+    """Per-modality CorrNMF initialization with shared sample embeddings.
+
+    Generated signature names get a '{modality} ' prefix; given signatures
+    keep their names unchanged.
+    """
+    given_parameters = {} if given_parameters is None else given_parameters.copy()
+    check_given_parameters_mmcorrnmf(
+        mdata, ns_signatures, dim_embeddings, given_parameters
+    )
+    asignatures = {}
+
+    for (mod_name, adata), n_signatures in zip(mdata.mod.items(), ns_signatures):
+        given_mod = given_parameters.get(mod_name, {})
+        asigs, _ = initialize_corrnmf(
+            adata,
+            n_signatures,
+            dim_embeddings,
+            method,
+            given_mod,
+            initialize_sample_embeddings=False,
+            **kwargs,
+        )
+        n_given = given_mod["asignatures"].n_obs if "asignatures" in given_mod else 0
+        names = list(asigs.obs_names)
+        asigs.obs_names = names[:n_given] + [
+            f"{mod_name} {name}" for name in names[n_given:]
+        ]
+        asignatures[mod_name] = asigs
+
+    if "sample_embeddings" in given_parameters:
+        mdata.obsm["embeddings"] = given_parameters["sample_embeddings"]
+    else:
+        mdata.obsm["embeddings"] = np.random.multivariate_normal(
+            np.zeros(dim_embeddings), np.identity(dim_embeddings), size=mdata.n_obs
         )
 
     variance = float(given_parameters.get("variance", 1.0))

@@ -257,3 +257,60 @@ def corrnmf_init_batch(generator, data_mat, n_signatures: int,
                                        signature_embeddings,
                                        sample_embeddings),
     }
+
+
+def mm_corrnmf_init_batch(generator, data_mats, mod_names, ns_signatures,
+                          dim_embeddings: int, n_restarts: int, dtype=None):
+    """Initialize a batch of MultimodalCorrNMF parameter trees on the
+    data's device.
+
+    The multimodal twin of corrnmf_init_batch: ONE shared standard-normal
+    sample-embedding draw, then per modality (in mod_names order) Dirichlet
+    signatures (normalized exponentials, clipped at EPSILON), zero scalings
+    and standard-normal signature embeddings; unit variance; exposures
+    derived per modality. data_mats is {mod: (D, V_mod)} (model
+    orientation); `generator` is a torch.Generator on their device. Returns
+    the params tree of MultimodalCorrNMF._device_state with a leading
+    restart axis.
+    """
+    import torch
+
+    from ..ops.corrnmf import compute_exposures
+
+    mod_names = list(mod_names)
+    first = data_mats[mod_names[0]]
+    if dtype is None:
+        dtype = first.dtype
+    n_samples = first.shape[0]
+    device = first.device
+
+    def empty(*shape):
+        return torch.empty((n_restarts,) + shape, dtype=dtype, device=device)
+
+    def zeros(*shape):
+        return torch.zeros((n_restarts,) + shape, dtype=dtype, device=device)
+
+    sample_embeddings = empty(n_samples, dim_embeddings).normal_(
+        generator=generator)
+    mods = {}
+    for name, n_signatures in zip(mod_names, ns_signatures):
+        draws = empty(n_signatures, data_mats[name].shape[1]).exponential_(
+            generator=generator)
+        mod = {
+            "signatures": torch.clamp_min(
+                draws / draws.sum(-1, keepdim=True), EPSILON),
+            "signature_scalings": zeros(n_signatures),
+            "sample_scalings": zeros(n_samples),
+            "signature_embeddings": empty(
+                n_signatures, dim_embeddings).normal_(generator=generator),
+        }
+        mod["exposures"] = compute_exposures(
+            mod["signature_scalings"], mod["sample_scalings"],
+            mod["signature_embeddings"], sample_embeddings,
+        )
+        mods[name] = mod
+    return {
+        "mods": mods,
+        "sample_embeddings": sample_embeddings,
+        "variance": torch.ones(n_restarts, dtype=dtype, device=device),
+    }

@@ -1,7 +1,9 @@
 """Model persistence, held against salamander_tpu/io.py. Ported so far: the
 constructor hyperparameters of each model class (``_HYPERPARAM_KEYS``,
-copied), which bootstrap_stability uses to clone a fitted model; saving
-and loading models wait for the I/O slice."""
+copied), which bootstrap_stability and MultimodalCorrNMF.transform use to
+clone a fitted model (they pass ``device=`` beside these keys: the device
+is where a model runs, not what it is, so it stays out of the table);
+saving and loading models wait for the I/O slice."""
 
 from __future__ import annotations
 

@@ -28,6 +28,7 @@ import torch
 from .. import containers
 from ..engine import FitConfig, effective_tolerance, make_fit_function
 from ..engine.transfer import params_to_numpy
+from ..engine.tree import tree_leaves, tree_map
 from ..initialization.methods import INIT_METHODS
 from ..ops.precision import require_ieee_float32
 from ..utils import type_checker, value_checker
@@ -67,11 +68,11 @@ def resolve_dtype(dtype, device) -> torch.dtype:
 
 
 def cast_floating(tree: dict, dtype) -> dict:
-    """Cast every floating tensor of a dict to `dtype`."""
-    return {
-        key: leaf.to(dtype) if leaf.dtype.is_floating_point else leaf
-        for key, leaf in tree.items()
-    }
+    """Cast every floating tensor of a (nested) dict to `dtype`."""
+    return tree_map(
+        lambda leaf: leaf.to(dtype) if leaf.dtype.is_floating_point else leaf,
+        tree,
+    )
 
 
 def promote_objective(objective_fn, params0):
@@ -85,7 +86,7 @@ def promote_objective(objective_fn, params0):
     engine still floors the tolerance at the float32 parameters'
     resolution (engine.tolerance_floor).
     """
-    if all(leaf.dtype == torch.float64 for leaf in params0.values()
+    if all(leaf.dtype == torch.float64 for leaf in tree_leaves(params0)
            if leaf.dtype.is_floating_point):
         return objective_fn
 

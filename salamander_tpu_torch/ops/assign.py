@@ -9,7 +9,13 @@ With W fixed every sample is an independent K-variable problem, so
 - the greedy backward elimination evaluates ALL K candidate removals for
   ALL samples at once: the candidates are a leading batch axis of (K, K, D)
   exposures and (K, V, D) products, the accept step is an argmin and a
-  gather on the device.
+  gather on the device (for as many samples at once as the caller's
+  memory budget allows: candidates run a fixed step count, so the result
+  does not depend on it), and
+- bootstrap replicates refit as lanes that each converge on their own
+  summed KL (refit_exposures_lanes), where the JAX package refits a chunk
+  of replicates as one flat cohort: a replicate's exposures then do not
+  depend on which replicates share its batch.
 
 The convergence loop and the elimination rounds are driven from the host
 with one sync per block or round, where the JAX package runs
@@ -39,6 +45,7 @@ __all__ = [
     "init_exposures",
     "refit_exposures_fixed",
     "refit_exposures",
+    "refit_exposures_lanes",
     "eliminate_signatures",
     "resample_counts",
     "bootstrap_refit",
@@ -124,6 +131,38 @@ def refit_exposures(X, W, mask, H0=None, max_iterations: int = 10_000,
     return H, blocks * int(conv_test_freq)
 
 
+def refit_exposures_lanes(X, W, mask, max_iterations: int = 10_000,
+                          tol: float = 1e-7, conv_test_freq: int = 10):
+    """refit_exposures for a stack of cohorts X (B, V, D) that share W and
+    mask (K, D): every lane runs the rule of refit_exposures on its OWN
+    summed KL and is frozen (``torch.where``) once it stops, so a lane's
+    result is that of refit_exposures on its counts alone, whichever lanes
+    share its batch. One host sync per block. Returns H (B, K, D)."""
+    X, W = _common(X, W)
+    counts = torch.clamp_min(mask.sum(0), 1)
+    H = torch.where(mask, torch.clamp_min(
+        (X.sum(-2) / counts).unsqueeze(-2), EPSILON), 0.0)
+    max_blocks = -(-int(max_iterations) // int(conv_test_freq))
+
+    def objective(H):
+        return _kl(X, W, H).sum(-1)
+
+    prev = cur = objective(H)
+    running = torch.ones_like(cur, dtype=torch.bool)
+    for block in range(max_blocks):
+        if block >= 1:
+            rel = torch.abs(prev - cur) / torch.clamp_min(torch.abs(prev),
+                                                          EPSILON)
+            running = running & (rel >= tol)  # NaN stops a lane
+            if not bool(running.any()):
+                break
+        H_new = refit_exposures_fixed(X, W, mask, H, conv_test_freq)
+        H = torch.where(running.view(-1, 1, 1), H_new, H)
+        prev = torch.where(running, cur, prev)
+        cur = torch.where(running, objective(H), cur)
+    return H
+
+
 def _finalize_contract(X, W, mask, H_final, H_accepted, H_dense,
                        rel_tol, abs_tol):
     """Close the acceptance contract: every reported sample satisfies
@@ -154,6 +193,32 @@ def _finalize_contract(X, W, mask, H_final, H_accepted, H_dense,
     return mask_out, H_out, kl_dense, kl_sparse, mask_out.sum(0)
 
 
+def _best_removal(X, W, mask, H, removes, candidate_iters: int):
+    """Each sample's cheapest removal: candidate k is every sample refit
+    with signature k removed (exposures (K, K, D), products (K, V, D)).
+    Invalid candidates (inactive, or a sample's last signature) are +inf.
+    Returns (k_star (D,), kl_star (D,), H_star (K, D)): the first minimum,
+    its KL and its exposures."""
+    K, D = H.shape
+    m_k = mask.unsqueeze(0) & ~removes                           # (K, K, D)
+    H_k = refit_exposures_fixed(X, W, m_k,
+                                torch.where(m_k, H.unsqueeze(0), 0.0),
+                                candidate_iters)
+    valid = mask & (mask.sum(0) > 1)
+    cand_kl = torch.where(valid, _kl(X, W, H_k), torch.inf)      # (K, D)
+    k_star = torch.argmin(cand_kl, dim=0)  # the first minimum
+    kl_star = torch.gather(cand_kl, 0, k_star.unsqueeze(0))[0]
+    H_star = torch.gather(H_k, 0, k_star.view(1, 1, D).expand(1, K, D))[0]
+    return k_star, kl_star, H_star
+
+
+def _cat_columns(parts):
+    """Per-chunk tuples of tensors joined along the sample (last) axis."""
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(torch.cat(leaves, dim=-1) for leaves in zip(*parts))
+
+
 def eliminate_signatures(
     X,
     W,
@@ -164,6 +229,7 @@ def eliminate_signatures(
     max_polish_iterations: int = 10_000,
     conv_test_freq: int = 10,
     polish_tol=1e-7,
+    candidate_chunk: int | None = None,
 ):
     """Greedy backward elimination of catalog signatures, per sample.
 
@@ -183,6 +249,10 @@ def eliminate_signatures(
       X: (V, D) counts. W: (V, K) column-stochastic catalog.
       candidate_iters: warm-started MU steps per candidate evaluation.
       polish_iterations: MU steps applied to the accepted state each round.
+      candidate_chunk: samples whose candidates are evaluated at once (None:
+        all). It bounds the (K, K, D) and (K, V, D) candidate tensors and
+        nothing else: candidates run a fixed step count per sample, so the
+        result does not depend on it.
 
     Returns dict with: mask (K, D) int32 final supports; H (K, D)
     exposures; kl_dense / kl_sparse (D,); n_rounds (int); n_active (D,).
@@ -204,22 +274,17 @@ def eliminate_signatures(
     rows = torch.arange(K, device=device).unsqueeze(1)
     mask, H = mask0, H_dense
     frozen = torch.zeros(D, dtype=torch.bool, device=device)
+    step = D if candidate_chunk is None else max(1, int(candidate_chunk))
     n_rounds = 0
     while n_rounds < K and not bool(frozen.all()):  # one sync per round
-        # candidate k: every sample refit with signature k removed
-        m_k = mask.unsqueeze(0) & ~removes                       # (K, K, D)
-        H_k = refit_exposures_fixed(X, W, m_k,
-                                    torch.where(m_k, H.unsqueeze(0), 0.0),
-                                    candidate_iters)
-        valid = mask & (mask.sum(0) > 1)
-        cand_kl = torch.where(valid, _kl(X, W, H_k), torch.inf)  # (K, D)
-        k_star = torch.argmin(cand_kl, dim=0)  # the first minimum
-        kl_star = torch.gather(cand_kl, 0, k_star.unsqueeze(0))[0]
+        k_star, kl_star, H_star = _cat_columns([
+            _best_removal(X[:, lo:lo + step], W, mask[:, lo:lo + step],
+                          H[:, lo:lo + step], removes, candidate_iters)
+            for lo in range(0, D, step)
+        ])
         accept = (~frozen) & (kl_star <= budget)
         removal = (rows == k_star.unsqueeze(0)) & accept.unsqueeze(0)
         new_mask = mask & ~removal
-        index = k_star.view(1, 1, D).expand(1, K, D)
-        H_star = torch.gather(H_k, 0, index)[0]
         new_H = torch.where(accept.unsqueeze(0), H_star, H)
         H = refit_exposures_fixed(X, W, new_mask, new_H, polish_iterations)
         mask = new_mask
@@ -299,30 +364,29 @@ def bootstrap_refit(
     X,
     W,
     mask,
-    generator,
-    n_replicates: int,
+    generators,
     method: str = "multinomial",
     max_iterations: int = 10_000,
     tol: float = 1e-7,
     conv_test_freq: int = 10,
 ):
-    """Resample the cohort's counts and refit exposures, all replicates as
-    ONE flat masked refit (replicates are independent columns).
+    """Resample the cohort's counts and refit exposures, every replicate a
+    lane of ONE batched masked refit that converges on its own
+    (refit_exposures_lanes).
 
-    X: (V, D) counts; W: (V, K) catalog; mask: (K, D) activity (tiled over
-    replicates: all-ones for dense refits, or an assignment's supports).
-    Replicate b=0 is the ORIGINAL X, the others are resample_counts draws
-    from `generator`. Returns H (B, K, D).
+    X: (V, D) counts; W: (V, K) catalog; mask: (K, D) activity (shared by
+    the replicates: all-ones for dense refits, or an assignment's supports).
+    `generators` holds one entry per lane: a torch.Generator (on X's
+    device) draws that lane's resample, so a replicate's counts depend on
+    its generator alone and not on the replicates that share its batch;
+    None makes the lane the ORIGINAL X (the point estimate). Returns H
+    (B, K, D).
     """
     X, W = _common(X, W)
-    V, D = X.shape
-    K = W.shape[1]
-    X_boot = resample_counts(X, generator, n_replicates - 1, method)
-    X_all = torch.cat([X.unsqueeze(0), X_boot], 0)           # (B, V, D)
-    X_flat = X_all.transpose(0, 1).reshape(V, n_replicates * D)
-    mask_flat = mask.repeat(1, n_replicates)
-    H_flat, _ = refit_exposures(
-        X_flat, W, mask_flat, max_iterations=max_iterations, tol=tol,
-        conv_test_freq=conv_test_freq,
+    lanes = [X.unsqueeze(0) if generator is None
+             else resample_counts(X, generator, 1, method)
+             for generator in generators]
+    return refit_exposures_lanes(
+        torch.cat(lanes, 0), W, mask, max_iterations=max_iterations,
+        tol=tol, conv_test_freq=conv_test_freq,
     )
-    return H_flat.reshape(K, n_replicates, D).transpose(0, 1)

@@ -10,12 +10,12 @@ stability distributions (the SigProfiler-style stability score).
 
 Every family refits under its OWN update rule and objective (the model's
 engine step functions), so the numbers mean what they claim for KLNMF,
-MvNMF, ARDNMF and CorrNMFDet. A float32 KLNMF fit on a card runs its
+MvNMF, ARDNMF, CorrNMFDet and MultimodalCorrNMF (one resampled sample set
+per replicate, shared by all modalities; matched per modality). A float32 KLNMF fit on a card runs its
 replicates through the fused CUDA kernel with a per-lane X. The sample
 indices and the per-replicate inits are host numpy, as in the JAX package,
 so the replicates' inputs are equal value for value; the replicates are
 built on the host, stacked once and moved to the device once.
-MultimodalCorrNMF waits for its slice.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ import torch
 
 from .. import containers
 from ..engine import FitConfig
+from ..engine.tree import tree_map
 
 _SUPPORTED = ("KLNMF", "MvNMF", "ARDNMF", "CorrNMFDet", "MultimodalCorrNMF")
 
@@ -40,7 +41,7 @@ class BootstrapResult(NamedTuple):
     signatures: np.ndarray      # (B, K, V) matched bootstrap signatures in
     # the MODEL's row orientation (signatures x features, aligned to
     # model.signatures), Hungarian-matched, with per-replicate cosines in
-    # `similarities`
+    # `similarities`; {mod: (B, K_mod, V_mod)} for MultimodalCorrNMF
     losses: np.ndarray          # (B,) final objective per replicate
 
 
@@ -76,6 +77,12 @@ def _match_replicates(reference_signatures, W_boot, names):
     return matched, pd.DataFrame(similarities, columns=names)
 
 
+def _stacked(trees, device):
+    """The replicates' (nested) dicts of host tensors stacked on a leading
+    lane axis and moved to `device`."""
+    return tree_map(lambda *leaves: torch.stack(leaves).to(device), *trees)
+
+
 def bootstrap_stability(
     model,
     n_bootstraps: int = 50,
@@ -92,6 +99,10 @@ def bootstrap_stability(
     reports matched cosine similarities. Stability near 1 = robust
     signature; low mean stability flags overfitting / rank too high.
 
+    MultimodalCorrNMF resamples the shared sample axis (the same bootstrap
+    indices across all modalities), refits the joint model, and matches
+    per modality; `signatures` is then a per-modality dict.
+
     ARDNMF replicates refit at the model's CURRENT n_signatures with the
     per-replicate moment-matched b - call `model.prune()` first so
     replicates run at the inferred rank.
@@ -106,11 +117,6 @@ def bootstrap_stability(
         raise ValueError(
             f"bootstrap_stability supports {_SUPPORTED}; got {class_name}."
         )
-    if class_name == "MultimodalCorrNMF":
-        raise NotImplementedError(
-            "bootstrap_stability of MultimodalCorrNMF waits for the port of "
-            "models/mmcorrnmf.py (ROADMAP Queue 1 item 11)"
-        )
     if not getattr(model, "_is_fitted", False):
         raise ValueError("bootstrap_stability() requires a fitted model.")
 
@@ -123,6 +129,8 @@ def bootstrap_stability(
     device = model.device
     if device.type == "cuda":
         require_ieee_float32()
+    if class_name == "MultimodalCorrNMF":
+        return _bootstrap_multimodal(model, n_bootstraps, seed, config)
     n_samples = model.adata.n_obs
     rng = np.random.default_rng(seed)
     sample_indices = rng.integers(0, n_samples, size=(n_bootstraps, n_samples))
@@ -159,12 +167,8 @@ def bootstrap_stability(
     finally:
         np.random.set_state(rng_state)
 
-    def stacked(trees):
-        return {key: torch.stack([tree[key] for tree in trees]).to(device)
-                for key in trees[0]}
-
-    params0 = stacked(params_per_replicate)
-    data = stacked(data_per_replicate)
+    params0 = _stacked(params_per_replicate, device)
+    data = _stacked(data_per_replicate, device)
     update_fn, objective_fn = clone._build_step(None)
     objective_fn = promote_objective(objective_fn, params0)
 
@@ -190,4 +194,71 @@ def bootstrap_stability(
         similarities=similarity_frame,
         signatures=matched,
         losses=losses,
+    )
+
+
+def _bootstrap_multimodal(model, n_bootstraps: int, seed: int,
+                          config: FitConfig) -> BootstrapResult:
+    """Joint multimodal bootstrap: one resampled sample set per replicate
+    shared by all modalities, refit with the model's own joint EM as one
+    lockstep batch with per-lane data, matched per modality."""
+    from ..io import _HYPERPARAM_KEYS
+    from ..models.signature_nmf import promote_objective
+    from .compaction import lockstep_fit, plain_block_builder
+
+    hyperparameters = {
+        key: getattr(model, key)
+        for key in _HYPERPARAM_KEYS["MultimodalCorrNMF"]
+    }
+    clone = type(model)(**hyperparameters, device="cpu")
+    stochastic_init = clone.init_method in ("random", "separableNMF",
+                                            "nndsvdar")
+    mod_names = model.mod_names
+    X = {name: np.asarray(model.mdata[name].X) for name in mod_names}
+    n_samples = model.mdata.n_obs
+    rng = np.random.default_rng(seed)
+    sample_indices = rng.integers(0, n_samples, size=(n_bootstraps, n_samples))
+
+    params_per_replicate, data_per_replicate = [], []
+    rng_state = np.random.get_state()
+    try:
+        for b in range(n_bootstraps):
+            indices = sample_indices[b]
+            mdata_b = containers.MuData({
+                name: containers.AnnData(X[name][indices])
+                for name in mod_names
+            })
+            np.random.seed(seed + b)  # drives unseeded embedding draws
+            clone._setup_mdata(mdata_b)
+            init_kwargs = {"seed": seed + b} if stochastic_init else None
+            clone._initialize(None, init_kwargs)
+            params_b, data_b = clone._device_state()
+            params_per_replicate.append(params_b)
+            data_per_replicate.append(data_b)
+    finally:
+        np.random.set_state(rng_state)
+
+    params0 = _stacked(params_per_replicate, model.device)
+    data = _stacked(data_per_replicate, model.device)
+    update_fn, objective_fn = clone._build_step(None)
+    objective_fn = promote_objective(objective_fn, params0)
+    result, losses = lockstep_fit(objective_fn, config,
+                                  plain_block_builder(update_fn), params0,
+                                  data)
+
+    matched_by_mod = {}
+    similarity_frames = []
+    for name in mod_names:
+        W_boot = result.params["mods"][name]["signatures"].cpu().numpy()
+        matched, frame = _match_replicates(
+            model.signatures[name], W_boot, model.signature_names[name]
+        )
+        matched_by_mod[name] = matched
+        similarity_frames.append(frame)
+    similarity_frame = pd.concat(similarity_frames, axis=1)
+    return BootstrapResult(
+        stability=similarity_frame.mean(axis=0),
+        similarities=similarity_frame,
+        signatures=matched_by_mod,
+        losses=losses.cpu().numpy(),
     )

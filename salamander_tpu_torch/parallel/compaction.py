@@ -35,6 +35,7 @@ from ..engine.fit import (
     init_lockstep_state,
     run_lockstep_segment,
 )
+from ..engine.tree import tree_leaves, tree_map
 
 
 def _take_lanes(state: LockstepState, idx) -> LockstepState:
@@ -43,7 +44,7 @@ def _take_lanes(state: LockstepState, idx) -> LockstepState:
         return leaf.index_select(0, idx)
 
     return LockstepState(
-        params={key: take(leaf) for key, leaf in state.params.items()},
+        params=tree_map(take, state.params),
         of_prev=take(state.of_prev),
         history=take(state.history),
         n_evals=take(state.n_evals),
@@ -58,8 +59,8 @@ def _scatter_lanes(out: LockstepState, ids,
                    state: LockstepState) -> LockstepState:
     """Write a bucket's lanes into the full-size buffers at rows `ids`
     (in place), carrying the bucket's (more advanced) shared counters."""
-    for key, leaf in state.params.items():
-        out.params[key].index_copy_(0, ids, leaf)
+    tree_map(lambda full, leaf: full.index_copy_(0, ids, leaf), out.params,
+             state.params)
     for name in ("of_prev", "history", "n_evals", "n_iterations", "done"):
         getattr(out, name).index_copy_(0, ids, getattr(state, name))
     return out._replace(eval_idx=state.eval_idx, iteration=state.iteration)
@@ -67,7 +68,7 @@ def _scatter_lanes(out: LockstepState, ids,
 
 def _full_size_copy(state: LockstepState) -> LockstepState:
     return state._replace(
-        params={key: leaf.clone() for key, leaf in state.params.items()},
+        params=tree_map(torch.clone, state.params),
         of_prev=state.of_prev.clone(),
         history=state.history.clone(),
         n_evals=state.n_evals.clone(),
@@ -127,7 +128,7 @@ class CompactingRunner:
         the full lane count, positionally identical to the uncompacted
         lockstep loop's."""
         config = self.config
-        n_restarts = int(next(iter(params0.values())).shape[0])
+        n_restarts = int(tree_leaves(params0)[0].shape[0])
         full_blocks = (int(config.max_iterations)
                        // int(config.conv_test_freq))
 
@@ -162,8 +163,8 @@ class CompactingRunner:
             state = _take_lanes(state, alive)
             ids = ids.index_select(0, alive)
             if self.batched_data:
-                data_bucket = {key: leaf.index_select(0, alive)
-                               for key, leaf in data_bucket.items()}
+                data_bucket = tree_map(
+                    lambda leaf: leaf.index_select(0, alive), data_bucket)
             bucket = int(alive.numel())
 
         result = finish_lockstep(

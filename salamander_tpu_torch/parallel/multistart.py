@@ -9,10 +9,10 @@ direction) is absorbed back into the model's containers. A KLNMF block
 runs through the model's fused block update (the CUDA kernel where
 cuda_klnmf.mu_block_supported holds).
 
-Ported families: KLNMF, MvNMF, ARDNMF and CorrNMFDet. The JAX package
-also batches MultimodalCorrNMF, which raises NotImplementedError here until
-its slice lands. The JAX package's runner cache exists to avoid
-recompiles; nothing is compiled here, so there is none.
+Every family is batched: KLNMF, MvNMF, ARDNMF, CorrNMFDet and
+MultimodalCorrNMF, whose parameters are a nested dict (engine.tree) and
+whose data container is a MuData. The JAX package's runner cache exists to
+avoid recompiles; nothing is compiled here, so there is none.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import torch
 
 from ..engine import FitResult, effective_tolerance
 from ..engine.transfer import params_to_numpy
+from ..engine.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from .compaction import (
     CompactingRunner,
     lockstep_fit,
@@ -34,7 +35,8 @@ from .compaction import (
 
 # the families fit_best_of batches; each has a device-side batched
 # 'random' initializer
-PORTED_FAMILIES = ("KLNMF", "MvNMF", "ARDNMF", "CorrNMFDet")
+PORTED_FAMILIES = ("KLNMF", "MvNMF", "ARDNMF", "CorrNMFDet",
+                   "MultimodalCorrNMF")
 
 
 class MultiStartSummary(NamedTuple):
@@ -44,14 +46,23 @@ class MultiStartSummary(NamedTuple):
     history: np.ndarray       # (R, max_evals) objective traces (NaN-padded)
     n_evals: np.ndarray       # (R,)
     signatures: Any = None    # (R, n_features, k) every restart's W
+    # ({mod: stack} for MultimodalCorrNMF)
 
 
-def _signature_stack(params) -> np.ndarray:
+def _signature_stack(params) -> Any:
     """Every restart's signature matrix as (R, n_features, k): W/H families
-    store W as (R, V, K); CorrNMF stores signatures as (R, K, V) rows."""
+    store W as (R, V, K); CorrNMF stores signatures as (R, K, V) rows;
+    MultimodalCorrNMF nests them per modality, {mod: (R, V_mod, K_mod)}."""
     if "W" in params:
         return params["W"].cpu().numpy()
+    if "mods" in params:
+        return {name: mod["signatures"].mT.cpu().numpy()
+                for name, mod in params["mods"].items()}
     return params["signatures"].mT.cpu().numpy()
+
+
+def _is_multimodal(model) -> bool:
+    return hasattr(model, "mdata") and not hasattr(model, "adata")
 
 
 def _check_family(model) -> None:
@@ -68,11 +79,19 @@ def _device_init_batch(model, data, n_restarts: int, base_seed: int):
     torch.Generator seeded with base_seed (no host loop, no global numpy
     RNG). MvNMF lanes start at gamma = 1; ARDNMF lanes are rebalanced with
     their closed-form lambda (ops.ardnmf.init_params)."""
-    from ..initialization.methods import corrnmf_init_batch, random_init_batch
+    from ..initialization.methods import (
+        corrnmf_init_batch,
+        mm_corrnmf_init_batch,
+        random_init_batch,
+    )
 
-    X = data["X"]
     name = type(model).__name__
-    generator = torch.Generator(device=X.device).manual_seed(base_seed)
+    generator = torch.Generator(device=model.device).manual_seed(base_seed)
+    if name == "MultimodalCorrNMF":  # X is {mod: (D, V_mod)}
+        return mm_corrnmf_init_batch(
+            generator, data["X"], model.mod_names, model.ns_signatures,
+            model.dim_embeddings, n_restarts)
+    X = data["X"]
     if name == "CorrNMFDet":  # X is (D, V), samples as rows
         return corrnmf_init_batch(generator, X, model.n_signatures,
                                   model.dim_embeddings, n_restarts, X.dtype)
@@ -107,37 +126,43 @@ def _host_init_batch(model, n_restarts: int, base_seed: int,
             if seeds_init_kwargs:
                 kwargs["seed"] = seed
             model._initialize(given_parameters, kwargs)
-            model._setup_fitting_parameters(fitting_kwargs)
+            if hasattr(model, "_setup_fitting_parameters"):
+                model._setup_fitting_parameters(fitting_kwargs)
             params_r, data = model._device_state()
             params_per_restart.append(params_r)
     finally:
         np.random.set_state(rng_state)
-    params0 = {
-        key: torch.stack([params[key] for params in params_per_restart])
-        for key in params_per_restart[0]
-    }
+    params0 = tree_map(lambda *leaves: torch.stack(leaves),
+                       *params_per_restart)
     return params0, data
 
 
 def _best_of_store(checkpoint_dir, model, n_restarts: int, base_seed: int,
                    config, restart_chunk):
     """ChunkStore for a fit_best_of run: identity = counts (+ weights)
-    fingerprint, model class + constructor hyperparameters (CorrNMF's
-    embedding dimension, ARDNMF's prior, a and resolved b included),
-    compute dtype, MvNMF's line-search trial batch, restart layout."""
+    fingerprint (every modality's counts, in mod_names order, for
+    MultimodalCorrNMF), model class + constructor hyperparameters
+    (CorrNMF's embedding dimension, ARDNMF's prior, a and resolved b
+    included), compute dtype, MvNMF's line-search trial batch, restart
+    layout."""
     from ..checkpoint import ChunkStore, data_fingerprint
 
-    arrays = [np.asarray(model.adata.X)]
-    for weights_name in ("weights_kl", "weights_lhalf"):
-        weights = getattr(model, weights_name, None)
-        if weights is not None:
-            arrays.append(np.asarray(weights))
+    if _is_multimodal(model):
+        arrays = [np.asarray(model.mdata[name].X)
+                  for name in model.mod_names]
+    else:
+        arrays = [np.asarray(model.adata.X)]
+        for weights_name in ("weights_kl", "weights_lhalf"):
+            weights = getattr(model, weights_name, None)
+            if weights is not None:
+                arrays.append(np.asarray(weights))
     trial_batch = (model._resolve_trial_batch()
                    if hasattr(model, "_resolve_trial_batch") else None)
     return ChunkStore(checkpoint_dir, {
         "task": "fit_best_of",
         "model": type(model).__name__,
-        "n_signatures": model.n_signatures,
+        "n_signatures": getattr(model, "n_signatures", None),
+        "ns_signatures": getattr(model, "ns_signatures", None),
         "lam": getattr(model, "lam", None),
         "delta": getattr(model, "delta", None),
         "dim_embeddings": getattr(model, "dim_embeddings", None),
@@ -158,7 +183,8 @@ def _best_of_store(checkpoint_dir, model, n_restarts: int, base_seed: int,
 
 
 def _result_to_entry(result: FitResult, losses) -> dict:
-    """A chunk's (FitResult, losses) as npz-ready host arrays."""
+    """A chunk's (FitResult, losses) as npz-ready host arrays; parameter
+    leaves are named "p_" + their path in the tree (a flat family's key)."""
     payload = {
         "losses": losses.cpu().numpy(),
         "initial_objective": result.initial_objective.cpu().numpy(),
@@ -166,8 +192,8 @@ def _result_to_entry(result: FitResult, losses) -> dict:
         "n_evals": result.n_evals.cpu().numpy(),
         "n_iterations": result.n_iterations.cpu().numpy(),
     }
-    for key, leaf in params_to_numpy(result.params).items():
-        payload[f"p_{key}"] = leaf
+    for path, leaf in tree_flatten(params_to_numpy(result.params)).items():
+        payload[f"p_{path}"] = leaf
     return payload
 
 
@@ -176,8 +202,8 @@ def _entry_to_result(entry: dict, device):
     def tensor(name):
         return torch.as_tensor(entry[name], device=device)
 
-    params = {name[2:]: tensor(name) for name in entry
-              if name.startswith("p_")}
+    params = tree_unflatten({name[2:]: tensor(name) for name in entry
+                             if name.startswith("p_")})
     result = FitResult(
         params=params,
         initial_objective=tensor("initial_objective"),
@@ -193,8 +219,8 @@ def _concat_results(parts):
         return parts[0]
     results = [part[0] for part in parts]
     result = FitResult(
-        params={key: torch.cat([r.params[key] for r in results])
-                for key in results[0].params},
+        params=tree_map(lambda *leaves: torch.cat(leaves),
+                        *[r.params for r in results]),
         **{field: torch.cat([getattr(r, field) for r in results])
            for field in ("initial_objective", "history", "n_evals",
                          "n_iterations")},
@@ -258,6 +284,7 @@ def fit_best_of(
     from ..ops.precision import require_ieee_float32
 
     _check_family(model)
+    is_multimodal = _is_multimodal(model)
     if mesh is not None:
         raise NotImplementedError("mesh= is not ported to PyTorch yet")
     if checkpoint_dir is not None and given_parameters:
@@ -267,8 +294,11 @@ def fit_best_of(
         )
     if model.device.type == "cuda":
         require_ieee_float32()
-    model._setup_adata(data_container)
-    model._setup_fitting_parameters(fitting_kwargs)
+    if is_multimodal:
+        model._setup_mdata(data_container)
+    else:
+        model._setup_adata(data_container)
+        model._setup_fitting_parameters(fitting_kwargs)
 
     init_kwargs = {} if init_kwargs is None else dict(init_kwargs)
     device_init_supported = (
@@ -306,7 +336,8 @@ def fit_best_of(
             model._initialize(given_parameters, kwargs)
         finally:
             np.random.set_state(rng_state)
-        model._setup_fitting_parameters(fitting_kwargs)
+        if not is_multimodal:
+            model._setup_fitting_parameters(fitting_kwargs)
         _, data = model._device_state()
         params0 = _device_init_batch(model, data, n_restarts, base_seed)
     else:
@@ -323,14 +354,16 @@ def fit_best_of(
     )
 
     def make_block_update(params, data_):
-        fused = model._block_update_fn(params, data_, given_parameters)
+        fused = None
+        if not is_multimodal:  # only W/H families have a fused block
+            fused = model._block_update_fn(params, data_, given_parameters)
         if fused is not None:
             return lambda p, n: fused(p, data_, n)
         return plain_block_builder(update_fn)(params, data_)
 
     def run_lanes(part0):
         """One lockstep run over a chunk of lanes: (FitResult, losses)."""
-        n_lanes = int(next(iter(part0.values())).shape[0])
+        n_lanes = int(tree_leaves(part0)[0].shape[0])
         if resolve_compact(compact, config, None, n_lanes,
                            compact_min_bucket, model.device):
             runner = CompactingRunner(config, objective_fn,
@@ -362,8 +395,7 @@ def fit_best_of(
             parts.append(_entry_to_result(entry, model.device))
             continue
         result, losses = run_lanes(
-            {key: leaf[lo:hi] for key, leaf in params0.items()}
-        )
+            tree_map(lambda leaf: leaf[lo:hi], params0))
         if store is not None:
             store.save(name, **_result_to_entry(result, losses))
         parts.append((result, losses))
@@ -375,8 +407,7 @@ def fit_best_of(
         np.argmin(final_losses)
     )
     model._absorb_params(params_to_numpy(
-        {key: leaf[best] for key, leaf in result.params.items()}
-    ))
+        tree_map(lambda leaf: leaf[best], result.params)))
     model._is_fitted = True
     history = result.history.cpu().numpy()
     n_evals = result.n_evals.cpu().numpy()

@@ -1,7 +1,9 @@
 """Analysis tools, held against salamander_tpu/tools.py. Ported so far: the
 sparse catalog decomposition of de novo signatures (decompose_signatures),
-which runs on the assignment engine; the rest of the module (dimension
-reduction, rank selection, annotation, stability) waits for its slice.
+which runs on the assignment engine, and correlation_numpy (copied: the
+models' sample and signature correlations); the rest of the module
+(dimension reduction, rank selection, annotation, stability) waits for its
+slice.
 """
 
 from __future__ import annotations
@@ -10,7 +12,13 @@ import numpy as np
 import pandas as pd
 import torch
 
-__all__ = ["DecompositionResult", "decompose_signatures"]
+__all__ = ["DecompositionResult", "correlation_numpy",
+           "decompose_signatures"]
+
+
+def correlation_numpy(data: np.ndarray, **kwargs) -> np.ndarray:
+    """Pearson correlation of the rows of 'data'."""
+    return pd.DataFrame(data.T).corr(**kwargs).values
 
 
 def _signatures_frame(signatures) -> pd.DataFrame:

@@ -271,9 +271,9 @@ def test_bootstrap_respects_sparse_support(small):
 
 
 def test_bootstrap_chunks_and_seeds(small):
-    """Replicate chunks draw from generators seeded by (seed, chunk): a
-    rerun is identical, another seed is not, and chunking keeps the point
-    estimate and the replicate count."""
+    """Replicates draw from generators seeded by (seed, replicate) and
+    converge each on their own: a rerun is identical, another seed is not,
+    and a caller-given replicate_batch changes nothing."""
     data, catalog, _ = small
     first = port.bootstrap_exposures(data, catalog, n_replicates=9, seed=5,
                                      replicate_batch=4, **CPU)
@@ -283,16 +283,15 @@ def test_bootstrap_chunks_and_seeds(small):
                                      replicate_batch=4, **CPU)
     pd.testing.assert_frame_equal(first.mean, again.mean)
     assert not np.allclose(first.mean.to_numpy(), other.mean.to_numpy())
-    assert assign.chunk_seed(5, 0) != assign.chunk_seed(5, 1)
+    assert assign.replicate_seed(5, 1) != assign.replicate_seed(5, 2)
+    assert assign.replicate_seed(5, 1) != assign.replicate_seed(6, 1)
     whole = port.bootstrap_exposures(data, catalog, n_replicates=9, seed=5,
                                      **CPU)
-    # each chunk's refit converges on its own columns: compare exposure
-    # fractions above the noise floor MU leaves off-support
-    def fractions(E):
-        return E / E.sum(axis=1, keepdims=True)
-
-    np.testing.assert_allclose(fractions(first.point.to_numpy()),
-                               fractions(whole.point.to_numpy()), atol=1e-4)
+    for frame in ("point", "mean", "std", "presence"):
+        pd.testing.assert_frame_equal(getattr(first, frame),
+                                      getattr(whole, frame))
+    dense = port.assign_exposures(data, catalog, **CPU)
+    pd.testing.assert_frame_equal(whole.point, dense)  # replicate 0 alone
     poisson = port.bootstrap_exposures(data, catalog, n_replicates=4,
                                        method="poisson", **CPU)
     assert np.isfinite(poisson.std.to_numpy()).all()
@@ -311,3 +310,132 @@ def test_memory_model_sizes_chunks():
     assert per_sample == 4 * (2 * 79 * 79 + 2 * 79 * 96)
     assert 10e9 < per_sample * 100_000 < 12e9
     assert assign._memory_lanes(torch.device("cpu"), per_sample, 7) == 7
+
+
+# ------------------------------------------------------------------ #
+# the memory budget decides no result and no store
+# ------------------------------------------------------------------ #
+
+
+def test_memory_budget_is_a_function_of_the_device(monkeypatch):
+    """A fixed share of the card's total memory: no free-memory figure is
+    read, so the allocator's state cannot move a chunk boundary."""
+    class Properties:
+        total_memory = 80 * 2**30
+
+    def no_free_memory(*args, **kwargs):
+        raise AssertionError("the budget must not read free memory")
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: Properties)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", no_free_memory)
+    budget = assign._memory_budget(torch.device("cuda"))
+    assert budget == int(assign._DEVICE_MEMORY_SHARE * 80 * 2**30)
+    assert assign._memory_budget(torch.device("cpu")) is None
+    # cells 7b and 8b of the JAX benchmark (float32): COSMIC-79 x 100,000
+    # samples' candidates, and 64 replicates of 96 x 100,000 counts
+    per_sample = assign.candidate_bytes_per_sample(96, 79, 4)
+    assert assign._memory_lanes(torch.device("cuda"), per_sample,
+                                100_000) == 100_000
+
+
+def _patched_budget(monkeypatch, n_bytes):
+    monkeypatch.setattr(assign, "_memory_budget", lambda device: n_bytes)
+
+
+def test_assign_signatures_equal_under_two_budgets(small, tmp_path,
+                                                   monkeypatch):
+    """The budget only bounds how many samples' candidates are evaluated
+    at once (3 or 5 of the 8 here): supports, exposures and KLs are equal,
+    and a store written under one budget resumes under the other."""
+    data, catalog, _ = small
+    per_sample = assign.candidate_bytes_per_sample(24, 6, 8)
+    widths = []
+    real = assign.ops.eliminate_signatures
+
+    def recording(X, *args, **kwargs):
+        widths.append(kwargs["candidate_chunk"])
+        return real(X, *args, **kwargs)
+
+    monkeypatch.setattr(assign.ops, "eliminate_signatures", recording)
+    _patched_budget(monkeypatch, 3 * per_sample)
+    tight = port.assign_signatures(data, catalog, checkpoint_dir=tmp_path,
+                                   **CPU)
+    _patched_budget(monkeypatch, 5 * per_sample)
+    roomy = port.assign_signatures(data, catalog, **CPU)
+    assert widths == [3, 5]
+    pd.testing.assert_frame_equal(tight.active, roomy.active)
+    np.testing.assert_allclose(tight.exposures.to_numpy(),
+                               roomy.exposures.to_numpy(), rtol=1e-12,
+                               atol=1e-300)
+    for key in ("kl_dense", "kl_sparse"):
+        np.testing.assert_allclose(getattr(tight, key).to_numpy(),
+                                   getattr(roomy, key).to_numpy(),
+                                   rtol=1e-12)
+    assert tight.meta == roomy.meta
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # no "different run" warning
+        resumed = port.assign_signatures(data, catalog,
+                                         checkpoint_dir=tmp_path, **CPU)
+    assert widths == [3, 5]  # nothing was computed again
+    pd.testing.assert_frame_equal(resumed.exposures, tight.exposures)
+
+
+def test_bootstrap_exposures_equal_under_two_budgets(small, tmp_path,
+                                                     monkeypatch):
+    """Replicates are drawn and refitted one by one in effect: two budgets
+    that batch the 7 replicates by 2 and by 3 give the same frames, and a
+    store that lost an entry is completed under the other budget."""
+    data, catalog, _ = small
+    per_replicate = 3.5 * 8 * 8 * (2 * 24 + 2 * 6)
+    batches = []
+    real = assign.ops.bootstrap_refit
+
+    def recording(X, W, mask, generators, **kwargs):
+        batches.append(len(generators))
+        return real(X, W, mask, generators, **kwargs)
+
+    monkeypatch.setattr(assign.ops, "bootstrap_refit", recording)
+    kwargs = dict(n_replicates=7, seed=2, **CPU)
+    _patched_budget(monkeypatch, int(2 * per_replicate) + 1)
+    tight = port.bootstrap_exposures(data, catalog,
+                                     checkpoint_dir=tmp_path, **kwargs)
+    assert batches == [2, 2, 2, 1]
+    _patched_budget(monkeypatch, int(3 * per_replicate) + 1)
+    roomy = port.bootstrap_exposures(data, catalog, **kwargs)
+    assert batches[4:] == [3, 3, 1]
+    for frame in ("point", "mean", "std", "presence"):
+        pd.testing.assert_frame_equal(getattr(tight, frame),
+                                      getattr(roomy, frame))
+    (tmp_path / "replicate_000004.npz").unlink()  # killed mid-run
+    del batches[:]
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        resumed = port.bootstrap_exposures(data, catalog,
+                                           checkpoint_dir=tmp_path, **kwargs)
+    assert batches == [1]
+    pd.testing.assert_frame_equal(resumed.mean, tight.mean)
+
+
+def test_refit_lanes_equal_each_lane_alone():
+    """ops.refit_exposures_lanes: a lane's exposures are bit-equal
+    whichever lanes share its batch, and equal to refit_exposures on its
+    counts alone (a batched product may round its last bit another way)."""
+    rng = np.random.default_rng(4)
+    W = rng.dirichlet(np.ones(10), size=3).T
+    X = rng.poisson(rng.uniform(5, 200, (4, 10, 6))).astype(np.float64)
+    mask = torch.ones((3, 6), dtype=torch.bool)
+    mask[1, 2] = False
+    lanes = assign.ops.refit_exposures_lanes(
+        torch.as_tensor(X), torch.as_tensor(W), mask, max_iterations=400)
+    for b in range(4):
+        alone, _ = assign.ops.refit_exposures(
+            torch.as_tensor(X[b]), torch.as_tensor(W), mask,
+            max_iterations=400)
+        np.testing.assert_allclose(lanes[b].numpy(), alone.numpy(),
+                                   rtol=1e-9)
+        single = assign.ops.refit_exposures_lanes(
+            torch.as_tensor(X[b:b + 1]), torch.as_tensor(W), mask,
+            max_iterations=400)
+        assert torch.equal(lanes[b], single[0])
+    assert bool((lanes[:, 1, 2] == 0).all())

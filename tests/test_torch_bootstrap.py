@@ -1,8 +1,9 @@
 """salamander_tpu_torch.parallel.bootstrap_stability against the JAX
-package's at float64 on the CPU, for the four ported families: the sample
-indices and replicate inits are host numpy in both, so the replicate fits
-agree value for value (losses and matched similarities at rtol 1e-8), and
-the errors for unfitted and multimodal models."""
+package's at float64 on the CPU, for every family: the sample indices and
+replicate inits are host numpy in both, so the replicate fits agree value
+for value (losses and matched similarities at rtol 1e-8), MultimodalCorrNMF
+with one resampled index set shared by its modalities, and the errors for
+unfitted models and other classes."""
 
 import numpy as np
 import pytest
@@ -98,9 +99,49 @@ def test_bootstrap_requires_a_fitted_model():
 
 
 def test_bootstrap_multimodal_waits_for_its_slice():
-    model = jax_models.MultimodalCorrNMF(ns_signatures=[2, 2])
-    with pytest.raises(NotImplementedError, match="mmcorrnmf"):
-        port.bootstrap_stability(model, n_bootstraps=2)
+    """MultimodalCorrNMF is ported: the joint bootstrap (one index set per
+    replicate shared by all modalities, per-lane counts, matching per
+    modality) agrees with the JAX package's."""
+    features = {"sbs": 12, "indel": 9, "sv": 6}
+    hyper = dict(ns_signatures=[3, 2, 2], dim_embeddings=2,
+                 min_iterations=5, max_iterations=20)
+
+    def mdata(containers):
+        rng = np.random.default_rng(0)
+        load = rng.gamma(2.0, 1.0, (20, 3))
+        return containers.MuData({
+            name: containers.AnnData(rng.poisson(
+                60.0 * load @ rng.dirichlet(np.ones(n_features), 3)
+            ).astype(float))
+            for name, n_features in features.items()
+        })
+
+    np.random.seed(1)
+    model_j = jax_models.MultimodalCorrNMF(**hyper).fit(mdata(jax_containers))
+    np.random.seed(1)
+    model_t = port.MultimodalCorrNMF(device="cpu", **hyper).fit(mdata(port))
+    result_j = jax_bootstrap(model_j, n_bootstraps=4, seed=3)
+    state = np.random.get_state()[1].copy()
+    result_t = port.bootstrap_stability(model_t, n_bootstraps=4, seed=3)
+    assert np.array_equal(np.random.get_state()[1], state)
+    np.testing.assert_allclose(result_t.losses, np.asarray(result_j.losses),
+                               rtol=RTOL)
+    assert list(result_t.similarities.columns) == \
+        list(result_j.similarities.columns)
+    assert list(result_t.similarities.columns)[:3] == \
+        ["sbs Sig1", "sbs Sig2", "sbs Sig3"]
+    np.testing.assert_allclose(result_t.similarities.to_numpy(),
+                               result_j.similarities.to_numpy(), rtol=RTOL)
+    np.testing.assert_allclose(result_t.stability.to_numpy(),
+                               result_j.stability.to_numpy(), rtol=RTOL)
+    for (name, n_features), k in zip(features.items(), [3, 2, 2]):
+        assert result_t.signatures[name].shape == (4, k, n_features)
+        np.testing.assert_allclose(result_t.signatures[name],
+                                   result_j.signatures[name], rtol=1e-6,
+                                   atol=1e-12)
+    with pytest.raises(ValueError, match="fitted"):
+        port.bootstrap_stability(
+            port.MultimodalCorrNMF([2, 2], device="cpu"), 2)
 
 
 def test_bootstrap_rejects_other_classes():

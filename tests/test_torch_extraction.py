@@ -8,6 +8,8 @@ layout equals the padded one per lane, a rank's lanes do not depend on the
 other ranks or the chunking, the planted rank is recovered, given
 signatures, MvNMF and checkpoint resume."""
 
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -354,7 +356,8 @@ def test_checkpoint_full_and_partial_resume(planted, tmp_path, monkeypatch):
                   **dict(KWARGS, max_iterations=500))
     first = port.extract_signatures(data, **kwargs)
     entries = sorted(p.name for p in tmp_path.glob("*.npz"))
-    assert "rank_002.npz" in entries and "chunk_000000.npz" in entries
+    assert "rank_002.npz" in entries and "lane_000000.npz" in entries
+    assert len([e for e in entries if e.startswith("lane_")]) == 8
 
     calls = {"fit": 0, "refit": 0}
     real_fit = extraction._discovery_fit
@@ -375,13 +378,55 @@ def test_checkpoint_full_and_partial_resume(planted, tmp_path, monkeypatch):
     resumed = port.extract_signatures(data, **kwargs)
     assert calls == {"fit": 0, "refit": 0}
     pd.testing.assert_frame_equal(resumed.table, first.table)
-    (tmp_path / "chunk_000000.npz").unlink()
+    (tmp_path / "lane_000000.npz").unlink()
     (tmp_path / "rank_003.npz").unlink()
     partial = port.extract_signatures(data, **kwargs)
     assert calls == {"fit": 1, "refit": 1}
     pd.testing.assert_frame_equal(partial.table, first.table)
     with pytest.warns(UserWarning, match="different run"):
         port.extract_signatures(data, **dict(kwargs, dtype="float32"))
+
+
+def test_memory_budget_decides_no_result_and_no_store(planted, tmp_path,
+                                                      monkeypatch):
+    """Two memory budgets that chunk the lanes differently give equal
+    results, and a store written under one resumes under the other (the
+    budget is a function of the device, never of its free memory)."""
+    from salamander_tpu_torch import assign
+
+    data, _ = planted
+    kwargs = dict(ranks=[2, 3], n_bootstraps=4, fit_final=False,
+                  **dict(KWARGS, max_iterations=500))
+    sizes = []
+    real_chunk = extraction._lane_chunk_size
+
+    def recording_chunk(*args, **ckwargs):
+        sizes.append(real_chunk(*args, **ckwargs))
+        return sizes[-1]
+
+    monkeypatch.setattr(extraction, "_lane_chunk_size", recording_chunk)
+    monkeypatch.setattr(assign, "_memory_budget", lambda device: 120_000)
+    roomy = port.extract_signatures(data, checkpoint_dir=tmp_path, **kwargs)
+    monkeypatch.setattr(assign, "_memory_budget", lambda device: 50_000)
+    tight = port.extract_signatures(data, **kwargs)
+    assert sizes[0] != sizes[1] and max(sizes) < 8
+    for k in (2, 3):
+        np.testing.assert_array_equal(roomy.replicate_losses[k],
+                                      tight.replicate_losses[k])
+        np.testing.assert_array_equal(roomy.replicate_iterations[k],
+                                      tight.replicate_iterations[k])
+    pd.testing.assert_frame_equal(roomy.table, tight.table)
+
+    calls = []
+    real_fit = extraction._discovery_fit
+    monkeypatch.setattr(extraction, "_discovery_fit",
+                        lambda *a, **k: calls.append(1) or real_fit(*a, **k))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # no "different run" warning
+        resumed = port.extract_signatures(data, checkpoint_dir=tmp_path,
+                                          **kwargs)
+    assert calls == []
+    pd.testing.assert_frame_equal(resumed.table, roomy.table)
 
 
 def test_invalid_inputs(planted):

@@ -4,7 +4,10 @@ against the JAX package's on the same host (numpy) inits at float64
 compacted against monolithic per lane identical, the device init
 deterministic per base_seed, a killed-then-resumed checkpointed run equal
 to an uninterrupted one, and the four reference defects of ROADMAP
-Queue 3 in this code, each with the port's choice."""
+Queue 3 in this code, each with the port's choice. The same for
+MultimodalCorrNMF, whose parameters are a nested dict and whose data is a
+MuData (3 modalities, V = 12/9/6, D = 20, ns_signatures [3, 2, 2], m =
+2)."""
 
 import numpy as np
 import pytest
@@ -119,18 +122,176 @@ def test_device_init_is_deterministic_per_base_seed(frame, family):
 
 
 def test_unported_family_and_mesh_raise(frame):
-    class MultimodalCorrNMF(port.KLNMF):
+    """Every family of the JAX package is batched, MultimodalCorrNMF
+    included; a class that fit_best_of does not know still raises."""
+    assert set(multistart.PORTED_FAMILIES) == {
+        "KLNMF", "MvNMF", "ARDNMF", "CorrNMFDet", "MultimodalCorrNMF"}
+    model = port.MultimodalCorrNMF(device="cpu", **MM_HYPER)
+    summary = port.fit_best_of(model, mm_mdata(port), 2, base_seed=1)
+    assert model._is_fitted and summary.losses.shape == (2,)
+    assert model.objective_function() == pytest.approx(
+        summary.losses[summary.best_index], rel=1e-10)
+
+    class SomeOtherNMF(port.KLNMF):
         pass
 
-    with pytest.raises(NotImplementedError, match="MultimodalCorrNMF"):
-        port.fit_best_of(MultimodalCorrNMF(device="cpu"),
+    with pytest.raises(NotImplementedError, match="SomeOtherNMF"):
+        port.fit_best_of(SomeOtherNMF(device="cpu"),
                          port.AnnData(frame.copy()), 2)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        port.fit_best_of(model, mm_mdata(port), 2, mesh=object())
     with pytest.raises(NotImplementedError, match="mesh"):
         port.fit_best_of(port_model("KLNMF"), port.AnnData(frame.copy()), 2,
                          mesh=object())
     with pytest.raises(ValueError, match="batched_init=True"):
         port.fit_best_of(port_model("KLNMF", init_method="nndsvd"),
                          port.AnnData(frame.copy()), 2, batched_init=True)
+
+
+# ------------------------------------------------------------------ #
+# MultimodalCorrNMF: a nested parameter tree over a MuData
+# ------------------------------------------------------------------ #
+
+MM_FEATURES = {"sbs": 12, "indel": 9, "sv": 6}
+MM_HYPER = dict(ns_signatures=[3, 2, 2], dim_embeddings=2,
+                init_method="random", min_iterations=10, max_iterations=150,
+                tol=3e-3)
+
+
+def mm_mdata(containers, n_samples=20):
+    rng = np.random.default_rng(0)
+    load = rng.gamma(2.0, 1.0, (n_samples, 3))
+    return containers.MuData({
+        name: containers.AnnData(rng.poisson(
+            60.0 * load @ rng.dirichlet(np.ones(n_features), 3)
+        ).astype(float))
+        for name, n_features in MM_FEATURES.items()
+    })
+
+
+def mm_best_of(n_restarts=R, **kwargs):
+    model = port.MultimodalCorrNMF(device="cpu", **MM_HYPER)
+    summary = port.fit_best_of(model, mm_mdata(port), n_restarts,
+                               base_seed=kwargs.pop("base_seed", 7),
+                               **kwargs)
+    return model, summary
+
+
+def assert_same_mm_lanes(a, b):
+    np.testing.assert_array_equal(a.losses, b.losses)
+    np.testing.assert_array_equal(a.n_iterations, b.n_iterations)
+    np.testing.assert_array_equal(a.history, b.history)
+    assert a.best_index == b.best_index
+    for name in MM_FEATURES:
+        np.testing.assert_array_equal(a.signatures[name], b.signatures[name])
+
+
+def test_multimodal_host_init_matches_jax():
+    """batched_init=False: the host inits are bit-equal across the
+    packages (each restart reseeds the global numpy RNG), so the joint
+    fits agree lane by lane."""
+    model_j = jax_models.MultimodalCorrNMF(**MM_HYPER)
+    summary_j = jax_fit_best_of(model_j, mm_mdata(jax_containers), R,
+                                base_seed=7, batched_init=False)
+    model_t, summary_t = mm_best_of(batched_init=False)
+    assert len(set(summary_t.n_iterations)) > 1  # lanes stop apart
+    np.testing.assert_array_equal(summary_t.n_iterations,
+                                  summary_j.n_iterations)
+    np.testing.assert_allclose(summary_t.losses, summary_j.losses,
+                               rtol=RTOL)
+    assert summary_t.best_index == summary_j.best_index
+    for (name, n_features), k in zip(MM_FEATURES.items(), [3, 2, 2]):
+        assert summary_t.signatures[name].shape == (R, n_features, k)
+        np.testing.assert_allclose(summary_t.signatures[name],
+                                   summary_j.signatures[name], rtol=1e-5)
+        np.testing.assert_allclose(model_t.asignatures[name].X,
+                                   model_j.asignatures[name].X, rtol=1e-5)
+    np.testing.assert_allclose(model_t.history["objective_function"],
+                               model_j.history["objective_function"],
+                               rtol=RTOL)
+    assert model_t.history["n_iterations"] == \
+        model_j.history["n_iterations"]
+    assert model_t.history["tol_effective"] == \
+        model_j.history["tol_effective"]
+    np.testing.assert_allclose(model_t.variance, model_j.variance, rtol=1e-6)
+
+
+@pytest.mark.parametrize("batched_init", ["auto", False])
+def test_multimodal_compacted_equals_monolithic(batched_init):
+    """A frozen or compacted lane keeps EVERY leaf of the nested tree: a
+    leaf missed by the freeze (a modality's exposures, say) would let the
+    lane drift and the layouts disagree."""
+    _, mono = mm_best_of(batched_init=batched_init, compact=False)
+    _, packed = mm_best_of(batched_init=batched_init, compact=True,
+                           compact_min_bucket=2)
+    assert len(set(mono.n_iterations)) > 1
+    assert_same_mm_lanes(mono, packed)
+
+
+def test_multimodal_device_init_is_deterministic_per_base_seed():
+    _, first = mm_best_of(base_seed=3)
+    _, again = mm_best_of(base_seed=3)
+    _, other = mm_best_of(base_seed=4)
+    assert_same_mm_lanes(first, again)
+    assert not np.array_equal(first.losses, other.losses)
+    assert len(set(first.losses.tolist())) == R
+    with pytest.raises(ValueError, match="batched_init=True"):
+        port.fit_best_of(
+            port.MultimodalCorrNMF(device="cpu",
+                                   **dict(MM_HYPER, init_method="nndsvd")),
+            mm_mdata(port), 2, batched_init=True)
+
+
+def test_multimodal_checkpoint_resume_and_store_identity(tmp_path,
+                                                         monkeypatch):
+    import json
+
+    _, baseline = mm_best_of(restart_chunk=3)
+    _, first = mm_best_of(restart_chunk=3, checkpoint_dir=tmp_path)
+    assert_same_mm_lanes(baseline, first)
+    meta = json.loads((tmp_path / "meta.json").read_text())
+    assert meta["model"] == "MultimodalCorrNMF"
+    assert meta["ns_signatures"] == [3, 2, 2] and meta["n_signatures"] is None
+    assert meta["dim_embeddings"] == 2 and meta["dtype"] == "float64"
+    with np.load(tmp_path / "restarts_0_3.npz") as archive:
+        assert "p_mods/indel/exposures" in archive.files
+        assert "p_sample_embeddings" in archive.files
+    (tmp_path / "restarts_3_6.npz").unlink()  # killed mid-run
+    runs = []
+    real = multistart.lockstep_fit
+
+    def counting(objective_fn, config, make_block_update, params0, data):
+        runs.append(int(params0["variance"].shape[0]))
+        return real(objective_fn, config, make_block_update, params0, data)
+
+    monkeypatch.setattr(multistart, "lockstep_fit", counting)
+    model, resumed = mm_best_of(restart_chunk=3, checkpoint_dir=tmp_path)
+    assert runs == [3]
+    assert_same_mm_lanes(baseline, resumed)
+    assert model.history["n_iterations"] == \
+        int(baseline.n_iterations[baseline.best_index])
+    # another modality's counts, same shapes: a different run
+    other = mm_mdata(port)
+    other["sv"].X = other["sv"].X + 1.0
+    with pytest.warns(UserWarning, match="different run"):
+        port.fit_best_of(port.MultimodalCorrNMF(device="cpu", **MM_HYPER),
+                         other, R, base_seed=7, restart_chunk=3,
+                         checkpoint_dir=tmp_path)
+    with pytest.raises(ValueError, match="given_parameters"):
+        port.fit_best_of(port.MultimodalCorrNMF(device="cpu", **MM_HYPER),
+                         mm_mdata(port), 2,
+                         given_parameters={"variance": 1.0},
+                         checkpoint_dir=tmp_path)
+
+
+def test_stores_of_the_flat_families_keep_their_entry_names(frame, tmp_path):
+    """The tree helpers leave a flat family's store as it was: entries
+    p_W, p_H (and p_gamma), so a checkpoint written before the nested
+    trees still loads."""
+    best_of("MvNMF", frame, restart_chunk=4, checkpoint_dir=tmp_path)
+    with np.load(tmp_path / "restarts_0_4.npz") as archive:
+        assert {"p_W", "p_H", "p_gamma", "losses", "history", "n_evals",
+                "n_iterations", "initial_objective"} == set(archive.files)
 
 
 def test_verbose_prints_one_line_per_segment(frame, capsys):

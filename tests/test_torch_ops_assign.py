@@ -200,11 +200,23 @@ def test_bootstrap_refit_flat_refit_of_jax_resamples():
 def test_bootstrap_refit_shapes_and_point():
     X, W = synthetic(seed=6)
     K, D = W.shape[1], X.shape[1]
-    generator = torch.Generator().manual_seed(0)
-    H = ops.bootstrap_refit(t(X), t(W), torch.ones((K, D), dtype=bool),
-                            generator, 4, max_iterations=500)
+    mask = torch.ones((K, D), dtype=bool)
+
+    def generators(seeds):
+        return [None if seed is None else torch.Generator().manual_seed(seed)
+                for seed in seeds]
+
+    H = ops.bootstrap_refit(t(X), t(W), mask, generators([None, 0, 1, 2]),
+                            max_iterations=500)
     assert tuple(H.shape) == (4, K, D)
     assert bool(torch.isfinite(H).all())
+    # a None lane is the refit of X itself; a resample depends on its own
+    # generator alone, not on the lanes that share its batch
+    point, _ = ops.refit_exposures(t(X), t(W), mask, max_iterations=500)
+    np.testing.assert_allclose(H[0].numpy(), point.numpy(), rtol=1e-9)
+    alone = ops.bootstrap_refit(t(X), t(W), mask, generators([2]),
+                                max_iterations=500)
+    assert torch.equal(alone[0], H[3])
 
 
 # ------------------------------------------------------------------ #
