@@ -35,30 +35,30 @@ check raises, so the script exits non-zero and prints no result):
 7. MvNMF(n_signatures=5).fit in float32 must stop below the 10,000 cap
    with finite, column-normalized signatures (line-search evaluations per
    iteration and the cost of one trial round printed); then
-   fit_best_of(MvNMF(5, random), n_restarts=50) compacted and monolithic
+   fit_best_of(MvNMF(5, random), n_restarts=10) compacted and monolithic
    (one run each), best losses at rtol 1e-4.
 8. rank_scan_klnmf(X, range(2, 11), 20, seed=0) unpadded (with and without
    compaction; launches the kernel) and padded (packed and one point per
-   call; plain ops), in turns; best loss per rank at rtol 1e-4.
+   call; plain ops), one run each; best loss per rank at rtol 1e-4.
 9. CorrNMFDet(n_signatures=5, dim_embeddings=2, min 100, max 2000,
    tol 1e-7).fit on PCAWG SBS in float32 (np.random.seed(0)): EM cycles,
    wall, cycles/s, final ELBO, signature-side Newton steps per cycle; the
    ELBO is finite and its history never falls by more than float32 noise.
    Then fit_best_of(CorrNMFDet(5, dim_embeddings=2, random, max 500),
-   n_restarts=16) compacted and monolithic in turns, best ELBO at rtol
-   1e-4.
+   n_restarts=16) compacted and monolithic, one run each, best ELBO at
+   rtol 1e-4.
 10. ARDNMF(n_signatures=20, a=5, min 500, max 20000).fit on the synthetic
    96 x 10,000 catalog with 8 planted signatures: the inferred rank is 8;
    then fit_best_of(ARDNMF(20, random), n_restarts=8) compacted and
    monolithic, best objective at rtol 1e-4, inferred rank 8.
 11. rank_scan_corrnmf(PCAWG SBS, range(2, 8), n_restarts=4,
-   dim_embeddings=2) over a fixed 200-cycle window, unpadded, padded and
-   packed, and padded one point per call, in turns; best ELBO per rank at
-   rtol 1e-4.
+   dim_embeddings=2) over a fixed 100-cycle window, unpadded, padded and
+   packed, and padded one point per call, one run each; best ELBO per rank
+   at rtol 1e-4.
 Phases 9-11 run plain PyTorch ops (neither family reaches the kernel).
 12. extract_signatures(PCAWG SBS, range(2, 11), n_bootstraps=20, seed=0)
    grouped (each rank's lanes through the kernel with a per-lane X) and
-   padded (one rank-masked batch of plain ops), in turns: walls, lane
+   padded (one rank-masked batch of plain ops), one run each: walls, lane
    iterations, launches, suggested rank, min stabilities; each rank's best
    replicate loss agrees across the layouts at rtol 1e-4.
 13. assign_exposures and assign_signatures(rel_tol=0.02) of PCAWG SBS
@@ -73,17 +73,40 @@ Phases 9-11 run plain PyTorch ops (neither family reaches the kernel).
    cycles/s, final ELBO; the ELBO trace never falls by more than float32
    noise and its last value equals objective_function() on the absorbed
    state at rtol 1e-5. fit_best_of(random init, max 500, R=16,
-   base_seed=0) compacted and monolithic in turns, best ELBO at rtol 1e-4.
-   The synthetic {96, 83} x 100,000 cohort (default_rng(1)),
-   ns_signatures [4, 3], R=4, max 500, tol 1e-6: the bytes reckoned
+   base_seed=0) compacted and monolithic (one run each), best ELBO at rtol
+   1e-4. The synthetic {96, 83} x 100,000 cohort (default_rng(1)),
+   ns_signatures [4, 3], R=4, 100 cycles, tol 1e-6: the bytes reckoned
    first, then wall, aggregate joint cycles/s, best ELBO, peak allocated
-   memory. bootstrap_stability(the fitted model, 8): wall, mean stability
-   per modality. Then 20 cycles of the cohort best-of-4 and 50 cycles of
+   memory. bootstrap_stability(the fitted model, 4 replicates of at most
+   500 cycles): wall, mean stability per modality. Then 20 cycles of the cohort best-of-4 and 50 cycles of
    the first fit under torch.profiler: device busy share (traced device
    time over the untraced wall), kernels per EM cycle and the kernels that
    take most of the device time.
 
-Each of phases 4-15 runs with the kernel's launch counts (in all, by
+16. Stochastic (minibatch) fitting and host streaming (ops/svi.py), float32
+   on the card, plain PyTorch ops: the phase launches no hand kernel, and
+   that is checked. (a) fit_minibatch resident against streaming at one
+   seed for KLNMF (weights_kl and weights_lhalf), CorrNMFDet(5, m=2) and
+   MultimodalCorrNMF([5, 4, 3], m=3) on the PCAWG data, batch_size 48 and
+   50 (50 divides no epoch), 200 steps, eval_freq 50: every absorbed
+   parameter bit-equal, traces at rtol 1e-5, streaming prefetch 1, 2 and 4
+   bit-equal. (b) The synthetic 96 x 200,000 cohort, CorrNMFDet k=5 m=2,
+   init seed 1: 50 full-batch EM cycles, then 2,000 minibatch steps at
+   B=4,096, delay 50, no evaluations, resident and streaming in turns (r,
+   s, s, r): steps/s, sample updates/s, peak allocated memory of each
+   placement, the four final states bit-equal, the ELBO after the steps
+   finite and above the initial one; one resident and one core step under
+   torch.cuda.set_sync_debug_mode("error") (a step makes no host sync);
+   kernels a step and the device busy share over 50 steps of each
+   placement. (c) Streaming at cohort size: uint16 host counts 2,000,000 x
+   96 (384 MB, from a seed), the CorrNMF core, B=16,384, delay 20, 20 warm
+   and 100 timed steps: steps/s, samples/s, MB/s uploaded, peak allocated
+   memory; the host array is still uint16; a streamed log-likelihood probe
+   of 262,144 samples rises. (d) 20 lockstep cycles of
+   fit_best_of(CorrNMFDet(5, m=2, random), 96 x 200,000, R=8): the bytes
+   reckoned first, then ms a cycle, peak allocated memory, busy share.
+
+Each of phases 4-16 runs with the kernel's launch counts (in all, by
 kernel and by shared or per-lane X) set to 0 just before it and read just
 after. The last two lines are the per-kernel JSON
 record and
@@ -629,8 +652,8 @@ def phase_quickstart(torch, sal, cuda_klnmf):
 
 def phase_mvnmf(torch, sal):
     """MvNMF(5).fit on PCAWG SBS in float32 (line-search trials counted),
-    the cost of one trial round, and fit_best_of(MvNMF(5, random), R=50)
-    compacted and monolithic in turns."""
+    the cost of one trial round, and fit_best_of(MvNMF(5, random), R=10)
+    compacted and monolithic, one run each."""
     from salamander_tpu_torch.ops import mvnmf as mv_ops
 
     trials = [0]
@@ -680,8 +703,9 @@ def phase_mvnmf(torch, sal):
 
     walls = {True: [], False: []}
     best = {}
-    # one run of each layout (the monolithic one takes ~55-90 s): the
-    # whole script, phase 15 included, stays near eight to ten minutes
+    # one run of each layout at R=10: the whole script, phase 16 included,
+    # stays near ten minutes
+    mv_restarts = 10
     for compact in (True, False):
         trials[0] = 0
         mv_ops._renormalized_objective = counting
@@ -689,14 +713,15 @@ def phase_mvnmf(torch, sal):
             summary, seconds = timed(torch, lambda: sal.fit_best_of(
                 sal.MvNMF(n_signatures=5, init_method="random",
                           device="cuda", dtype="float32"),
-                sbs_adata(sal), n_restarts=50, base_seed=0,
+                sbs_adata(sal), n_restarts=mv_restarts, base_seed=0,
                 compact=compact))
         finally:
             mv_ops._renormalized_objective = real
         check(bool(np.isfinite(summary.losses).all()), "non-finite losses")
         walls[compact].append(seconds)
         best[compact] = float(summary.losses.min())
-        print(f"[7] fit_best_of(MvNMF(5), R=50, compact={compact}): "
+        print(f"[7] fit_best_of(MvNMF(5), R={mv_restarts}, "
+              f"compact={compact}): "
               f"{seconds:.3f} s, best objective {best[compact]:.4f}, "
               f"iterations {summary.n_iterations.min()}.."
               f"{summary.n_iterations.max()} "
@@ -708,19 +733,17 @@ def phase_mvnmf(torch, sal):
 
 
 def phase_scan(torch, sal, cuda_klnmf, X_host):
-    """rank_scan_klnmf(X, range(2, 11), 20, seed=0) in every layout, in
-    turns; best loss per rank against the unpadded scan at rtol 1e-4."""
+    """rank_scan_klnmf(X, range(2, 11), 20, seed=0) in every layout, one
+    run each; best loss per rank against the unpadded scan at rtol 1e-4."""
     layouts = {
         "unpadded": dict(pad_ranks=False, compact=False),
         "unpadded compacted": dict(pad_ranks=False, compact=True),
         "padded packed": dict(pad_ranks=True, pack_points=True),
         "padded per point": dict(pad_ranks=True, pack_points=False),
     }
-    order = ["unpadded", "padded packed", "padded per point",
-             "unpadded compacted", "padded packed", "unpadded"]
     walls = {name: [] for name in layouts}
     best = {}
-    for name in order:
+    for name in layouts:  # one run each
         before = cuda_klnmf.fused_mu_block.launches
         results, seconds = timed(torch, lambda: sal.rank_scan_klnmf(
             X_host, range(2, 11), 20, seed=0, device="cuda",
@@ -755,7 +778,7 @@ def elbo_trace_check(trace) -> float:
 
 def phase_corrnmf(torch, sal):
     """CorrNMFDet(5, dim_embeddings=2).fit on PCAWG SBS in float32, then
-    fit_best_of(R=16) compacted and monolithic in turns."""
+    fit_best_of(R=16) compacted and monolithic, one run each."""
     from salamander_tpu_torch.ops import corrnmf as corr_ops
 
     calls = {"steps": 0, "solves": 0}
@@ -797,7 +820,7 @@ def phase_corrnmf(torch, sal):
 
     walls = {True: [], False: []}
     best = {}
-    for compact in (True, False, False, True):
+    for compact in (True, False):
         summary, seconds = timed(torch, lambda: sal.fit_best_of(
             sal.CorrNMFDet(init_method="random", max_iterations=500,
                            **hyper),
@@ -856,7 +879,7 @@ def phase_ardnmf(torch, sal):
 
 def phase_corrnmf_scan(torch, sal, X_samples):
     """rank_scan_corrnmf(PCAWG SBS, range(2, 8), 4 restarts, m=2) over a
-    fixed 200-cycle window in every layout, in turns."""
+    fixed 100-cycle window in every layout, one run each."""
     from salamander_tpu_torch.engine import FitConfig
 
     layouts = {
@@ -864,14 +887,12 @@ def phase_corrnmf_scan(torch, sal, X_samples):
         "padded packed": dict(pad_ranks=True, pack_points=True),
         "padded per point": dict(pad_ranks=True, pack_points=False),
     }
-    order = ["unpadded", "padded packed", "padded per point",
-             "padded per point", "padded packed", "unpadded"]
     walls = {name: [] for name in layouts}
     best = {}
-    for name in order:
+    for name in layouts:  # one run each
         results, seconds = timed(torch, lambda: sal.rank_scan_corrnmf(
             X_samples, range(2, 8), dim_embeddings=2, n_restarts=4,
-            config=FitConfig(200, 200, BLOCK, 1e-7), device="cuda",
+            config=FitConfig(100, 100, BLOCK, 1e-7), device="cuda",
             dtype="float32", **layouts[name]))
         walls[name].append(seconds)
         best[name] = {k: result.best_loss for k, result in results.items()}
@@ -896,14 +917,14 @@ def phase_extraction(torch, sal, cuda_klnmf):
     """Cell 7: extract_signatures(PCAWG SBS, range(2, 11), n_bootstraps=20,
     seed=0) in the grouped layout (each rank's lanes through the kernel
     with a per-lane X) and the padded one (one rank-masked batch of plain
-    ops), in turns; each rank's best replicate loss agrees across them at
-    rtol 1e-4. Returns the grouped run's result."""
+    ops), one run each; each rank's best replicate loss agrees across them
+    at rtol 1e-4. Returns the grouped run's result."""
     from salamander_tpu_torch import extraction
 
     data = sal.datasets.load_pcawg_sbs()
     choose = extraction._choose_layout
     results, walls = {}, {"grouped": [], "padded": []}
-    for layout in ("grouped", "padded", "padded", "grouped"):
+    for layout in ("grouped", "padded"):  # one run each
         if layout == "padded":
             extraction._choose_layout = lambda *args: "padded"
         launches, per_lane = (cuda_klnmf.fused_mu_block.launches,
@@ -1089,18 +1110,18 @@ def device_busy(torch, fn, n_cycles: int, top: int = 0):
     }
 
 
-def print_busy(label: str, busy, n_cycles: int) -> None:
+def print_busy(tag: str, label: str, busy, unit: str = "cycle") -> None:
+    """One device_busy reading, with its kernels by device time."""
     if busy is None:
-        print(f"[15] {label}: torch.profiler recorded no device time: busy "
-              "share not measured")
+        print(f"[{tag}] {label}: torch.profiler recorded no device time: "
+              "busy share not measured")
         return
-    print(f"[15] {label}, {n_cycles} cycles (set-up, init and the float64 "
-          f"ELBO evaluations included), untraced wall against traced device "
-          f"time: device busy {100 * busy['busy']:.1f}%, "
-          f"{busy['kernels']:.0f} kernels a cycle, {busy['wall_ms']:.3f} ms "
-          f"of wall and {busy['device_ms']:.3f} ms of device time a cycle")
+    print(f"[{tag}] {label}, untraced wall against traced device time: "
+          f"device busy {100 * busy['busy']:.1f}%, {busy['kernels']:.0f} "
+          f"kernels a {unit}, {busy['wall_ms']:.3f} ms of wall and "
+          f"{busy['device_ms']:.3f} ms of device time a {unit}")
     for name, share in busy["top"]:
-        print(f"[15]   {100 * share:5.1f}% of device time: {name}")
+        print(f"[{tag}]   {100 * share:5.1f}% of device time: {name}")
 
 
 def phase_multimodal(torch, sal):
@@ -1150,7 +1171,7 @@ def phase_multimodal(torch, sal):
 
     walls = {True: [], False: []}
     best = {}
-    for compact in (True, False, False, True):
+    for compact in (True, False):
         summary, seconds = timed(torch, lambda: sal.fit_best_of(
             sal.MultimodalCorrNMF(init_method="random", max_iterations=500,
                                   tol=1e-7, **hyper),
@@ -1185,7 +1206,7 @@ def phase_multimodal(torch, sal):
     torch.cuda.reset_peak_memory_stats()
     cohort_model = sal.MultimodalCorrNMF(
         ns_signatures=[4, 3], dim_embeddings=3, init_method="random",
-        min_iterations=100, max_iterations=500, conv_test_freq=10, tol=1e-6,
+        min_iterations=100, max_iterations=100, conv_test_freq=10, tol=1e-6,
         device="cuda", dtype="float32")
     summary, seconds = timed(torch, lambda: sal.fit_best_of(
         cohort_model,
@@ -1213,13 +1234,18 @@ def phase_multimodal(torch, sal):
             sal.MuData({k: sal.AnnData(v.copy()) for k, v in cohort.items()}),
             R, base_seed=0)
 
-    print_busy(f"cohort best-of-{R} under torch.profiler",
-               device_busy(torch, cohort_probe, cohort_cycles, top=6),
-               cohort_cycles)
+    included = "(set-up, init and the float64 ELBO evaluations included)"
+    print_busy("15", f"cohort best-of-{R} under torch.profiler, "
+               f"{cohort_cycles} cycles {included}",
+               device_busy(torch, cohort_probe, cohort_cycles, top=6))
     del cohort, cohort_model, summary
     torch.cuda.empty_cache()
 
-    result, seconds = timed(torch, lambda: sal.bootstrap_stability(model, 8))
+    n_replicates = 4
+    model.max_iterations = 500  # the replicates' cap; the fit above ran 1000
+    result, seconds = timed(torch, lambda: sal.bootstrap_stability(
+        model, n_replicates))
+    model.max_iterations = 1000
     check(bool(np.isfinite(result.losses).all()),
           "non-finite bootstrap ELBOs")
     columns = list(result.similarities.columns)
@@ -1231,7 +1257,8 @@ def phase_multimodal(torch, sal):
               f"stability columns of {name} out of order")
         per_mod.append(f"{name} {share.mean():.4f}")
         offset += k
-    print(f"[15] bootstrap_stability(MultimodalCorrNMF, 8): {seconds:.3f} s, "
+    print(f"[15] bootstrap_stability(MultimodalCorrNMF, {n_replicates}): "
+          f"{seconds:.3f} s, "
           f"mean stability " + ", ".join(per_mod) + f", best ELBO "
           f"{float(result.losses.max()):.4f}")
 
@@ -1244,9 +1271,406 @@ def phase_multimodal(torch, sal):
         np.random.seed(0)
         probe.fit(pcawg_mdata(sal))
 
-    print_busy("PCAWG fit under torch.profiler",
-               device_busy(torch, pcawg_probe, probe_cycles, top=4),
-               probe_cycles)
+    print_busy("15", f"PCAWG fit under torch.profiler, {probe_cycles} "
+               f"cycles {included}",
+               device_busy(torch, pcawg_probe, probe_cycles, top=4))
+
+
+def fitted_arrays(model) -> dict:
+    """Every absorbed parameter of a fitted model, by name."""
+    if hasattr(model, "mdata"):
+        out = {"embeddings": model.mdata.obsm["embeddings"],
+               "variance": np.asarray(model.variance)}
+        for name in model.mod_names:
+            asigs, adata = model.asignatures[name], model.mdata[name]
+            out.update({
+                f"{name}/signatures": asigs.X,
+                f"{name}/signature_scalings": np.asarray(
+                    asigs.obs["scalings"]),
+                f"{name}/signature_embeddings": asigs.obsm["embeddings"],
+                f"{name}/sample_scalings": np.asarray(adata.obs["scalings"]),
+                f"{name}/exposures": adata.obsm["exposures"],
+            })
+        return out
+    out = {"signatures": model.asignatures.X,
+           "exposures": model.adata.obsm["exposures"]}
+    if hasattr(model, "variance"):
+        out.update({
+            "signature_scalings": np.asarray(
+                model.asignatures.obs["scalings"]),
+            "signature_embeddings": model.asignatures.obsm["embeddings"],
+            "sample_scalings": np.asarray(model.adata.obs["scalings"]),
+            "sample_embeddings": model.adata.obsm["embeddings"],
+            "variance": np.asarray(model.variance),
+        })
+    return out
+
+
+def check_bit_equal(torch, label: str, a: dict, b: dict) -> None:
+    check(list(a) == list(b), f"{label}: parameter names differ")
+    for name in a:
+        check(torch.equal(torch.as_tensor(np.array(a[name])),
+                          torch.as_tensor(np.array(b[name]))),
+              f"{label}: {name} is not bit-equal")
+
+
+TRACE_RTOL = 1e-5  # the chunked objective sums in another order, float32
+
+
+def float_counts(sal, adata):
+    """The container with its counts as floats: a streaming fit leaves an
+    integer matrix unclipped on the host, its initializer included, so
+    only float counts start both placements from the same parameters."""
+    return sal.AnnData(adata.to_df().astype(float))
+
+
+def phase_svi_equality(torch, sal):
+    """fit_minibatch resident against streaming at one seed, float32 on
+    the card, for the three families on the PCAWG data: every absorbed
+    parameter bit-equal, traces at rtol 1e-5, prefetch 1, 2 and 4 equal."""
+    import functools
+
+    from salamander_tpu_torch.ops import svi
+
+    weights = np.random.default_rng(9).uniform(0.5, 2.0, 192)
+    families = {
+        "KLNMF(5), weights_kl and weights_lhalf": (
+            lambda: sal.KLNMF(n_signatures=5, device="cuda",
+                              dtype="float32"),
+            lambda: float_counts(sal, sbs_adata(sal)),
+            dict(fitting_kwargs={"weights_kl": weights.copy(),
+                                 "weights_lhalf": 0.1})),
+        "CorrNMFDet(5, m=2)": (
+            lambda: sal.CorrNMFDet(n_signatures=5, dim_embeddings=2,
+                                   device="cuda", dtype="float32"),
+            lambda: float_counts(sal, sbs_adata(sal)), {}),
+        "MultimodalCorrNMF([5, 4, 3], m=3)": (
+            lambda: sal.MultimodalCorrNMF(
+                ns_signatures=[5, 4, 3], dim_embeddings=3, device="cuda",
+                dtype="float32"),
+            lambda: sal.MuData({
+                name: float_counts(sal, adata)
+                for name, adata in pcawg_mdata(sal).mod.items()}), {}),
+    }
+    real = svi.run_svi_streaming
+
+    def fit(make_model, make_data, extra, batch_size, streaming, prefetch):
+        np.random.seed(0)  # the CorrNMF embedding init draws from it
+        model = make_model()
+        svi.run_svi_streaming = functools.partial(real, prefetch=prefetch)
+        try:
+            _, seconds = timed(torch, lambda: model.fit_minibatch(
+                make_data(), batch_size=batch_size, n_steps=200,
+                eval_freq=50, seed=0, init_kwargs={"seed": 0},
+                streaming=streaming, **extra))
+        finally:
+            svi.run_svi_streaming = real
+        trace = np.asarray(model.history["objective_function"], dtype=float)
+        check(trace.shape == (4,) and bool(np.isfinite(trace).all()),
+              "the trace has 4 finite evaluations")
+        return fitted_arrays(model), trace, seconds
+
+    for label, (make_model, make_data, extra) in families.items():
+        for batch_size in (48, 50):
+            resident, trace_r, wall_r = fit(make_model, make_data, extra,
+                                            batch_size, False, 2)
+            walls = []
+            for prefetch in (2, 1, 4) if batch_size == 50 else (2,):
+                streamed, trace_s, wall_s = fit(make_model, make_data, extra,
+                                                batch_size, True, prefetch)
+                check_bit_equal(
+                    torch, f"{label} B={batch_size} prefetch={prefetch}",
+                    resident, streamed)
+                check(bool(np.allclose(trace_s, trace_r, rtol=TRACE_RTOL,
+                                       atol=0.0)),
+                      f"{label} B={batch_size}: traces {trace_s} and "
+                      f"{trace_r} differ by more than {TRACE_RTOL}")
+                walls.append(f"prefetch {prefetch} {wall_s:.3f} s")
+            for values in resident.values():
+                check(bool(np.isfinite(values).all()),
+                      f"{label}: non-finite parameters")
+            print(f"[16a] {label} fit_minibatch B={batch_size}, 200 steps: "
+                  f"resident {wall_r:.3f} s, streaming "
+                  f"{', '.join(walls)}: {len(resident)} parameters "
+                  f"bit-equal, traces within {TRACE_RTOL} (last "
+                  f"{trace_r[-1]:.4f} against {trace_s[-1]:.4f})")
+
+
+def phase_svi_cell3c(torch, sal):
+    """The 96 x 200,000 synthetic cohort, CorrNMFDet k=5, m=2: full-batch
+    EM cycles/s, then 2,000 minibatch steps at B=4,096 resident and
+    streaming in turns."""
+    from salamander_tpu_torch.models.signature_nmf import host_rows
+    from salamander_tpu_torch.ops import svi
+
+    D, B, n_steps, n_cycles = 200_000, 4096, 2000, 50
+    X_host, seconds = timed(torch, lambda: np.ascontiguousarray(
+        sal.datasets.synthetic_catalog(96, D, 5, seed=0).T, dtype=np.float32))
+    model = sal.CorrNMFDet(n_signatures=5, dim_embeddings=2, device="cuda",
+                           dtype="float32")
+    np.random.seed(0)
+    _, init_seconds = timed(torch, lambda: (
+        model._setup_adata(sal.AnnData(X_host)),
+        model._initialize(init_kwargs={"seed": 1}),
+        model._setup_fitting_parameters(None)))
+    X_host = model.adata.X  # float32, clipped
+    check(X_host.dtype == np.float32, "the cohort's counts are float32")
+    params, data = model._device_state()
+    print(f"[16b] cohort 96 x {D} drawn in {seconds:.3f} s, initialized in "
+          f"{init_seconds:.3f} s; X float32 {X_host.nbytes / 1e6:.1f} MB")
+
+    update_fn, _ = model._build_step()
+    torch.cuda.reset_peak_memory_stats()
+    def cycles(p, n):
+        for _ in range(n):
+            p = update_fn(p, data)
+        return p
+
+    p = cycles(params, 1)  # warm
+    p, seconds = timed(torch, lambda: cycles(p, n_cycles))
+    check(bool(torch.isfinite(p["signatures"]).all()),
+          "non-finite full-batch signatures")
+    print(f"[16b] full-batch EM: {n_cycles} cycles in {seconds:.3f} s, "
+          f"{n_cycles / seconds:.2f} cycles/s, "
+          f"{n_cycles * D / seconds:.0f} sample updates/s, peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    del p
+
+    config = svi.SVIConfig(batch_size=B, delay=50.0)
+    step_fn = svi.make_svi_step(D, config)
+    core = svi.make_svi_batch_step(D, config)
+    elbo0 = float(svi.full_elbo(svi.svi_init(params).params, data["X"]))
+    on_card = {"X": data.pop("X")}  # dropped while a streaming run is timed
+
+    def resident_X():
+        if on_card["X"] is None:
+            on_card["X"] = torch.as_tensor(X_host, device="cuda")
+        return on_card["X"]
+
+    def get_batch(indices):
+        return host_rows(X_host, indices, np.float32)
+
+    def run(placement, steps, seed, state0=None):
+        generator = torch.Generator().manual_seed(seed)
+        if placement == "resident":
+            state, _ = svi.run_svi(
+                step_fn, state0 or svi.svi_init(params), resident_X(),
+                generator, steps, 0)
+        else:
+            state, _ = svi.run_svi_streaming(
+                core, state0 or svi.svi_init(params, streaming=True),
+                get_batch, D, B, generator, steps, 0, None,
+                refresh_fn=svi.refresh_sample_usq)
+        return state
+
+    run("resident", 20, 5), run("streaming", 20, 5)  # warm both
+    states, rates, peaks = {}, {}, {}
+    for placement in ("resident", "streaming", "streaming", "resident"):
+        if placement == "streaming":
+            on_card["X"] = None
+        else:
+            resident_X()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, seconds = timed(torch, lambda: run(placement, n_steps, 1))
+        peaks.setdefault(placement, []).append(
+            torch.cuda.max_memory_allocated())
+        rates.setdefault(placement, []).append(n_steps / seconds)
+        states.setdefault(placement, []).append(state)
+        check(state.step == n_steps, "the run took every step")
+    X = resident_X()
+    for placement, (first, second) in states.items():
+        for name, leaf in first.params.items():
+            check(torch.equal(leaf, second.params[name]),
+                  f"two {placement} runs differ in {name}")
+            check(torch.equal(leaf, states["resident"][0].params[name]),
+                  f"{placement} and resident differ in {name}")
+        elbo = float(svi.full_elbo(first.params, X))
+        check(np.isfinite(elbo) and elbo > elbo0,
+              f"{placement}: ELBO {elbo} after the steps is not above the "
+              f"initial {elbo0}")
+        print(f"[16b] {placement}: {n_steps} steps at B={B} (in turns r, s, "
+              f"s, r): {', '.join(f'{r:.2f}' for r in rates[placement])} "
+              f"steps/s, "
+              f"{', '.join(f'{r * B:.0f}' for r in rates[placement])} sample "
+              f"updates/s, peak allocated "
+              f"{', '.join(f'{b / 1e9:.4f}' for b in peaks[placement])} GB, "
+              f"ELBO {elbo:.1f} (initial {elbo0:.1f})")
+    print("[16b] the four final states are bit-equal (resident and "
+          "streaming, each twice)")
+
+    # one step without a host sync: the resident step mid-epoch (a
+    # reshuffle would upload the epoch order), then the core alone
+    state = states["resident"][0]
+    generator = torch.Generator().manual_seed(2)
+    while state.cursor + B > D:
+        state = step_fn(state, X, generator)
+    indices = state.perm[state.cursor:state.cursor + B]
+    batch = X.index_select(0, indices)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        stepped = step_fn(state, X, generator)
+        cored = core(state, batch, indices)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(stepped.step == state.step + 1 and all(
+        torch.equal(leaf, cored.params[name])
+        for name, leaf in stepped.params.items()),
+        "the resident step is the core on its gathered batch")
+    print("[16b] one resident step and one core step ran under "
+          "torch.cuda.set_sync_debug_mode('error'): no host sync")
+
+    probe_steps = 50
+    for placement in ("resident", "streaming"):
+        state0 = states[placement][0]
+        print_busy(
+            "16b", f"{placement} minibatch steps at B={B}, {probe_steps} "
+            "steps under torch.profiler",
+            device_busy(torch, lambda: run(placement, probe_steps, 3, state0),
+                        probe_steps, top=4), "step")
+
+
+def uint16_cohort(n_samples: int, n_workers: int = 8) -> np.ndarray:
+    """(n_samples, 96) uint16 Poisson counts of a planted k=5 factorization
+    (the draw of the JAX package's streaming demonstration: Dirichlet(1)
+    signatures, gamma(2, 120) exposures), drawn in `n_workers` blocks, each
+    from its own child of SeedSequence(0), in threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    V, K = 96, 5
+    W = np.random.default_rng(0).dirichlet(np.ones(V), size=K)
+    X = np.empty((n_samples, V), np.uint16)
+    bounds = np.linspace(0, n_samples, n_workers + 1).astype(int)
+
+    def fill(job):
+        seed, start, stop = job
+        rng = np.random.default_rng(seed)
+        exposures = rng.gamma(2.0, 120.0, size=(stop - start, K))
+        X[start:stop] = np.minimum(rng.poisson(exposures @ W),
+                                   np.iinfo(np.uint16).max)
+
+    with ThreadPoolExecutor(n_workers) as pool:
+        list(pool.map(fill, zip(np.random.SeedSequence(0).spawn(n_workers),
+                                bounds[:-1], bounds[1:])))
+    return X
+
+
+def phase_svi_streaming_cohort(torch, sal):
+    """Streaming at cohort size: uint16 host counts 2,000,000 x 96, the
+    CorrNMF core at B=16,384, delay 20, 20 warm and 100 timed steps."""
+    from salamander_tpu_torch.models.signature_nmf import host_rows
+    from salamander_tpu_torch.ops import svi
+
+    D, V, K, M, B = 2_000_000, 96, 5, 2, 16384
+    warm_steps, timed_steps = 20, 100
+    X, seconds = timed(torch, lambda: uint16_cohort(D))
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[16c] host counts {X.shape} {X.dtype}, {X.nbytes / 1e6:.1f} MB, "
+          f"drawn in {seconds:.3f} s; as float32 on the card they would be "
+          f"{4 * X.size / 1e6:.1f} MB of {total / 1e9:.2f} GB: this cohort is "
+          "NOT beyond the card's memory (float32 counts beyond it need "
+          f"D > {total / (4 * V) / 1e6:.0f} million samples, "
+          f"{2 * total / (4 * V) * V / 1e9:.1f} GB of uint16 on the host)")
+    generator = torch.Generator(device="cuda").manual_seed(0)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=generator, device="cuda")
+
+    draws = torch.empty(K, V, device="cuda").exponential_(generator=generator)
+    params = {
+        "signatures": draws / draws.sum(-1, keepdim=True),
+        "signature_scalings": torch.zeros(K, device="cuda"),
+        "sample_scalings": torch.zeros(D, device="cuda"),
+        "signature_embeddings": normal(K, M),
+        "sample_embeddings": normal(D, M),
+        "variance": torch.ones((), device="cuda"),
+    }
+    config = svi.SVIConfig(batch_size=B, forgetting=0.7, delay=20.0)
+    core = svi.make_svi_batch_step(D, config)
+
+    def get_batch(indices):
+        return host_rows(X, indices, np.float32)
+
+    probe_n = 262_144
+    probe = svi.make_streamed_objective(
+        svi.corrnmf_elbo_stream_chunk, lambda p: p["variance"].new_zeros(()),
+        get_batch, probe_n, chunk_size=32_768)
+
+    def run(state, steps, seed):
+        state, _ = svi.run_svi_streaming(
+            core, state, get_batch, D, B,
+            torch.Generator().manual_seed(seed), steps,
+            refresh_fn=svi.refresh_sample_usq)
+        return state
+
+    state0 = svi.svi_init(params, streaming=True)
+    llh_before = float(probe(state0.params))
+    state = run(state0, warm_steps, 1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, seconds = timed(torch, lambda: run(state, timed_steps, 2))
+    peak = torch.cuda.max_memory_allocated()
+    llh_after = float(probe(state.params))
+    rate = timed_steps / seconds
+    check(state.step == warm_steps + timed_steps, "every step ran")
+    check(X.dtype == np.uint16, "the host counts were promoted")
+    check(np.isfinite(llh_after) and llh_after > llh_before,
+          f"the probe log-likelihood went from {llh_before} to {llh_after}")
+    check(all(bool(torch.isfinite(leaf).all())
+              for leaf in state.params.values()), "non-finite parameters")
+    print(f"[16c] streaming CorrNMF core, B={B}, delay 20: {timed_steps} "
+          f"steps in {seconds:.3f} s (after {warm_steps} warm), "
+          f"{rate:.2f} steps/s, {rate * B:.0f} samples/s, "
+          f"{rate * B * (4 * V + 8) / 1e6:.1f} MB/s uploaded (float32 rows "
+          f"and int64 indices), peak allocated {peak / 1e9:.4f} GB; host "
+          f"counts still {X.dtype}; probe log-likelihood a sample "
+          f"{llh_before / probe_n:.4f} -> {llh_after / probe_n:.4f}")
+
+
+def phase_svi_cell3e_probe(torch, sal):
+    """20 lockstep cycles of fit_best_of(CorrNMFDet(5, m=2, random), the
+    96 x 200,000 planted cohort, R=8): the bytes reckoned first."""
+    V, D, K, R, cycles, n_backtrack = 96, 200_000, 5, 8, 20, 41
+    rng = np.random.default_rng(0)
+    W = rng.dirichlet(np.ones(V) * 0.3, size=K)
+    H = rng.gamma(2.0, 30.0, size=(D, K))
+    X = rng.poisson(H @ W).astype(np.float32) + np.float32(1.0)
+    print(f"[16d] cohort 96 x {D}, R={R}: X {4 * D * V / 1e6:.1f} MB shared; "
+          f"a lane-batched (R, D, V) tensor (the ratios) "
+          f"{4 * R * D * V / 1e6:.1f} MB; the sample-side Armijo candidates "
+          f"(R, D, {n_backtrack}, K) float32 "
+          f"{4 * R * D * n_backtrack * K / 1e9:.3f} GB a tensor; the float64 "
+          f"ELBO evaluation's (R, D, V) {8 * R * D * V / 1e9:.3f} GB")
+
+    def probe():
+        return sal.fit_best_of(
+            sal.CorrNMFDet(n_signatures=K, dim_embeddings=2,
+                           init_method="random", min_iterations=cycles,
+                           max_iterations=cycles, conv_test_freq=10,
+                           tol=1e-6, device="cuda", dtype="float32"),
+            sal.AnnData(X.copy()), R, base_seed=0)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    busy = device_busy(torch, probe, cycles, top=6)
+    peak = torch.cuda.max_memory_allocated()
+    check(peak < 40e9, f"the probe allocated {peak / 1e9:.1f} GB")
+    print(f"[16d] peak allocated {peak / 1e9:.3f} GB over the two runs "
+          "(untraced, traced)")
+    print_busy(
+        "16d", f"fit_best_of(CorrNMFDet(5, m=2), R={R}), {cycles} lockstep "
+        "cycles (set-up, the device init and two float64 ELBO evaluations "
+        "included)", busy, "lockstep cycle")
+
+
+def phase_svi(torch, sal):
+    """Phase 16: stochastic (minibatch) fitting and host streaming."""
+    phase_svi_equality(torch, sal)
+    phase_svi_cell3c(torch, sal)
+    phase_svi_streaming_cohort(torch, sal)
+    phase_svi_cell3e_probe(torch, sal)
 
 
 def main() -> int:
@@ -1301,6 +1725,9 @@ def main() -> int:
           extracted.consensus[5])
     drive("14 bootstrap", phase_bootstrap, torch, sal, cuda_klnmf)
     drive("15 MultimodalCorrNMF", phase_multimodal, torch, sal)
+    drive("16 SVI and streaming", phase_svi, torch, sal)
+    check(launches["16 SVI and streaming"] == 0,
+          "the minibatch paths have no hand kernel to launch")
     for path in ("4 KLNMF.fit", "5 fit_klnmf_restarts",
                  "6 fit_best_of KLNMF", "8 rank_scan_klnmf",
                  "12 extract_signatures", "14 bootstrap"):

@@ -13,4 +13,9 @@ from .fit import (  # noqa: F401
     run_lockstep_segment,
     tolerance_floor,
 )
-from .transfer import params_from_numpy, params_to_numpy  # noqa: F401
+from .transfer import (  # noqa: F401
+    params_from_numpy,
+    params_to_numpy,
+    svi_state_from_numpy,
+    svi_state_to_numpy,
+)

@@ -17,8 +17,9 @@ exposures, as the reference's container state does. newton_cg_compat=True
 runs the reference's per-row scipy Newton-CG on the host instead, with the
 whole fit loop host-side. No kernel: the cycle runs as plain PyTorch ops
 (its W step is update_W at fixed exposures, not the joint step that the
-fused KLNMF kernel carries). The stochastic minibatch fit waits for the
-SVI port.
+fused KLNMF kernel carries). fit_minibatch is the stochastic (minibatch)
+variational EM of ops/svi.py, with the counts on the device or streamed
+from the host.
 """
 
 from __future__ import annotations
@@ -28,9 +29,17 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..engine.transfer import params_to_numpy
 from ..ops import corrnmf as ops
 from ..ops import klnmf as klnmf_ops
+from ..ops.precision import require_ieee_float32
 from .corrnmf import CorrNMF, _host
+from .signature_nmf import (
+    NEWTON_CG_COMPAT_MINIBATCH,
+    check_minibatch_placement,
+    host_rows,
+    record_minibatch_history,
+)
 
 SIGNATURE_NEWTON_ITERS = 100  # effectively to convergence (quadratic)
 SAMPLE_NEWTON_ITERS = 3       # the reference's scipy options={"maxiter": 3}
@@ -166,13 +175,146 @@ class CorrNMFDet(CorrNMF):
 
         return update_fn, objective_fn
 
-    def fit_minibatch(self, *args, **kwargs):
-        """Stochastic (minibatch) variational EM (JAX package
-        models/corrnmf_det.py:190) waits for the SVI port."""
-        raise NotImplementedError(
-            "fit_minibatch waits for the port of ops/svi.py (SVI and "
-            "streaming, ROADMAP Queue 1 item 13)"
+    # ------------------------------------------------------------------ #
+    # stochastic (minibatch) EM
+    # ------------------------------------------------------------------ #
+    def fit_minibatch(
+        self,
+        adata,
+        batch_size: int = 128,
+        n_steps: int = 2000,
+        eval_freq: int = 50,
+        forgetting: float = 0.7,
+        delay: float = 1.0,
+        seed: int = 0,
+        signature_newton_iters: int = 4,
+        given_parameters: dict[str, Any] | None = None,
+        init_kwargs: dict[str, Any] | None = None,
+        history: bool = True,
+        streaming: bool = False,
+        eval_chunk: int = 8192,
+        mesh=None,
+    ) -> "CorrNMFDet":
+        """Fit with stochastic (minibatch) variational EM instead of
+        full-batch cycles - for cohorts whose sample count makes full EM
+        cycles too slow: per-step compute is amortized O(batch_size) while
+        a full-batch cycle is O(n_samples).
+
+        streaming=False (default) keeps the count matrix device-resident.
+        streaming=True keeps X HOST-resident and uploads each minibatch
+        (and, for the ELBO trace, eval_chunk-row evaluation chunks) on the
+        fly: only the O(n_samples) per-sample parameters live in device
+        memory, so a cohort whose counts exceed it fits end to end. Given
+        the same seed, the two placements draw identical minibatch
+        sequences and produce bit-equal parameters (ops/svi.py
+        run_svi_streaming) - when comparing two separate calls, also seed
+        numpy's global generator: the CorrNMF embedding initialization
+        draws from it (reference semantics). Integer-dtype count matrices
+        are kept compact on the host in streaming mode (adata.X is NOT
+        clipped in place; the EPSILON clip is applied to each uploaded
+        batch instead, and the initializer sees the unclipped counts, so
+        compare the placements on float counts). Pass eval_freq=0 to skip the O(n_samples)
+        full-data ELBO evaluations (recorded in the fit dtype).
+
+        Each step refreshes `batch_size` samples' local parameters with the
+        exact batch M-steps and updates the global parameters from
+        Robbins-Monro running averages of minibatch-scaled sufficient
+        statistics (rho_t = (t + delay)^(-forgetting); see ops/svi.py).
+        With batch_size >= n_samples, delay=1, and signature_newton_iters
+        raised to the full-batch cap (100), the first step reduces exactly
+        to one deterministic EM cycle; at the default signature_newton_iters
+        (4, plenty under rho-damping) it is the same cycle with a truncated
+        signature-embedding Newton solve, and a step then makes no host
+        sync.
+
+        batch_size is clamped to n_samples, so the defaults work on small
+        cohorts. Runs a fixed `n_steps` step budget (stochastic traces have
+        no meaningful relative-change convergence test); the full-data ELBO
+        is recorded every `eval_freq` steps into history. `seed` seeds the
+        CPU generator that draws each epoch's sample order. Raising `delay`
+        (20-100) tempers the early noisy steps and preserves more of the
+        initialization basin.
+
+        Sharding the sample axis over devices (mesh=) is not ported; with
+        streaming=True it is refused, as the streaming path is host-driven
+        and single-device.
+        """
+        from ..ops import svi
+
+        if self.newton_cg_compat:
+            raise ValueError(NEWTON_CG_COMPAT_MINIBATCH)
+        check_minibatch_placement(mesh, streaming)
+
+        if streaming:
+            self._setup_adata_streaming(adata)
+        else:
+            self._setup_adata(adata)
+        self._initialize(given_parameters, init_kwargs)
+        self._setup_fitting_parameters(None)
+        if self.device.type == "cuda":
+            require_ieee_float32()
+
+        flags = self._given_flags(given_parameters)
+        n_samples = int(self.adata.n_obs)
+        config = svi.SVIConfig(
+            batch_size=min(int(batch_size), n_samples),
+            forgetting=forgetting,
+            delay=delay,
+            signature_newton_iters=signature_newton_iters,
+            sample_newton_iters=SAMPLE_NEWTON_ITERS,
         )
+        step_kwargs = dict(
+            n_samples=n_samples,
+            config=config,
+            n_given_signatures=flags["n_given"],
+            fix_signature_scalings=flags["fix_signature_scalings"],
+            fix_sample_scalings=flags["fix_sample_scalings"],
+            fix_signature_embeddings=flags["fix_signature_embeddings"],
+            fix_sample_embeddings=flags["fix_sample_embeddings"],
+            fix_variance=flags["fix_variance"],
+        )
+        generator = torch.Generator().manual_seed(seed)
+        if streaming:
+            params = self._device_params(include_exposures=False)
+            dtype = np.dtype(self.dtype)
+            X_host = self.adata.X
+
+            def get_batch(indices):
+                return host_rows(X_host, indices, dtype)
+
+            objective_fn = None
+            if eval_freq:
+                objective_fn = svi.make_streamed_objective(
+                    svi.corrnmf_elbo_stream_chunk,
+                    svi.corrnmf_elbo_stream_rest,
+                    get_batch, n_samples, chunk_size=eval_chunk,
+                )
+            state, elbo_trace = svi.run_svi_streaming(
+                svi.make_svi_batch_step(**step_kwargs),
+                svi.svi_init(params, streaming=True), get_batch,
+                n_samples, config.batch_size, generator,
+                n_steps, eval_freq, objective_fn,
+                refresh_fn=svi.refresh_sample_usq,
+            )
+        else:
+            params, data = self._device_state()
+            state, elbo_trace = svi.run_svi(
+                svi.make_svi_step(**step_kwargs), svi.svi_init(params),
+                data["X"], generator, n_steps, eval_freq,
+            )
+        final = dict(state.params)
+        final["exposures"] = ops.compute_exposures(
+            final["signature_scalings"],
+            final["sample_scalings"],
+            final["signature_embeddings"],
+            final["sample_embeddings"],
+        )
+        self._absorb_params(params_to_numpy(final))
+        if history:
+            record_minibatch_history(self.history, elbo_trace, n_steps,
+                                     eval_freq)
+        self._is_fitted = True
+        return self
 
     # ------------------------------------------------------------------ #
     # eager per-update methods (test/inspection surface, reference-named;

@@ -6,8 +6,10 @@ per-sample arrays, non-negativity enforced), the joint update_WH per
 iteration and the weighted-KL + penalty objective. A float32 fit on a card
 without weights or given signatures advances each convergence block with
 one launch of the fused CUDA kernel (ops/cuda_klnmf.py); every other fit
-runs the plain PyTorch update. The stochastic minibatch fit is not ported
-yet.
+runs the plain PyTorch update. fit_minibatch is online NMF over the sample
+axis (ops/svi.py), with the counts on the device or streamed from the host;
+it runs plain PyTorch ops (its step is not the joint block the kernel
+carries).
 """
 
 from __future__ import annotations
@@ -18,8 +20,15 @@ import numpy as np
 import torch
 
 from ..ops import cuda_klnmf
+from ..engine.transfer import params_to_numpy
 from ..ops import klnmf as ops
+from ..ops.precision import require_ieee_float32
 from ..utils import shape_checker, type_checker
+from .signature_nmf import (
+    check_minibatch_placement,
+    host_rows,
+    record_minibatch_history,
+)
 from .standard_nmf import StandardNMF
 
 FITTING_KWARGS = ("weights_kl", "weights_lhalf")
@@ -91,6 +100,134 @@ class KLNMF(StandardNMF):
         ):
             return cuda_klnmf.fused_block_update
         return None
+
+    # ------------------------------------------------------------------ #
+    # stochastic (minibatch) fitting: online NMF
+    # ------------------------------------------------------------------ #
+    def fit_minibatch(
+        self,
+        adata,
+        batch_size: int = 128,
+        n_steps: int = 2000,
+        eval_freq: int = 50,
+        forgetting: float = 0.51,
+        delay: float = 1.0,
+        seed: int = 0,
+        h_inner_iters: int = 1,
+        given_parameters: dict[str, Any] | None = None,
+        init_kwargs: dict[str, Any] | None = None,
+        fitting_kwargs: dict[str, Any] | None = None,
+        history: bool = True,
+        streaming: bool = False,
+        eval_chunk: int = 8192,
+        mesh=None,
+    ) -> "KLNMF":
+        """Fit with online (minibatch) NMF instead of full-batch cycles -
+        for cohorts whose sample count makes full multiplicative-update
+        sweeps too slow: per-step compute is amortized O(batch_size) while
+        a full sweep is O(n_samples).
+
+        Each step refreshes the minibatch's exposure columns with
+        `h_inner_iters` exact multiplicative H updates and updates the
+        signatures from a Robbins-Monro running average of the D-scaled
+        expected signature counts (ops/svi.py make_klnmf_svi_step). With
+        batch_size >= n_samples (it is clamped), delay=1 and
+        h_inner_iters=1, the first step reduces exactly to one serial
+        Lee-Seung cycle (update_H then update_W). Supports the same
+        `fitting_kwargs` weights and given-signature freezing as fit().
+
+        Runs a fixed `n_steps` budget; the full-data objective is recorded
+        every `eval_freq` steps in the fit dtype (eval_freq=0 disables the
+        O(n_samples) evaluations). `seed` seeds the CPU generator that
+        draws each epoch's sample order.
+
+        streaming=False keeps the count matrix device-resident.
+        streaming=True keeps X HOST-resident and uploads minibatches (and
+        eval_chunk-column objective-evaluation chunks) on the fly: only W,
+        H and O(batch) buffers live in device memory. Same seed =>
+        bit-equal parameters across the two placements (ops/svi.py
+        run_svi_streaming); integer count matrices stay compact on the
+        host (clipped per uploaded batch, not in place; the initializer
+        then sees the unclipped counts, so an nndsvd start can differ from
+        the resident fit's in its last bits: compare the placements on
+        float counts).
+
+        The default forgetting=0.51 (the slowest Robbins-Monro-admissible
+        decay) is deliberate for KLNMF: multiplicative updates converge
+        slowly, so fast statistic decay (e.g. the CorrNMF default 0.7)
+        freezes the signatures far from the optimum.
+
+        Sharding the sample axis over devices (mesh=) is not ported; with
+        streaming=True it is refused, as the streaming path is host-driven
+        and single-device.
+        """
+        from ..ops import svi
+
+        check_minibatch_placement(mesh, streaming)
+        if streaming:
+            self._setup_adata_streaming(adata)
+        else:
+            self._setup_adata(adata)
+        self._initialize(given_parameters, init_kwargs)
+        self._setup_fitting_parameters(fitting_kwargs)
+        if self.device.type == "cuda":
+            require_ieee_float32()
+
+        n_samples = int(self.adata.n_obs)
+        config = svi.SVIConfig(
+            batch_size=min(int(batch_size), n_samples),
+            forgetting=forgetting,
+            delay=delay,
+        )
+        step_kwargs = dict(
+            n_samples=n_samples,
+            config=config,
+            n_given_signatures=self._n_given_signatures(given_parameters),
+            h_inner_iters=h_inner_iters,
+        )
+        generator = torch.Generator().manual_seed(seed)
+        if streaming:
+            params = self._device_params()
+            dtype = np.dtype(self.dtype)
+            X_host = self.adata.X  # (D, V); kernel orientation is (V, B)
+            w_kl, w_lhalf = self.weights_kl, self.weights_lhalf
+
+            def get_batch(indices):
+                rows = host_rows(X_host, indices, dtype)
+                batch = {"X": np.ascontiguousarray(rows.T)}
+                if w_kl is not None:
+                    batch["weights_kl"] = np.asarray(w_kl[indices], dtype)
+                if w_lhalf is not None:
+                    batch["weights_lhalf"] = np.asarray(
+                        w_lhalf[indices], dtype
+                    )
+                return batch
+
+            objective_fn = None
+            if eval_freq:
+                objective_fn = svi.make_streamed_objective(
+                    svi.klnmf_objective_stream_chunk,
+                    svi.klnmf_objective_stream_rest,
+                    get_batch, n_samples, chunk_size=eval_chunk,
+                )
+            state, trace = svi.run_svi_streaming(
+                svi.make_klnmf_svi_batch_step(**step_kwargs),
+                svi.klnmf_svi_init(params, streaming=True),
+                get_batch, n_samples, config.batch_size, generator,
+                n_steps, eval_freq, objective_fn,
+            )
+        else:
+            params, data = self._device_state()
+            state, trace = svi.run_svi(
+                svi.make_klnmf_svi_step(**step_kwargs),
+                svi.klnmf_svi_init(params), data, generator,
+                n_steps, eval_freq, elbo_fn=svi.klnmf_full_objective,
+            )
+        self._absorb_params(params_to_numpy(state.params))
+        if history:
+            record_minibatch_history(self.history, trace, n_steps, eval_freq)
+        self._is_fitted = True
+        return self
 
     # ------------------------------------------------------------------ #
     # fitting kwargs

@@ -25,8 +25,9 @@ The cycle, in the reference's order:
   signatures by the KL multiplicative W update at the step-2 exposures.
 No kernel: step 7 is update_W at fixed exposures, not the joint W/H step
 that the fused KLNMF kernel carries, so the cycle runs as plain PyTorch
-ops, like CorrNMFDet's. The stochastic minibatch fit waits for the SVI
-port, the plots for plot.py, and mesh= for the sharding slice.
+ops, like CorrNMFDet's. fit_minibatch is the stochastic (minibatch)
+variational EM of ops/svi.py with one shared minibatch across the
+modalities. The plots wait for plot.py, and mesh= for the sharding port.
 """
 
 from __future__ import annotations
@@ -49,8 +50,14 @@ from .corrnmf import _host
 from .corrnmf_det import SAMPLE_NEWTON_ITERS, SIGNATURE_NEWTON_ITERS
 from .signature_nmf import (
     _DTYPES,
+    MESH_NOT_PORTED,
+    NEWTON_CG_COMPAT_MINIBATCH,
     SignatureNMF,
+    check_minibatch_placement,
+    host_rows,
+    is_integer_counts,
     promote_objective,
+    record_minibatch_history,
     resolve_device,
     resolve_dtype,
 )
@@ -261,7 +268,7 @@ class MultimodalCorrNMF:
     # ------------------------------------------------------------------ #
     # setup
     # ------------------------------------------------------------------ #
-    def _setup_mdata(self, mdata) -> None:
+    def _setup_mdata(self, mdata, clip_integer_counts: bool = True) -> None:
         if not hasattr(mdata, "mod"):
             type_checker("mdata", mdata, containers.MuData)
         if mdata.n_mod != len(self.ns_signatures):
@@ -278,8 +285,17 @@ class MultimodalCorrNMF:
                 )
         for adata in mdata.mod.values():
             SignatureNMF._invalidate_derived(adata)
-            adata.X = adata.X.clip(EPSILON)
+            if clip_integer_counts or not is_integer_counts(adata.X):
+                adata.X = adata.X.clip(EPSILON)
         self.mdata = mdata
+
+    def _setup_mdata_streaming(self, mdata) -> None:
+        """_setup_mdata for the host-streaming fit: integer-dtype modality
+        count matrices stay UNCLIPPED in place (clipping would promote
+        compact integer storage to float64; the clip is applied per
+        uploaded batch instead - see
+        SignatureNMF._setup_adata_streaming)."""
+        self._setup_mdata(mdata, clip_integer_counts=False)
 
     def _initialize(self, given_parameters=None, init_kwargs=None) -> None:
         init_kwargs = {} if init_kwargs is None else init_kwargs.copy()
@@ -753,10 +769,7 @@ class MultimodalCorrNMF:
         ported.
         """
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh= waits for the port of parallel/mesh.py (sharding one "
-                "fit over devices, ROADMAP Queue 1 item 17)"
-            )
+            raise NotImplementedError(MESH_NOT_PORTED)
         self._setup_mdata(mdata)
         if warm_start:
             self._check_warm_start(given_parameters)
@@ -824,8 +837,117 @@ class MultimodalCorrNMF:
         self._is_fitted = True
         return self
 
-    fit_minibatch = _not_ported(
-        "fit_minibatch", "ops/svi.py (SVI and streaming)", 13)
+    def fit_minibatch(
+        self,
+        mdata,
+        batch_size: int = 128,
+        n_steps: int = 2000,
+        eval_freq: int = 50,
+        forgetting: float = 0.7,
+        delay: float = 1.0,
+        seed: int = 0,
+        signature_newton_iters: int = 4,
+        given_parameters: dict[str, Any] | None = None,
+        init_kwargs: dict[str, Any] | None = None,
+        history: bool = True,
+        streaming: bool = False,
+        eval_chunk: int = 8192,
+        mesh=None,
+    ) -> "MultimodalCorrNMF":
+        """Stochastic (minibatch) variational EM for the multimodal model:
+        one shared minibatch of samples drives all modalities per step, with
+        the joint sample-embedding solve over the concatenated signature
+        axes and Robbins-Monro-averaged per-modality global statistics
+        (ops/svi.py). With batch_size >= n_samples (it is clamped), delay=1
+        and signature_newton_iters=100, the first step is one full joint EM
+        cycle; see CorrNMFDet.fit_minibatch for cost semantics (eval_freq=0
+        skips the full-data ELBO evaluations). streaming=True keeps every
+        modality's count matrix HOST-resident with per-step minibatch
+        uploads, bit-equal to the resident path at the same seed (see
+        CorrNMFDet.fit_minibatch / ops/svi.py run_svi_streaming). Sharding
+        the sample axis over devices (mesh=) is not ported; with
+        streaming=True it is refused."""
+        from ..ops import svi
+
+        check_minibatch_placement(mesh, streaming)
+        if self.newton_cg_compat:
+            raise ValueError(NEWTON_CG_COMPAT_MINIBATCH)
+
+        if streaming:
+            self._setup_mdata_streaming(mdata)
+        else:
+            self._setup_mdata(mdata)
+        self._initialize(given_parameters, init_kwargs)
+        if self.device.type == "cuda":
+            require_ieee_float32()
+
+        given = given_parameters or {}
+        mod_names = self.mod_names
+        n_samples = int(self.mdata.n_obs)
+        config = svi.SVIConfig(
+            batch_size=min(int(batch_size), n_samples),
+            forgetting=forgetting, delay=delay,
+            signature_newton_iters=signature_newton_iters,
+            sample_newton_iters=SAMPLE_NEWTON_ITERS,
+        )
+        step_kwargs = dict(
+            n_samples=n_samples,
+            mod_names=mod_names,
+            ns_signatures=self.ns_signatures,
+            config=config,
+            mod_flags=self._mod_flags(given_parameters),
+            fix_sample_embeddings="sample_embeddings" in given,
+            fix_variance="variance" in given,
+        )
+        generator = torch.Generator().manual_seed(seed)
+        if streaming:
+            params = self._device_params(include_exposures=False)
+            dtype = np.dtype(self.dtype)
+            X_host = {name: self.mdata[name].X for name in mod_names}
+
+            def get_batch(indices):
+                return {name: host_rows(X_host[name], indices, dtype)
+                        for name in mod_names}
+
+            objective_fn = None
+            if eval_freq:
+                objective_fn = svi.make_streamed_objective(
+                    svi.mm_elbo_stream_chunk, svi.mm_elbo_stream_rest,
+                    get_batch, n_samples, chunk_size=eval_chunk,
+                )
+            state, elbo_trace = svi.run_svi_streaming(
+                svi.make_mm_svi_batch_step(**step_kwargs),
+                svi.mm_svi_init(params, streaming=True), get_batch,
+                n_samples, config.batch_size, generator,
+                n_steps, eval_freq, objective_fn,
+                refresh_fn=svi.refresh_sample_usq,
+            )
+        else:
+            params, data = self._device_state()
+            state, elbo_trace = svi.run_svi(
+                svi.make_mm_svi_step(**step_kwargs),
+                svi.mm_svi_init(params), data["X"], generator,
+                n_steps, eval_freq, elbo_fn=svi.mm_full_elbo,
+            )
+        final = {
+            "mods": {},
+            "sample_embeddings": state.params["sample_embeddings"],
+            "variance": state.params["variance"],
+        }
+        for name in mod_names:
+            mod = dict(state.params["mods"][name])
+            mod["exposures"] = ops.compute_exposures(
+                mod["signature_scalings"], mod["sample_scalings"],
+                mod["signature_embeddings"], final["sample_embeddings"],
+            )
+            final["mods"][name] = mod
+        self._absorb_params(params_to_numpy(final))
+        if history:
+            record_minibatch_history(self.history, elbo_trace, n_steps,
+                                     eval_freq)
+        self.mdata.update()
+        self._is_fitted = True
+        return self
 
     def transform(self, mdata, **fit_kwargs):
         """Infer sample-side parameters (scalings + shared embeddings) for a

@@ -2,5 +2,13 @@
 leading restart axis, and the hand-written CUDA kernel of the fused
 multiplicative-update block (cuda_klnmf, built at first use)."""
 
-from . import ardnmf, corrnmf, cuda_klnmf, klnmf, mvnmf, precision  # noqa: F401
+from . import (  # noqa: F401
+    ardnmf,
+    corrnmf,
+    cuda_klnmf,
+    klnmf,
+    mvnmf,
+    precision,
+    svi,
+)
 from .klnmf import EPSILON  # noqa: F401

@@ -554,14 +554,17 @@ def test_device_none_needs_a_card_and_dtype_follows_the_device():
 
 
 @pytest.mark.parametrize("method,item", [
-    ("fit_minibatch", 13), ("plot_history", 6), ("plot_signatures", 6),
+    ("fit_minibatch", 17), ("plot_history", 6), ("plot_signatures", 6),
     ("plot_exposures", 6), ("plot_correlation", 6), ("plot_embeddings", 6),
 ])
 def test_unported_methods_name_their_roadmap_item(fitted, method, item):
+    """fit_minibatch itself is ported; sharding it (mesh=) is what still
+    waits."""
     _, model_t = fitted
+    kwargs = {"mdata": None, "mesh": object()} if item == 17 else {}
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue 1 item {item}"):
-        getattr(model_t, method)()
+        getattr(model_t, method)(**kwargs)
 
 
 def test_mesh_names_its_roadmap_item():
