@@ -91,7 +91,7 @@ Phases 9-11 run plain PyTorch ops (neither family reaches the kernel).
    50 (50 divides no epoch), 200 steps, eval_freq 50: every absorbed
    parameter bit-equal, traces at rtol 1e-5, streaming prefetch 1, 2 and 4
    bit-equal. (b) The synthetic 96 x 200,000 cohort, CorrNMFDet k=5 m=2,
-   init seed 1: 50 full-batch EM cycles, then 2,000 minibatch steps at
+   init seed 1: 50 full-batch EM cycles, then 1,000 minibatch steps at
    B=4,096, delay 50, no evaluations, resident and streaming in turns (r,
    s, s, r): steps/s, sample updates/s, peak allocated memory of each
    placement, the four final states bit-equal, the ELBO after the steps
@@ -105,8 +105,25 @@ Phases 9-11 run plain PyTorch ops (neither family reaches the kernel).
    of 262,144 samples rises. (d) 20 lockstep cycles of
    fit_best_of(CorrNMFDet(5, m=2, random), 96 x 200,000, R=8): the bytes
    reckoned first, then ms a cycle, peak allocated memory, busy share.
+17. The command line on the vendored PCAWG SBS CSV (features x samples,
+   the CLI's default layout), outputs under build/chip_smoke_cli/. (a)
+   `python -m salamander_tpu_torch fit <csv> --model klnmf -k 5` as its own
+   process: exit 0, model.npz, signatures.csv and exposures.csv written,
+   and its model loaded on the card equal to an in-process KLNMF(5).fit
+   with the CLI's defaults (equal iterations, KL at rtol 1e-5). (b) In
+   process through cli.main, each command a path of its own for the launch
+   counts: fit; scan --ranks 2-6 -r 10; extract --ranks 2-6
+   --n-bootstraps 10 (load_extraction gives the run's table); assign
+   against cosmic-sbs, sparse and --dense; bootstrap --n-replicates 20;
+   fit --resume on (a)'s model. fit, scan, extract (with a per-lane X) and
+   --resume launch the kernel, assign and bootstrap launch none. (c) A
+   card fit saved and loaded with device="cuda" and device="cpu":
+   signatures, exposures and history bit-equal. (d) profiling.phase times
+   KLNMF(5).fit; profiling.device_trace of a 100-iteration fit writes a
+   Chrome trace naming mu_block_resident_kernel. Each command's wall is
+   printed after the card's name and power limit.
 
-Each of phases 4-16 runs with the kernel's launch counts (in all, by
+Each of phases 4-17 runs with the kernel's launch counts (in all, by
 kernel and by shared or per-lane X) set to 0 just before it and read just
 after. The last two lines are the per-kernel JSON
 record and
@@ -1398,12 +1415,12 @@ def phase_svi_equality(torch, sal):
 
 def phase_svi_cell3c(torch, sal):
     """The 96 x 200,000 synthetic cohort, CorrNMFDet k=5, m=2: full-batch
-    EM cycles/s, then 2,000 minibatch steps at B=4,096 resident and
+    EM cycles/s, then 1,000 minibatch steps at B=4,096 resident and
     streaming in turns."""
     from salamander_tpu_torch.models.signature_nmf import host_rows
     from salamander_tpu_torch.ops import svi
 
-    D, B, n_steps, n_cycles = 200_000, 4096, 2000, 50
+    D, B, n_steps, n_cycles = 200_000, 4096, 1000, 50
     X_host, seconds = timed(torch, lambda: np.ascontiguousarray(
         sal.datasets.synthetic_catalog(96, D, 5, seed=0).T, dtype=np.float32))
     model = sal.CorrNMFDet(n_signatures=5, dim_embeddings=2, device="cuda",
@@ -1673,6 +1690,235 @@ def phase_svi(torch, sal):
     phase_svi_cell3e_probe(torch, sal)
 
 
+CLI_OUT = ROOT / "build" / "chip_smoke_cli"  # gitignored, emptied first
+CLI_FIT = ["--model", "klnmf", "-k", "5"]
+# the CLI's fit defaults, for the in-process twin of its fit
+CLI_FIT_DEFAULTS = dict(init_method="nndsvd", min_iterations=500,
+                        max_iterations=10_000, conv_test_freq=10, tol=1e-7,
+                        dtype="float32")
+CLI_RTOL = 1e-5             # the same fit on the same card, KL at the end
+# the files each command writes; the commands that reach fused_mu_block
+CLI_FILES = {
+    "fit": ("model.npz", "signatures.csv", "exposures.csv"),
+    "scan": ("rank_selection.csv", "suggested_rank.json", "signatures_k5.csv",
+             "exposures_k5.csv"),
+    "extract": ("extraction.npz", "rank_table.csv",
+                "consensus_signatures_rank5.csv", "exposures_rank5.csv"),
+    "assign": ("exposures.csv", "active.csv", "summary.csv", "meta.json"),
+    "assign --dense": ("exposures.csv",),
+    "bootstrap": ("exposures_point.csv", "exposures_mean.csv",
+                  "exposures_std.csv", "presence.csv"),
+    "fit --resume": ("model.npz", "signatures.csv", "exposures.csv"),
+}
+CLI_KERNEL = ("fit", "scan", "extract", "fit --resume")
+
+
+def sbs_csv(sal) -> Path:
+    """The vendored PCAWG SBS counts CSV: features x samples, the CLI's
+    default layout."""
+    return sal.datasets._resolve(sal.datasets.FILES["pcawg_sbs"])
+
+
+def final_kl(model) -> float:
+    return float(model.history["objective_function"][-1])
+
+
+def phase_cli_process(torch, sal):
+    """17a: `python -m salamander_tpu_torch fit <PCAWG SBS> --model klnmf
+    -k 5` as a process of its own; the model it saves, loaded on the card,
+    equals an in-process KLNMF(5).fit with the CLI's defaults (the same
+    nndsvd init): equal iterations, KL at rtol 1e-5. Returns the in-process
+    model."""
+    out = CLI_OUT / "17a"
+    start = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "salamander_tpu_torch", "fit",
+         str(sbs_csv(sal)), *CLI_FIT, "-o", str(out)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - start
+    check(run.returncode == 0,
+          f"the fit process exited {run.returncode}: {run.stderr[-3000:]}")
+    for name in CLI_FILES["fit"]:
+        check((out / name).is_file(), f"the fit process wrote no {name}")
+    print(f"[17a] python -m salamander_tpu_torch fit (PCAWG SBS, klnmf, "
+          f"k=5): {seconds:.3f} s wall, process start, import and kernel "
+          f"library load included; it printed: {run.stdout.strip()}")
+    loaded = sal.load_model(str(out / "model.npz"), device="cuda")
+    check(loaded.device.type == "cuda", "load_model(device='cuda') is not "
+          "on the card")
+    model = sal.KLNMF(n_signatures=5, device="cuda", **CLI_FIT_DEFAULTS)
+    _, fit_seconds = timed(torch, lambda: model.fit(sbs_adata(sal)))
+    n, kl = model.history["n_iterations"], final_kl(model)
+    print(f"[17a] in-process KLNMF(5).fit: {fit_seconds:.3f} s, {n} "
+          f"iterations, KL {kl:.4f}; the process's model: "
+          f"{loaded.history['n_iterations']} iterations, KL "
+          f"{final_kl(loaded):.4f}")
+    check(loaded.history["n_iterations"] == n,
+          "the CLI's fit ran another number of iterations")
+    check(abs(final_kl(loaded) - kl) <= CLI_RTOL * abs(kl),
+          "the CLI's fit ended at another KL")
+    return model
+
+
+def phase_cli_command(torch, sal, cuda_klnmf, command, argv, reference):
+    """17b: one command through cli.main(argv) in this process, so the
+    launch counts see its work: exit code 0, the files it writes, and what
+    they hold checked against `reference` (17a's in-process fit)."""
+    import pandas as pd
+
+    from salamander_tpu_torch import cli, extraction
+
+    out = CLI_OUT / "17b" / command.replace(" --", "_")
+    extract, captured = extraction.extract_signatures, {}
+
+    def capturing(*args, **kwargs):
+        captured["result"] = extract(*args, **kwargs)
+        return captured["result"]
+
+    extraction.extract_signatures = capturing
+    try:
+        code, seconds = timed(torch, lambda: cli.main(argv + ["-o", str(out)]))
+    finally:
+        extraction.extract_signatures = extract
+    check(code == 0, f"{command} returned {code}")
+    for name in CLI_FILES[command]:
+        check((out / name).is_file(), f"{command} wrote no {name}")
+    kernel = cuda_klnmf.fused_mu_block
+    note = ""
+    if command in ("fit", "fit --resume"):
+        model = sal.load_model(str(out / "model.npz"), device="cuda")
+        n, kl = model.history["n_iterations"], final_kl(model)
+        note = f"{n} iterations, KL {kl:.4f}"
+        if command == "fit":
+            check(n == reference.history["n_iterations"]
+                  and abs(kl - final_kl(reference))
+                  <= CLI_RTOL * abs(final_kl(reference)),
+                  "the in-process CLI fit differs from KLNMF(5).fit")
+        else:
+            check(n >= CLI_FIT_DEFAULTS["min_iterations"],
+                  "the resumed leg ran fewer than min_iterations")
+            check(kl <= final_kl(reference) * (1 + CLI_RTOL),
+                  "the resumed fit ended above the checkpoint's KL")
+    elif command == "scan":
+        table = pd.read_csv(out / "rank_selection.csv", index_col=0)
+        check(list(table.index) == [2, 3, 4, 5, 6], "rank_selection.csv "
+              "does not hold ranks 2-6")
+        suggested = json.loads((out / "suggested_rank.json").read_text())
+        note = (f"suggested rank {suggested['suggested_rank']}, best loss "
+                "per rank " + ", ".join(
+                    f"{k}:{v:.3f}" for k, v in table["best_loss"].items()))
+    elif command == "extract":
+        result = captured["result"]
+        loaded = sal.load_extraction(str(out / "extraction.npz"),
+                                     device="cuda")
+        pd.testing.assert_frame_equal(loaded.table, result.table)
+        check(bool(np.isfinite(result.table.to_numpy()).all()),
+              "non-finite extraction table")
+        note = (f"layout {result.layout}, suggested rank "
+                f"{result.suggested_rank}, load_extraction's table equal")
+    else:
+        name = ("exposures_std.csv" if command == "bootstrap"
+                else "exposures.csv")
+        frame = pd.read_csv(out / name, index_col=0)
+        check(frame.shape == (192, 79)
+              and bool(np.isfinite(frame.to_numpy()).all()),
+              f"{command}: {name} is not a finite 192 x 79 table")
+        if command == "assign":
+            summary = pd.read_csv(out / "summary.csv", index_col=0)
+            note = f"mean support {summary['n_active'].mean():.3f} of 79"
+    print(f"[17b] {' '.join(['salamander_tpu_torch', command])}: "
+          f"{seconds:.3f} s wall, {kernel.launches} kernel launches "
+          f"({kernel.launches_by_x['per_lane']} with a per-lane X)"
+          + (f"; {note}" if note else ""))
+
+
+def phase_cli(torch, sal, cuda_klnmf, drive):
+    """Phase 17: the command line, checkpoints across devices, and
+    profiling; each command is a path of its own for the launch counts."""
+    import shutil
+
+    shutil.rmtree(CLI_OUT, ignore_errors=True)
+    print(f"[17] {card_line()}")
+    reference = drive("17a CLI fit, own process", phase_cli_process, torch,
+                      sal)
+    csv = str(sbs_csv(sal))
+    commands = {
+        "fit": ["fit", csv, *CLI_FIT],
+        "scan": ["scan", csv, "--model", "klnmf", "--ranks", "2-6", "-r",
+                 "10"],
+        "extract": ["extract", csv, "--ranks", "2-6", "--n-bootstraps",
+                    "10"],
+        "assign": ["assign", csv, "cosmic-sbs"],
+        "assign --dense": ["assign", csv, "cosmic-sbs", "--dense"],
+        "bootstrap": ["bootstrap", csv, "cosmic-sbs", "--n-replicates",
+                      "20"],
+        "fit --resume": ["fit", csv, *CLI_FIT, "--resume",
+                         str(CLI_OUT / "17a" / "model.npz")],
+    }
+    for command, argv in commands.items():
+        drive(f"17b CLI {command}", phase_cli_command, torch, sal,
+              cuda_klnmf, command, argv, reference)
+    drive("17c checkpoints across devices", phase_checkpoint_devices, torch,
+          sal, reference)
+    drive("17d profiling", phase_profiling, torch, sal)
+
+
+def phase_checkpoint_devices(torch, sal, model):
+    """17c: a model fitted on the card, saved, loads on the card and on the
+    CPU with its signatures, exposures and history bit-equal."""
+    path = CLI_OUT / "17c" / "model.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    sal.save_model(model, str(path))
+    expected = fitted_arrays(model)
+    for device in ("cuda", "cpu"):
+        loaded = sal.load_model(str(path), device=device)
+        check(loaded.device.type == device,
+              f"load_model(device={device!r}) put the model elsewhere")
+        check_bit_equal(torch, f"[17c] load_model(device={device!r})",
+                        expected, fitted_arrays(loaded))
+        check(loaded.history.keys() == model.history.keys() and all(
+            np.array_equal(loaded.history[key], model.history[key])
+            for key in model.history),
+            f"load_model(device={device!r}): the history differs")
+    print(f"[17c] a card fit saved and loaded with device='cuda' and "
+          f"device='cpu': signatures, exposures and history "
+          f"({len(model.history['objective_function'])} values) bit-equal")
+
+
+def phase_profiling(torch, sal):
+    """17d: profiling.phase times KLNMF(5).fit to the card's completion;
+    profiling.device_trace writes a Chrome trace naming the kernel."""
+    from salamander_tpu_torch import profiling
+
+    timings = profiling.Timings()
+    model = sal.KLNMF(n_signatures=5, device="cuda", dtype="float32")
+    with profiling.phase(timings, "KLNMF(5).fit", model.device):
+        model.fit(sbs_adata(sal))
+    check(timings.counts == {"KLNMF(5).fit": 1}, "the phase was not timed")
+    print(f"[17d] profiling.phase: KLNMF(5).fit "
+          f"{timings.phases['KLNMF(5).fit']:.3f} s, "
+          f"{model.history['n_iterations']} iterations")
+    log_dir = CLI_OUT / "17d"
+    short = sal.KLNMF(n_signatures=5, min_iterations=100, max_iterations=100,
+                      device="cuda", dtype="float32")
+    adata = sbs_adata(sal)
+    with profiling.device_trace(str(log_dir)) as profiler:
+        short.fit(adata)
+    traces = sorted(log_dir.glob("*.json"))
+    check(len(traces) == 1, f"device_trace wrote {len(traces)} traces")
+    check("mu_block_resident_kernel" in traces[0].read_text(),
+          "the trace does not name mu_block_resident_kernel")
+    kernel_us = sum(
+        getattr(event, "device_time_total",
+                getattr(event, "cuda_time_total", 0.0))
+        for event in profiler.key_averages()
+        if "mu_block_resident_kernel" in event.key)
+    print(f"[17d] device_trace: {traces[0].name} "
+          f"({traces[0].stat().st_size / 1e6:.2f} MB) names "
+          f"mu_block_resident_kernel, {kernel_us / 1e3:.3f} ms of its device "
+          "time over a 100-iteration fit")
+
+
 def main() -> int:
     import torch
 
@@ -1726,15 +1972,21 @@ def main() -> int:
     drive("14 bootstrap", phase_bootstrap, torch, sal, cuda_klnmf)
     drive("15 MultimodalCorrNMF", phase_multimodal, torch, sal)
     drive("16 SVI and streaming", phase_svi, torch, sal)
+    phase_cli(torch, sal, cuda_klnmf, drive)
     check(launches["16 SVI and streaming"] == 0,
           "the minibatch paths have no hand kernel to launch")
+    for command in ("assign", "assign --dense", "bootstrap"):
+        check(launches[f"17b CLI {command}"] == 0,
+              f"CLI {command} runs plain ops: it has no kernel to launch")
+    cli_kernel = [f"17b CLI {command}" for command in CLI_KERNEL]
     for path in ("4 KLNMF.fit", "5 fit_klnmf_restarts",
                  "6 fit_best_of KLNMF", "8 rank_scan_klnmf",
-                 "12 extract_signatures", "14 bootstrap"):
+                 "12 extract_signatures", "14 bootstrap", *cli_kernel,
+                 "17d profiling"):
         check(launches[path] > 0, f"path {path} launched no kernel")
         check(by_variant[path]["resident"] > 0,
               f"path {path} did not run the resident kernel")
-    for path in ("12 extract_signatures", "14 bootstrap"):
+    for path in ("12 extract_signatures", "14 bootstrap", "17b CLI extract"):
         check(by_x[path]["per_lane"] > 0,
               f"path {path} launched no kernel with a per-lane X")
     print(f"kernel launches by path: {launches}")

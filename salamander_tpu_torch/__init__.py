@@ -5,18 +5,23 @@ multiplicative-update block as a hand-written CUDA kernel for Hopper. The
 modules mirror salamander_tpu's paths, each held against the file of the
 same name there; this package imports neither jax nor salamander_tpu.
 
-Ported so far: containers, datasets (PCAWG, COSMIC), the KLNMF ops and
-kernel, the convergence engine, initialization, the KLNMF, MvNMF, ARDNMF,
-CorrNMFDet and MultimodalCorrNMF models, the batched multi-start fits (fit_best_of, lane
-compaction, checkpointed chunks), the KLNMF/MvNMF rank scans, the padded
-CorrNMF (k, m) scan, catalog assignment (dense, sparse, bootstrap), de
-novo consensus extraction, bootstrap stability and the catalog
-decomposition of signatures.
+Ported: containers, datasets (PCAWG, COSMIC, HRDetect), the KLNMF ops
+and kernel, the convergence engine, initialization, the KLNMF, MvNMF,
+ARDNMF, CorrNMFDet and MultimodalCorrNMF models, the batched multi-start
+fits (fit_best_of, lane compaction, checkpointed chunks), the KLNMF/MvNMF
+rank scans, the padded CorrNMF (k, m) scan, minibatch fitting and host
+streaming, catalog assignment (dense, sparse, bootstrap), de novo
+consensus extraction, bootstrap stability, the analysis tools (`tl`), the
+plots (`pl`, when matplotlib and seaborn are installed), model and
+extraction checkpoints (`io`), profiling and the command line
+(``python -m salamander_tpu_torch``). Sharding over devices (mesh=) is not
+ported yet.
 """
 
 from . import (  # noqa: F401
     assign,
     checkpoint,
+    cli,
     consts,
     containers,
     datasets,
@@ -27,6 +32,7 @@ from . import (  # noqa: F401
     models,
     ops,
     parallel,
+    profiling,
     tools,
     utils,
 )
@@ -40,6 +46,12 @@ from .assign import (  # noqa: F401
 from .containers import AnnData, MuData  # noqa: F401
 from .engine import FitConfig  # noqa: F401
 from .extraction import ExtractionResult, extract_signatures  # noqa: F401
+from .io import (  # noqa: F401
+    load_extraction,
+    load_model,
+    save_extraction,
+    save_model,
+)
 from .models import (  # noqa: F401
     ARDNMF,
     KLNMF,
@@ -88,6 +100,7 @@ __all__ = [
     "bootstrap_stability",
     "build_klnmf_restart_runner",
     "checkpoint",
+    "cli",
     "consts",
     "containers",
     "datasets",
@@ -98,13 +111,30 @@ __all__ = [
     "fit_klnmf_restarts",
     "initialization",
     "io",
+    "load_extraction",
+    "load_model",
     "models",
     "ops",
     "parallel",
+    "profiling",
     "rank_scan",
     "rank_scan_corrnmf",
     "rank_scan_klnmf",
     "rank_scan_mvnmf",
+    "save_extraction",
+    "save_model",
+    "tl",
     "tools",
     "utils",
 ]
+
+tl = tools
+
+try:  # plotting style applied on import, as in the JAX package's facade;
+    # matplotlib and seaborn are optional (the card's machine may lack them)
+    from . import plot as pl  # noqa: F401
+
+    pl.set_salamander_style()
+    __all__.append("pl")
+except ImportError:
+    pass

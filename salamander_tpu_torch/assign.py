@@ -38,6 +38,7 @@ from .models.signature_nmf import resolve_device, resolve_dtype
 from .ops import assign as ops
 from .ops.klnmf import EPSILON
 from .ops.precision import require_ieee_float32
+from .utils import MESH_NOT_PORTED
 
 __all__ = [
     "AssignmentResult",
@@ -115,7 +116,7 @@ def _align_catalog(catalog, var_names: pd.Index) -> tuple[np.ndarray, list[str]]
 def _setup(device, dtype, mesh):
     """(device, dtype) of an assignment call; mesh= raises."""
     if mesh is not None:
-        raise NotImplementedError("mesh= is not ported to PyTorch yet")
+        raise NotImplementedError(MESH_NOT_PORTED)
     device = resolve_device(device)
     if device.type == "cuda":
         require_ieee_float32()

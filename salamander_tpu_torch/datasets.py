@@ -1,7 +1,6 @@
 """Dataset access: the PCAWG-breast catalogs, the COSMIC SBS and indel
-signature catalogs and the synthetic COSMIC-scale catalog, held against
-salamander_tpu/datasets.py (its HRDetect loader comes with the slice that
-uses it).
+signature catalogs, the HRDetect training set and the synthetic
+COSMIC-scale catalog, held against salamander_tpu/datasets.py.
 
 The port ships no copy of the CSV assets. Search order: $SALAMANDER_DATA
 (override), then the JAX package's data directory beside this package in
@@ -30,6 +29,8 @@ FILES = {
     "pcawg_sv": "pcawg_breast_sv.csv",
     "cosmic_sbs": "COSMIC_v3.3.1_SBS_GRCh38.csv",
     "cosmic_indel": "COSMIC_v3.4_ID_GRCh37.txt",
+    "hrdetect_counts": "hrdetect_counts_training.csv",
+    "hrdetect_labels": "hrdetect_labels_training.csv",
 }
 
 
@@ -46,9 +47,10 @@ def _resolve(filename: str) -> Path:
     )
 
 
-def _load_csv(key: str) -> pd.DataFrame:
+def _load_csv(key: str, samples_as_rows: bool = True) -> pd.DataFrame:
     # the COSMIC .txt catalog is comma-separated despite its suffix
-    return pd.read_csv(_resolve(FILES[key]), index_col=0).T
+    df = pd.read_csv(_resolve(FILES[key]), index_col=0)
+    return df.T if samples_as_rows else df
 
 
 def load_pcawg_sbs() -> pd.DataFrame:
@@ -75,6 +77,13 @@ def load_cosmic_sbs_catalog() -> pd.DataFrame:
 def load_cosmic_indel_catalog() -> pd.DataFrame:
     """COSMIC v3.4 indel signature catalog (signatures x 83 channels)."""
     return _load_csv("cosmic_indel")
+
+
+def load_hrdetect() -> tuple[pd.DataFrame, pd.DataFrame]:
+    """HRDetect training counts (311 samples x 96) and labels."""
+    counts = _load_csv("hrdetect_counts")
+    labels = _load_csv("hrdetect_labels", samples_as_rows=False)
+    return counts, labels
 
 
 def synthetic_catalog(

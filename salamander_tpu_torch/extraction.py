@@ -57,6 +57,7 @@ from . import containers
 from .engine import FitConfig
 from .ops.assign import resample_counts
 from .ops.klnmf import EPSILON
+from .utils import MESH_NOT_PORTED
 
 __all__ = ["ExtractionResult", "extract_signatures"]
 
@@ -483,7 +484,7 @@ def extract_signatures(
     from .ops.precision import require_ieee_float32
 
     if mesh is not None:
-        raise NotImplementedError("mesh= is not ported to PyTorch yet")
+        raise NotImplementedError(MESH_NOT_PORTED)
     ranks = sorted({int(k) for k in ranks})
     if not ranks or ranks[0] < 1:
         raise ValueError(f"ranks must be positive integers, got {ranks!r}")

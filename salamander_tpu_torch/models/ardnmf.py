@@ -17,7 +17,7 @@ Fitted ARD signatures are NOT column-normalized - their scale carries the
 relevance; ``prune(normalize=True)`` renormalizes the survivors and pushes
 the scale into the exposures (WH-invariant). No kernel: the updates carry
 prior terms the fused KLNMF kernel does not have, so they run as plain
-PyTorch ops. The relevance plot waits for the port of plot.py.
+PyTorch ops. ``model.plot_relevance()`` draws the relevance spectrum.
 """
 
 from __future__ import annotations
@@ -230,13 +230,17 @@ class ARDNMF(StandardNMF):
         """The inferred signature count (at the default active_tol)."""
         return int(self.active_signatures_mask().sum())
 
-    def plot_relevance(self, *args, **kwargs):
-        """The relevance spectrum plot (JAX package models/ardnmf.py:250)
-        waits for the port of plot.py."""
-        raise NotImplementedError(
-            "plot_relevance waits for the port of plot.py (ROADMAP Queue 1 "
-            "item 6)"
-        )
+    def plot_relevance(self, active_tol: float = 1e-2,
+                       outfile: str | None = None, **kwargs):
+        """Bar plot of the relevance spectrum (log scale) with the
+        active/pruned threshold - the visual rank readout."""
+        from .. import plot as pl
+        import matplotlib.pyplot as plt
+
+        ax = pl.relevance(self, active_tol=active_tol, **kwargs)
+        if outfile is not None:
+            plt.savefig(outfile, bbox_inches="tight")
+        return ax
 
     def prune(self, active_tol: float = 1e-2, normalize: bool = True
               ) -> "ARDNMF":

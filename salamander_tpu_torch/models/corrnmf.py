@@ -3,18 +3,19 @@ embeddings, held against salamander_tpu/models/corrnmf.py.
 
 dim_embeddings (defaults to n_signatures), scalar variance, exposures
 computed from scalings and embeddings, the ELBO objective (maximized),
-scaled (cosine-of-embedding) correlations and transform() onto the frozen
-signature side. The joint embedding plot waits for the port of tools.py
-and plot.py.
+scaled (cosine-of-embedding) correlations, transform() onto the frozen
+signature side and the joint signature/sample embedding plot.
 """
 
 from __future__ import annotations
 
-from typing import Literal
+import warnings
+from typing import Iterable, Literal
 
 import numpy as np
 import torch
 
+from .. import tools as tl
 from ..initialization.initialize import initialize_corrnmf
 from ..ops import corrnmf as ops
 from ..ops import klnmf as klnmf_ops
@@ -183,11 +184,74 @@ class CorrNMF(SignatureNMF):
         else:
             self.asignatures.obsp["correlation"] = corr
 
-    def plot_embeddings(self, *args, **kwargs):
-        """The joint signature/sample embedding plot (JAX package
-        models/corrnmf.py:221) waits for the port of tools.py and
-        plot.py."""
-        raise NotImplementedError(
-            "plot_embeddings waits for the port of tools.py and plot.py "
-            "(ROADMAP Queue 1 item 6)"
+    def _default_embedding_styling(self, color, zorder):
+        """Fill in the joint-plot styling columns when the caller gave none:
+        signatures draw black on top (zorder 2), samples matplotlib-blue
+        underneath. Column names are stable ('color_embeddings' /
+        'zorder_embeddings') so io round-trips preserve them."""
+        per_container = {
+            "color": ("color_embeddings", "black", "#1f77b4"),
+            "zorder": ("zorder_embeddings", 2, 1),
+        }
+        resolved = []
+        for key, given in (("color", color), ("zorder", zorder)):
+            if given is not None:
+                resolved.append(given)
+                continue
+            name, sig_value, sample_value = per_container[key]
+            self.asignatures.obs[name] = [sig_value] * self.n_signatures
+            self.adata.obs[name] = [sample_value] * self.adata.n_obs
+            resolved.append(name)
+        return tuple(resolved)
+
+    def plot_embeddings(
+        self,
+        method: str = "umap",
+        n_components: int = 2,
+        dimensions: tuple[int, int] = (0, 1),
+        color: str | None = None,
+        zorder: str | None = None,
+        annotations: Iterable[str] | None = None,
+        outfile: str | None = None,
+        **kwargs,
+    ):
+        """Scatter signature and sample embeddings in one shared plane.
+
+        Both containers are reduced jointly (they live in the same latent
+        space), then drawn by pl.embedding_multiple with signatures
+        annotated by name. When dim_embeddings is already <= 2 there is
+        nothing to reduce; the raw embedding coordinates are plotted and a
+        UserWarning says so.
+        """
+        from .. import plot as pl
+        import matplotlib.pyplot as plt
+
+        pair = [self.asignatures, self.adata]
+        tl.reduce_dimension_multiple(
+            adatas=pair, basis="embeddings", method=method,
+            n_components=n_components, **kwargs,
         )
+        reduction_is_trivial = self.dim_embeddings <= 2
+        if reduction_is_trivial:
+            warnings.warn(
+                f"The embedding dimension is {self.dim_embeddings}. "
+                "The embeddings are plotted without an additional "
+                "dimensionality reduction.",
+                UserWarning,
+            )
+        basis = "embeddings" if reduction_is_trivial else method
+        color, zorder = self._default_embedding_styling(color, zorder)
+        ax = pl.embedding_multiple(
+            adatas=pair,
+            basis=basis,
+            dimensions=dimensions,
+            color=color,
+            zorder=zorder,
+            annotations=(
+                self.signature_names if annotations is None else annotations
+            ),
+            **kwargs,
+        )
+        if outfile is not None:
+            plt.savefig(outfile, bbox_inches="tight")
+        return ax

@@ -27,12 +27,14 @@ No kernel: step 7 is update_W at fixed exposures, not the joint W/H step
 that the fused KLNMF kernel carries, so the cycle runs as plain PyTorch
 ops, like CorrNMFDet's. fit_minibatch is the stochastic (minibatch)
 variational EM of ops/svi.py with one shared minibatch across the
-modalities. The plots wait for plot.py, and mesh= for the sharding port.
+modalities. The plot_* methods draw through plot.py; mesh= waits for the
+sharding port.
 """
 
 from __future__ import annotations
 
-from typing import Any, Literal
+import warnings
+from typing import Any, Iterable, Literal
 
 import numpy as np
 import pandas as pd
@@ -45,7 +47,12 @@ from ..initialization.initialize import EPSILON, initialize_mmcorrnmf
 from ..ops import corrnmf as ops
 from ..ops import klnmf as klnmf_ops
 from ..ops.precision import require_ieee_float32
-from ..utils import compute_exposures_numpy, type_checker, value_checker
+from ..utils import (
+    compute_exposures_numpy,
+    dict_checker,
+    type_checker,
+    value_checker,
+)
 from .corrnmf import _host
 from .corrnmf_det import SAMPLE_NEWTON_ITERS, SIGNATURE_NEWTON_ITERS
 from .signature_nmf import (
@@ -61,18 +68,6 @@ from .signature_nmf import (
     resolve_device,
     resolve_dtype,
 )
-
-
-def _not_ported(method: str, what: str, item: int):
-    def raiser(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{method} waits for the port of {what} (ROADMAP Queue 1 item "
-            f"{item})"
-        )
-
-    raiser.__name__ = method
-    raiser.__doc__ = f"Waits for the port of {what}."
-    return raiser
 
 
 class MultimodalCorrNMF:
@@ -999,7 +994,7 @@ class MultimodalCorrNMF:
         return projector
 
     # ------------------------------------------------------------------ #
-    # analysis
+    # analysis + plotting
     # ------------------------------------------------------------------ #
     def compute_correlation(
         self, data: Literal["samples", "signatures"] = "signatures", **kwargs
@@ -1037,9 +1032,177 @@ class MultimodalCorrNMF:
             names = sum(self.signature_names.values(), [])
         return pd.DataFrame(values, index=names, columns=names)
 
-    plot_history = _not_ported("plot_history", "plot.py", 6)
-    plot_signatures = _not_ported("plot_signatures", "plot.py", 6)
-    plot_exposures = _not_ported("plot_exposures", "plot.py", 6)
-    plot_correlation = _not_ported("plot_correlation", "plot.py", 6)
-    plot_embeddings = _not_ported(
-        "plot_embeddings", "tools.py and plot.py", 6)
+    def plot_history(self, outfile: str | None = None, **kwargs):
+        from .. import plot as pl
+        import matplotlib.pyplot as plt
+
+        if "objective_function" not in self.history:
+            raise ValueError(
+                "No history available, the model has to be fitted first. "
+                "Remember to set 'history' to 'True' when calling 'fit()'."
+            )
+        if len(self.history["objective_function"]) == 0:
+            raise ValueError(
+                "The objective trace is empty: fit_minibatch(eval_freq=0) "
+                "records no objective values. Refit with eval_freq >= 1 to "
+                "plot a history."
+            )
+        ax = pl.history(
+            values=self.history["objective_function"],
+            # fit_minibatch traces are spaced by eval_freq, not conv_test_freq
+            conv_test_freq=self.history.get("step_freq", self.conv_test_freq),
+            **kwargs,
+        )
+        if outfile is not None:
+            plt.savefig(outfile, bbox_inches="tight")
+        return ax
+
+    def plot_signatures(
+        self,
+        colors=None,
+        annotate_mutation_types: bool = False,
+        figsize: tuple[float, float] | None = None,
+        outfile: str | None = None,
+        **kwargs,
+    ):
+        from .. import plot as pl
+        import matplotlib.pyplot as plt
+
+        colors = {} if colors is None else colors.copy()
+        dict_checker("colors", colors, self.mod_names)
+        max_n_signatures = int(np.max(self.ns_signatures))
+        if figsize is None:
+            figsize = (4 * self.mdata.n_mod, max_n_signatures)
+        fig, axes = plt.subplots(max_n_signatures, self.mdata.n_mod,
+                                 figsize=figsize, squeeze=False)
+        for mod_name, axs in zip(self.mod_names, axes.T):
+            sigs = self.asignatures[mod_name]
+            pl.barplot(
+                sigs,
+                colors=colors.get(mod_name),
+                annotate_vars=annotate_mutation_types,
+                axes=axs[: sigs.n_obs],
+                **kwargs,
+            )
+            for ax in axs[sigs.n_obs:]:
+                fig.delaxes(ax)
+        plt.tight_layout()
+        if outfile is not None:
+            plt.savefig(outfile, bbox_inches="tight")
+        return axes
+
+    def plot_exposures(
+        self,
+        sample_order=None,
+        reorder_signatures: bool = True,
+        annotate_samples: bool = True,
+        colors=None,
+        axes=None,
+        outfile: str | None = None,
+        **kwargs,
+    ):
+        from .. import plot as pl
+        import matplotlib.pyplot as plt
+
+        if axes is None:
+            _, axes = plt.subplots(
+                self.mdata.n_mod, figsize=(20, 3 * self.mdata.n_mod)
+            )
+            axes = np.atleast_1d(axes)
+        colors = {} if colors is None else colors.copy()
+        dict_checker("colors", colors, self.mod_names)
+        exposures = self.exposures
+
+        if sample_order is None:
+            normalized = pd.concat(
+                [df.div(df.sum(axis=1), axis=0) for df in exposures.values()],
+                axis=1,
+            )
+            sample_order = pl.get_obs_order(normalized)
+
+        for n, (mod_name, ax) in enumerate(zip(self.mod_names, axes)):
+            annotate = annotate_samples if n == self.mdata.n_mod - 1 else False
+            ax = pl.stacked_barplot(
+                data=exposures[mod_name],
+                obs_order=sample_order,
+                reorder_dimensions=reorder_signatures,
+                annotate_obs=annotate,
+                colors=colors.get(mod_name),
+                ax=ax,
+                **kwargs,
+            )
+            ax.set_title(f"{mod_name} signature exposures")
+        plt.tight_layout()
+        if outfile is not None:
+            plt.savefig(outfile, bbox_inches="tight")
+        return axes
+
+    def plot_correlation(
+        self,
+        data: Literal["samples", "signatures"] = "signatures",
+        annot: bool | None = None,
+        outfile: str | None = None,
+        **kwargs,
+    ):
+        from .. import plot as pl
+        import matplotlib.pyplot as plt
+
+        value_checker("data", data, ["samples", "signatures"])
+        corr = self.correlation(data=data)
+        if annot is None:
+            annot = data != "samples"
+        clustergrid = pl.correlation_pandas(corr, annot=annot, **kwargs)
+        if outfile is not None:
+            plt.savefig(outfile, bbox_inches="tight")
+        return clustergrid
+
+    def plot_embeddings(
+        self,
+        method: str = "umap",
+        n_components: int = 2,
+        dimensions: tuple[int, int] = (0, 1),
+        color: str | None = None,
+        zorder: str | None = None,
+        annotations: Iterable[str] | None = None,
+        outfile: str | None = None,
+        **kwargs,
+    ):
+        from .. import plot as pl
+        import matplotlib.pyplot as plt
+
+        adatas = list(self.asignatures.values()) + [self.mdata]
+        tl.reduce_dimension_multiple(
+            adatas=adatas, basis="embeddings", method=method,
+            n_components=n_components,
+        )
+        if self.dim_embeddings <= 2:
+            warnings.warn(
+                f"The embedding dimension is {self.dim_embeddings}. "
+                "The embeddings are plotted without an additional "
+                "dimensionality reduction.",
+                UserWarning,
+            )
+            basis = "embeddings"
+        else:
+            basis = method
+
+        if color is None:
+            color = "color_embeddings"
+            for asigs in self.asignatures.values():
+                asigs.obs[color] = asigs.n_obs * ["black"]
+            self.mdata.obs[color] = self.mdata.n_obs * ["#1f77b4"]
+        if zorder is None:
+            zorder = "zorder_embeddings"
+            for asigs in self.asignatures.values():
+                asigs.obs[zorder] = asigs.n_obs * [2]
+            self.mdata.obs[zorder] = self.mdata.n_obs * [1]
+        if annotations is None:
+            annotations = sum(self.signature_names.values(), [])
+
+        ax = pl.embedding_multiple(
+            adatas=adatas, basis=basis, dimensions=dimensions, color=color,
+            zorder=zorder, annotations=annotations, **kwargs,
+        )
+        if outfile is not None:
+            plt.savefig(outfile, bbox_inches="tight")
+        return ax

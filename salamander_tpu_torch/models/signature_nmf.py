@@ -25,13 +25,18 @@ import numpy as np
 import pandas as pd
 import torch
 
-from .. import containers
+from .. import containers, tools as tl
 from ..engine import FitConfig, effective_tolerance, make_fit_function
 from ..engine.transfer import params_to_numpy
 from ..engine.tree import tree_leaves, tree_map
 from ..initialization.methods import INIT_METHODS
 from ..ops.precision import require_ieee_float32
-from ..utils import type_checker, value_checker
+from ..utils import (
+    MESH_NOT_PORTED,
+    match_signatures_pair,
+    type_checker,
+    value_checker,
+)
 
 EPSILON = float(np.finfo(np.float32).eps)
 
@@ -88,10 +93,6 @@ MESH_WITH_STREAMING = (
     "mesh= and streaming=True are mutually exclusive: streaming keeps the "
     "counts host-resident and uploads minibatches to ONE device. Shard a "
     "resident fit, or stream unsharded."
-)
-MESH_NOT_PORTED = (
-    "mesh= waits for the port of parallel/mesh.py (sharding one fit over "
-    "devices, ROADMAP Queue 1 item 17)"
 )
 NEWTON_CG_COMPAT_MINIBATCH = (
     "fit_minibatch does not support newton_cg_compat=True: the scipy-exact "
@@ -304,6 +305,10 @@ class SignatureNMF(ABC):
     def _absorb_params(self, params) -> None:
         """Write fitted host params back into the containers."""
 
+    @abstractmethod
+    def plot_embeddings(self, **kwargs):
+        """Plot a 2D view of the model's sample (and signature) embeddings."""
+
     # ------------------------------------------------------------------ #
     # fitting
     # ------------------------------------------------------------------ #
@@ -410,10 +415,10 @@ class SignatureNMF(ABC):
         the state already in the model/container; the convergence rule
         restarts fresh. Models with `_fits_on_host` set (CorrNMF's
         newton_cg_compat) run the reference's host loop (`_fit_host`).
-        Sharding one fit over devices (mesh=) is not ported yet.
+        Sharding one fit over devices (mesh=) waits for item 17.
         """
         if mesh is not None:
-            raise NotImplementedError("mesh= is not ported to PyTorch yet")
+            raise NotImplementedError(MESH_NOT_PORTED)
         self._setup_adata(adata)
         if warm_start:
             self._check_warm_start(given_parameters)
@@ -489,3 +494,134 @@ class SignatureNMF(ABC):
             self.history["step_freq"] = self.conv_test_freq
         self._is_fitted = True
         return self
+
+    # ------------------------------------------------------------------ #
+    # analysis
+    # ------------------------------------------------------------------ #
+    def reorder(self, asignatures_other, metric: str = "cosine",
+                keep_names: bool = False) -> None:
+        """Permute this model's signatures to best match another collection
+        (Hungarian assignment on pairwise distances)."""
+        names = self.asignatures.obs_names
+        order = match_signatures_pair(
+            asignatures_other.to_df(), self.asignatures.to_df(), metric=metric
+        )
+        self.asignatures = self.asignatures[order, :].copy()
+        self.adata.obsm["exposures"] = self.adata.obsm["exposures"][:, order]
+        if not keep_names:
+            self.asignatures.obs_names = names
+
+    def compute_correlation(
+        self, data: Literal["samples", "signatures"] = "signatures", **kwargs
+    ) -> None:
+        value_checker("data", data, ["samples", "signatures"])
+        if "exposures" not in self.adata.obsm:
+            raise ValueError(
+                "Computing the sample or signature correlation "
+                "requires fitting the NMF model."
+            )
+        values = self.adata.obsm["exposures"]
+        if data == "signatures":
+            values = values.T
+        corr = tl.correlation_numpy(values, **kwargs)
+        if data == "samples":
+            self.adata.obsp["X_correlation"] = corr
+        else:
+            self.asignatures.obsp["correlation"] = corr
+
+    def correlation(
+        self, data: Literal["samples", "signatures"] = "signatures"
+    ) -> pd.DataFrame:
+        value_checker("data", data, ["samples", "signatures"])
+        if data == "samples":
+            if "X_correlation" not in self.adata.obsp:
+                self.compute_correlation("samples")
+            values, names = self.adata.obsp["X_correlation"], self.sample_names
+        else:
+            if "correlation" not in self.asignatures.obsp:
+                self.compute_correlation("signatures")
+            values, names = (self.asignatures.obsp["correlation"],
+                             self.signature_names)
+        return pd.DataFrame(values, index=names, columns=names)
+
+    # ------------------------------------------------------------------ #
+    # plotting wrappers (host-side; implementations in plot.py, which
+    # needs matplotlib and seaborn and is imported only here)
+    # ------------------------------------------------------------------ #
+    def plot_history(self, outfile: str | None = None, **kwargs):
+        from .. import plot as pl
+        import matplotlib.pyplot as plt
+
+        if "objective_function" not in self.history:
+            raise ValueError(
+                "No history available, the model has to be fitted first. "
+                "Remember to set 'history' to 'True' when calling 'fit()'."
+            )
+        if len(self.history["objective_function"]) == 0:
+            raise ValueError(
+                "The objective trace is empty: fit_minibatch(eval_freq=0) "
+                "records no objective values. Refit with eval_freq >= 1 to "
+                "plot a history."
+            )
+        ax = pl.history(
+            values=self.history["objective_function"],
+            # fit_minibatch traces are spaced by eval_freq, not conv_test_freq
+            conv_test_freq=self.history.get("step_freq", self.conv_test_freq),
+            **kwargs,
+        )
+        if outfile is not None:
+            plt.savefig(outfile, bbox_inches="tight")
+        return ax
+
+    def plot_signatures(self, annotate_mutation_types: bool = False,
+                        outfile: str | None = None, **kwargs):
+        from .. import plot as pl
+        import matplotlib.pyplot as plt
+
+        axes = pl.barplot(
+            self.asignatures, annotate_vars=annotate_mutation_types, **kwargs
+        )
+        if outfile is not None:
+            plt.savefig(outfile, bbox_inches="tight")
+        return axes
+
+    def plot_exposures(
+        self,
+        sample_order: np.ndarray | None = None,
+        reorder_signatures: bool = True,
+        annotate_samples: bool = True,
+        outfile: str | None = None,
+        **kwargs,
+    ):
+        from .. import plot as pl
+        import matplotlib.pyplot as plt
+
+        ax = pl.stacked_barplot(
+            data=self.exposures,
+            obs_order=sample_order,
+            reorder_dimensions=reorder_signatures,
+            annotate_obs=annotate_samples,
+            **kwargs,
+        )
+        if outfile is not None:
+            plt.savefig(outfile, bbox_inches="tight")
+        return ax
+
+    def plot_correlation(
+        self,
+        data: Literal["samples", "signatures"] = "signatures",
+        annot: bool | None = None,
+        outfile: str | None = None,
+        **kwargs,
+    ):
+        from .. import plot as pl
+        import matplotlib.pyplot as plt
+
+        value_checker("data", data, ["samples", "signatures"])
+        corr = self.correlation(data=data)
+        if annot is None:
+            annot = data != "samples"
+        clustergrid = pl.correlation_pandas(corr, annot=annot, **kwargs)
+        if outfile is not None:
+            plt.savefig(outfile, bbox_inches="tight")
+        return clustergrid

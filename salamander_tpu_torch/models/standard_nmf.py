@@ -1,16 +1,19 @@
 """Shared structure of W/H-parameterized models, held against
 salamander_tpu/models/standard_nmf.py: common initialization through
 initialize_standard_nmf, exposures as the lower-dimensional
-representation, and transform() onto frozen signatures.
+representation, transform() onto frozen signatures, and the exposure-based
+embedding plot.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Any
 
 import numpy as np
 import torch
 
+from .. import tools as tl
 from ..initialization.initialize import initialize_standard_nmf
 from .signature_nmf import SignatureNMF
 
@@ -92,3 +95,44 @@ class StandardNMF(SignatureNMF):
             **fit_kwargs,
         )
         return projector
+
+    def plot_embeddings(
+        self,
+        method: str = "umap",
+        n_components: int = 2,
+        dimensions: tuple[int, int] = (0, 1),
+        color: str | None = None,
+        zorder: str | None = None,
+        annotations=None,
+        outfile: str | None = None,
+        **kwargs,
+    ):
+        from .. import plot as pl
+        import matplotlib.pyplot as plt
+
+        tl.reduce_dimension(
+            self.adata, basis="exposures", method=method,
+            n_components=n_components,
+        )
+        if self.n_signatures <= 2:
+            warnings.warn(
+                f"There are only {self.n_signatures} many signatures. "
+                "The exposures are plotted directly.",
+                UserWarning,
+            )
+            basis = "exposures"
+        else:
+            basis = method
+
+        ax = pl.embedding(
+            adata=self.adata,
+            basis=basis,
+            dimensions=dimensions,
+            color=color,
+            zorder=zorder,
+            annotations=annotations,
+            **kwargs,
+        )
+        if outfile is not None:
+            plt.savefig(outfile, bbox_inches="tight")
+        return ax

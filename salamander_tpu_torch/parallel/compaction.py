@@ -36,6 +36,7 @@ from ..engine.fit import (
     run_lockstep_segment,
 )
 from ..engine.tree import tree_leaves, tree_map
+from ..utils import MESH_NOT_PORTED
 
 
 def _take_lanes(state: LockstepState, idx) -> LockstepState:
@@ -329,7 +330,7 @@ def resolve_compact(compact, config: FitConfig, mesh, n_restarts: int,
     it stays opt-in. Per-lane results are identical either way. mesh= is
     not ported."""
     if mesh is not None:
-        raise NotImplementedError("mesh= is not ported to PyTorch yet")
+        raise NotImplementedError(MESH_NOT_PORTED)
     if compact is not None:
         return bool(compact)
     return (

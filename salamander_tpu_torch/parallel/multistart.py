@@ -26,6 +26,7 @@ import torch
 from ..engine import FitResult, effective_tolerance
 from ..engine.transfer import params_to_numpy
 from ..engine.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from ..utils import MESH_NOT_PORTED
 from .compaction import (
     CompactingRunner,
     lockstep_fit,
@@ -286,7 +287,7 @@ def fit_best_of(
     _check_family(model)
     is_multimodal = _is_multimodal(model)
     if mesh is not None:
-        raise NotImplementedError("mesh= is not ported to PyTorch yet")
+        raise NotImplementedError(MESH_NOT_PORTED)
     if checkpoint_dir is not None and given_parameters:
         raise ValueError(
             "checkpoint_dir= does not support given_parameters: their "

@@ -26,6 +26,7 @@ from ..models.signature_nmf import resolve_device
 from ..ops import klnmf as ops
 from ..ops import mvnmf as mv_ops
 from ..ops.precision import require_ieee_float32
+from ..utils import MESH_NOT_PORTED
 from .compaction import (
     compacting_runner,
     fit_klnmf_restarts_compacting,
@@ -70,7 +71,7 @@ class RestartResult(NamedTuple):
 
 def _mesh_unported(mesh) -> None:
     if mesh is not None:
-        raise NotImplementedError("mesh= is not ported to PyTorch yet")
+        raise NotImplementedError(MESH_NOT_PORTED)
 
 
 def _to_device(array, dtype, device) -> torch.Tensor:

@@ -1,12 +1,13 @@
 """Shared host-side helpers: argument validation, signature matching.
 
 Copied from salamander_tpu/utils.py, which covers the surface of the
-reference's utils.py (type/shape/value/dict checkers :16-99, normalize_WH
-:155-158, catalog matching :161-192) and the host twin of the CorrNMF
-exposures; its obsm/obsp helpers come with the slices that use them.
-Numeric matching helpers operate on numpy/pandas (analysis layer stays
-host-side); the device-side normalize lives in ops.klnmf. scikit-learn is imported only by the two matching
-functions that use it, so the package imports where it is not installed.
+reference's utils.py (type/shape/value/dict checkers :16-99, obsm/obsp
+resolution and the light concat :102-152, normalize_WH :155-158, catalog
+matching :161-192) and the host twin of the CorrNMF exposures. Numeric
+matching helpers operate on numpy/pandas (analysis layer stays
+host-side); the device-side normalize lives in ops.klnmf. scikit-learn is
+imported only by the two matching functions that use it, so the package
+imports where it is not installed.
 """
 
 from __future__ import annotations
@@ -18,6 +19,11 @@ import pandas as pd
 from scipy.optimize import linear_sum_assignment
 
 EPSILON = float(np.finfo(np.float32).eps)
+
+MESH_NOT_PORTED = (
+    "mesh= waits for the port of parallel/mesh.py (sharding one fit over "
+    "devices, ROADMAP Queue 1 item 17)"
+)
 
 
 def type_checker(arg_name: str, arg: Any, allowed_types: type | Iterable[type]) -> None:
@@ -84,6 +90,44 @@ def compute_exposures_numpy(signature_scalings, sample_scalings,
         @ np.asarray(sample_embeddings, dtype=float).T
     )
     return np.exp(logits).T
+
+
+def _get_basis_obsm(adata, basis: str) -> np.ndarray:
+    """Resolve adata.obsm[basis], falling back to the 'X_{basis}' convention."""
+    if basis in adata.obsm:
+        return adata.obsm[basis]
+    if f"X_{basis}" in adata.obsm:
+        return adata.obsm[f"X_{basis}"]
+    raise KeyError(f"Could not find '{basis}' or 'X_{basis}' in .obsm")
+
+
+def _get_basis_obsp(adata, basis: str) -> np.ndarray:
+    """Resolve adata.obsp[basis], falling back to the 'X_{basis}' convention."""
+    if basis in adata.obsp:
+        return adata.obsp[basis]
+    if f"X_{basis}" in adata.obsp:
+        return adata.obsp[f"X_{basis}"]
+    raise KeyError(f"Could not find '{basis}' or 'X_{basis}' in .obsp")
+
+
+def _concat_light(adatas, obs_keys=None, obsm_keys=None):
+    """Concatenate only the requested obs/obsm annotations of several
+    AnnData/MuData objects into one small AnnData (no data copy).
+    """
+    from .containers import AnnData
+
+    adatas = list(adatas)
+    n_obs_total = sum(a.n_obs for a in adatas)
+    combined = AnnData(np.zeros((n_obs_total, 1)))
+    combined.obs_names = np.concatenate([np.asarray(a.obs_names) for a in adatas])
+
+    for key in obs_keys or []:
+        combined.obs[key] = np.concatenate([np.asarray(a.obs[key]) for a in adatas])
+    for key in obsm_keys or []:
+        combined.obsm[key] = np.concatenate(
+            [_get_basis_obsm(a, key) for a in adatas]
+        )
+    return combined
 
 
 def match_to_catalog(

@@ -20,8 +20,11 @@ MODULES = sorted(
 
 
 @pytest.mark.parametrize("name", [
+    "salamander_tpu_torch.__main__",
     "salamander_tpu_torch.assign",
     "salamander_tpu_torch.checkpoint",
+    "salamander_tpu_torch.cli",
+    "salamander_tpu_torch.datasets",
     "salamander_tpu_torch.extraction",
     "salamander_tpu_torch.io",
     "salamander_tpu_torch.models.ardnmf",
@@ -38,7 +41,10 @@ MODULES = sorted(
     "salamander_tpu_torch.parallel.corrnmf_scan",
     "salamander_tpu_torch.parallel.multistart",
     "salamander_tpu_torch.parallel.restarts",
+    "salamander_tpu_torch.plot",
+    "salamander_tpu_torch.profiling",
     "salamander_tpu_torch.tools",
+    "salamander_tpu_torch.utils",
 ])
 def test_the_blocked_import_covers_the_module(name):
     assert name in MODULES
@@ -60,17 +66,61 @@ def test_every_module_imports_with_jax_blocked():
 
 
 @pytest.mark.parametrize("call, waits_for", [
-    (lambda port: port.CorrNMFDet(2, device="cpu").fit_minibatch(
+    (lambda pkg, **kw: pkg.CorrNMFDet(2, **kw).fit_minibatch(
         None, mesh=object()), "parallel/mesh.py"),
-    (lambda port: port.CorrNMFDet(2, device="cpu").plot_embeddings(),
-     "plot.py"),
-    (lambda port: port.ARDNMF(2, device="cpu").plot_relevance(), "plot.py"),
+    (lambda pkg, **kw: pkg.CorrNMFDet(2, **kw).plot_embeddings(), None),
+    (lambda pkg, **kw: pkg.ARDNMF(2, **kw).plot_relevance(), None),
 ], ids=["fit_minibatch", "plot_embeddings", "plot_relevance"])
 def test_unported_methods_name_the_slice_they_wait_for(call, waits_for):
+    """An unported method raises NotImplementedError naming the module it
+    waits for. The plots came with plot.py: on an unfitted model they now
+    raise what the JAX package's raise."""
     import salamander_tpu_torch as port
 
-    with pytest.raises(NotImplementedError, match=waits_for):
-        call(port)
+    if waits_for is not None:
+        with pytest.raises(NotImplementedError, match=waits_for):
+            call(port, device="cpu")
+        return
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import salamander_tpu as jax_sal
+
+    with pytest.raises(Exception) as expected:
+        call(jax_sal.models)
+    with pytest.raises(Exception) as got:
+        call(port, device="cpu")
+    assert not isinstance(got.value, NotImplementedError)
+    assert type(got.value) is type(expected.value)
+    assert str(got.value) == str(expected.value)
+
+
+def test_the_package_and_the_cli_need_no_matplotlib():
+    """matplotlib and seaborn are optional: with both blocked the package
+    imports (without `pl`), the CLI prints its help, and a plot method
+    raises ImportError."""
+    code = (
+        "import sys\n"
+        "sys.modules['matplotlib'] = None\n"
+        "sys.modules['seaborn'] = None\n"
+        "import salamander_tpu_torch as sal\n"
+        "assert not hasattr(sal, 'pl') and 'pl' not in sal.__all__\n"
+        "try:\n"
+        "    sal.ARDNMF(2, device='cpu').plot_relevance()\n"
+        "except ImportError:\n"
+        "    pass\n"
+        "else:\n"
+        "    raise AssertionError('plot_relevance drew without matplotlib')\n"
+        "from salamander_tpu_torch import cli\n"
+        "try:\n"
+        "    cli.main(['--help'])\n"
+        "except SystemExit as exit:\n"
+        "    assert exit.code == 0\n"
+    )
+    run = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr
+    assert "usage: salamander_tpu_torch" in run.stdout
 
 
 @pytest.mark.parametrize("family", ["corrnmf", "klnmf", "mmcorrnmf"])

@@ -10,6 +10,8 @@ iteration counts and ELBO rtol 1e-8 (the fitted leaves, tens of cycles
 downstream, at 1e-6), the batched device init's contract, and the error
 messages."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -559,12 +561,31 @@ def test_device_none_needs_a_card_and_dtype_follows_the_device():
 ])
 def test_unported_methods_name_their_roadmap_item(fitted, method, item):
     """fit_minibatch itself is ported; sharding it (mesh=) is what still
-    waits."""
-    _, model_t = fitted
-    kwargs = {"mdata": None, "mesh": object()} if item == 17 else {}
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1 item {item}"):
-        getattr(model_t, method)(**kwargs)
+    waits. The plots (item 6) came with plot.py: each draws what the JAX
+    package's method draws, or raises what it raises."""
+    model_j, model_t = fitted
+    if item == 17:
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP Queue 1 item {item}"):
+            getattr(model_t, method)(mdata=None, mesh=object())
+        return
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    kwargs = {"method": "pca"} if method == "plot_embeddings" else {}
+    try:
+        try:
+            expected = getattr(model_j, method)(**kwargs)
+        except Exception as err:  # the port must raise the same
+            with pytest.raises(type(err), match=re.escape(str(err))):
+                getattr(model_t, method)(**kwargs)
+            return
+        got = getattr(model_t, method)(**kwargs)
+        assert type(got) is type(expected)
+    finally:
+        plt.close("all")
 
 
 def test_mesh_names_its_roadmap_item():
