@@ -122,8 +122,25 @@ Phases 9-11 run plain PyTorch ops (neither family reaches the kernel).
    KLNMF(5).fit; profiling.device_trace of a 100-iteration fit writes a
    Chrome trace naming mu_block_resident_kernel. Each command's wall is
    printed after the card's name and power limit.
+18. (restarts, samples) meshes over torch.distributed (parallel/mesh.py).
+   (a) In this process, init_distributed() and make_mesh(): a world of one
+   over NCCL and a 1 x 1 mesh, one NCCL all_reduce on the card;
+   fit_klnmf_restarts(k=5, R=100, the headline window) on the mesh
+   bit-equal to the meshless fit with the same launches; `python -m
+   salamander_tpu_torch fit --model klnmf -k 5 --mesh auto` as a process of
+   its own equal to the meshless in-process fit. (b) Two ranks on the one
+   card over gloo (NCCL takes one rank a card), spawned with the `fit`
+   process at the start of the phase so that their start-up overlaps (a),
+   and told to go after it: gloo's all_reduce
+   and broadcast of CUDA tensors; on a (2, 1) mesh each rank's 50 lanes
+   launch the kernel, the gathered losses equal the meshless fit's at rtol
+   2e-4 and the best is within 1e-4 of 20414; on a (1, 2) mesh
+   KLNMF(5).fit shards the samples: no launches, KL within 1e-4 of the
+   meshless plain fit from the same init, iterations within 5%. Each
+   rank's launches and walls join the launch counts by path. Both ranks
+   share one card: no number here is a scaling.
 
-Each of phases 4-17 runs with the kernel's launch counts (in all, by
+Each of phases 4-18 runs with the kernel's launch counts (in all, by
 kernel and by shared or per-lane X) set to 0 just before it and read just
 after. The last two lines are the per-kernel JSON
 record and
@@ -1918,6 +1935,310 @@ def phase_profiling(torch, sal):
           f"mu_block_resident_kernel, {kernel_us / 1e3:.3f} ms of its device "
           "time over a 100-iteration fit")
 
+MESH_OUT = ROOT / "build" / "chip_smoke_mesh"  # gitignored, emptied first
+MESH_TIMEOUT_S = 60    # process-group timeout: a rank that stops fails
+MESH_JOIN_LIMIT = 300  # s: the two ranks end within it or are killed
+
+
+def headline_config():
+    from salamander_tpu_torch.engine import FitConfig
+
+    return FitConfig(WINDOW, WINDOW, BLOCK, 1e-7)
+
+
+def reset_counts(kernel) -> None:
+    kernel.launches = 0
+    for counts in (kernel.launches_by_variant, kernel.launches_by_x):
+        for key in counts:
+            counts[key] = 0
+
+
+def plain_fit(sal, device: str = "cuda"):
+    """KLNMF(5).fit on PCAWG SBS from its nndsvd init with every step a
+    plain update (no kernel), meshless: (n_iterations, final KL)."""
+    from salamander_tpu_torch.engine import make_fit_function
+    from salamander_tpu_torch.models.signature_nmf import promote_objective
+
+    model = sal.KLNMF(n_signatures=5, device=device, dtype="float32")
+    model._setup_adata(sbs_adata(sal))
+    model._initialize()
+    model._setup_fitting_parameters()
+    params0, data = model._device_state()
+    update_fn, objective_fn = model._build_step()
+    result = make_fit_function(
+        update_fn, promote_objective(objective_fn, params0),
+        model._fit_config())(params0, data)
+    return int(result.n_iterations), float(result.history[result.n_evals - 1])
+
+
+def start_mesh_cli(sal):
+    """18a's `python -m salamander_tpu_torch fit --model klnmf -k 5 --mesh
+    auto` (a world of one over NCCL in a process of its own), started so
+    that its start-up overlaps the rest of 18a: (process, start time)."""
+    out = MESH_OUT / "18a_cli"
+    process = subprocess.Popen(
+        [sys.executable, "-m", "salamander_tpu_torch", "fit",
+         str(sbs_csv(sal)), *CLI_FIT, "--mesh", "auto", "-o", str(out)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return process, time.perf_counter()
+
+
+def phase_mesh_world_of_one(torch, sal, cuda_klnmf, X_host, cli):
+    """18a: init_distributed() and make_mesh() in this process: a world of
+    one over NCCL, a 1 x 1 mesh; one NCCL all_reduce; fit_klnmf_restarts
+    (k=5, R=100, the headline window) on the mesh bit-equal to the meshless
+    fit with the same kernel launches; then the `fit --mesh auto` process
+    (start_mesh_cli) checked against the meshless in-process fit. Returns
+    the meshless fit's losses."""
+    import torch.distributed as dist
+
+    sal.init_distributed()
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          "init_distributed() did not bring up a world of one over NCCL")
+    mesh = sal.make_mesh()
+    check(tuple(mesh.shape) == (1, 1) and tuple(mesh.mesh_dim_names)
+          == ("restarts", "samples"), f"make_mesh() gave {mesh}")
+    probe = torch.arange(4.0, device="cuda")
+    dist.all_reduce(probe)
+    torch.cuda.synchronize()
+    check(torch.equal(probe, torch.arange(4.0, device="cuda")),
+          "an NCCL all_reduce over a world of one changed its tensor")
+    print(f"[18a] {card_line()}")
+    print(f"[18a] init_distributed(): backend {dist.get_backend()}, world "
+          f"{dist.get_world_size()}; make_mesh(): {tuple(mesh.shape)} "
+          f"{tuple(mesh.mesh_dim_names)}; one NCCL all_reduce on the card")
+    kernel, runs = cuda_klnmf.fused_mu_block, {}
+    for name, on in (("meshless", None), ("1 x 1 mesh", mesh)):
+        before = kernel.launches
+        result, seconds = timed(torch, lambda: sal.fit_klnmf_restarts(
+            X_host, 5, 100, seed=0, config=headline_config(), mesh=on,
+            device="cuda"))
+        runs[name] = (result, kernel.launches - before)
+        print(f"[18a] fit_klnmf_restarts(k=5, R=100, {WINDOW} iterations, "
+              f"{name}): {seconds:.4f} s, best KL {result.best_loss:.4f}, "
+              f"{kernel.launches - before} kernel launches")
+    (plain, plain_launches), (meshed, mesh_launches) = runs.values()
+    check(plain_launches > 0 and mesh_launches == plain_launches,
+          "the 1 x 1 mesh fit launched the kernel another number of times")
+    check(np.array_equal(plain.losses, meshed.losses)
+          and torch.equal(plain.W, meshed.W) and torch.equal(plain.H, meshed.H)
+          and np.array_equal(plain.n_iterations, meshed.n_iterations),
+          "the 1 x 1 mesh fit is not bit-equal to the meshless fit")
+    print("[18a] the 1 x 1 mesh fit equals the meshless fit bit for bit "
+          "(losses, W, H, iterations)")
+
+    dist.destroy_process_group()
+    process, start = cli
+    _, stderr = process.communicate(timeout=600)
+    seconds = time.perf_counter() - start
+    check(process.returncode == 0, f"fit --mesh auto exited "
+          f"{process.returncode}: {stderr[-3000:]}")
+    loaded = sal.load_model(str(MESH_OUT / "18a_cli" / "model.npz"),
+                            device="cuda")
+    model = sal.KLNMF(n_signatures=5, device="cuda", **CLI_FIT_DEFAULTS)
+    model.fit(sbs_adata(sal))
+    n, kl = loaded.history["n_iterations"], final_kl(loaded)
+    check(n == model.history["n_iterations"]
+          and abs(kl - final_kl(model)) <= CLI_RTOL * abs(final_kl(model)),
+          "fit --mesh auto differs from the meshless KLNMF(5).fit")
+    print(f"[18a] python -m salamander_tpu_torch fit --model klnmf -k 5 "
+          f"--mesh auto (a world of one over NCCL, its own process, started "
+          f"with the phase): {seconds:.3f} s wall, {n} iterations, KL "
+          f"{kl:.4f}; the meshless in-process fit: "
+          f"{model.history['n_iterations']} iterations, KL "
+          f"{final_kl(model):.4f}; signatures bit-equal: "
+          f"{np.array_equal(loaded.asignatures.X, model.asignatures.X)}")
+    return plain.losses
+
+
+def mesh_rank(rank: int, store: str) -> None:
+    """One of phase 18b's two ranks, both on cuda:0, over gloo: a (2, 1)
+    mesh whose 50 lanes a rank go through the kernel, then a (1, 2) mesh
+    that shards the samples of KLNMF(5).fit (plain updates, one all_reduce
+    a step). Its launches, walls and results go to MESH_OUT/rank<r>.json."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    import salamander_tpu_torch as sal
+    from salamander_tpu_torch.ops import cuda_klnmf
+
+    # imported while 18a runs; the card is touched only after it
+    go, start = Path(store).with_name("go"), time.monotonic()
+    while not go.exists():
+        check(time.monotonic() - start < MESH_JOIN_LIMIT,
+              f"rank {rank}: no go within {MESH_JOIN_LIMIT} s")
+        time.sleep(0.05)
+    sal.init_distributed(num_processes=2, process_id=rank,
+                         store=dist.FileStore(store, 2), backend="gloo",
+                         timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    # gloo takes CUDA tensors for all_reduce and broadcast, the two
+    # collectives of parallel/mesh.py; nothing is staged by hand
+    total = torch.full((4,), float(rank + 1), device="cuda")
+    dist.all_reduce(total)
+    sent = torch.full((4,), float(rank), device="cuda")
+    dist.broadcast(sent, src=1)
+    torch.cuda.synchronize()
+    check(bool(total.eq(3.0).all()) and bool(sent.eq(1.0).all()),
+          f"rank {rank}: gloo all_reduce/broadcast of CUDA tensors")
+    report = {"rank": rank, "device": torch.cuda.current_device()}
+    kernel = cuda_klnmf.fused_mu_block
+    X_host = sal.datasets.load_pcawg_sbs().to_numpy().T.copy()
+
+    restarts = sal.make_mesh(sample_ways=1)
+    reset_counts(kernel)
+    result, seconds = timed(torch, lambda: sal.fit_klnmf_restarts(
+        X_host, 5, 100, seed=0, config=headline_config(), mesh=restarts,
+        device="cuda"))
+    report["2x1"] = {
+        "shape": list(restarts.shape), "seconds": seconds,
+        "launches": kernel.launches,
+        "by_variant": dict(kernel.launches_by_variant),
+        "by_x": dict(kernel.launches_by_x),
+        "losses": result.losses.tolist(),
+        "n_iterations": result.n_iterations.tolist(),
+    }
+
+    samples = sal.make_mesh(sample_ways=2)
+    reset_counts(kernel)
+    model = sal.KLNMF(n_signatures=5, device="cuda", dtype="float32")
+    _, seconds = timed(torch, lambda: model.fit(sbs_adata(sal),
+                                                mesh=samples))
+    exposures = model.adata.obsm["exposures"]
+    report["1x2"] = {
+        "shape": list(samples.shape), "seconds": seconds,
+        "launches": kernel.launches,
+        "by_variant": dict(kernel.launches_by_variant),
+        "by_x": dict(kernel.launches_by_x),
+        "n_iterations": int(model.history["n_iterations"]),
+        "kl": final_kl(model),
+        "exposures_shape": list(exposures.shape),
+        "finite": bool(np.isfinite(exposures).all()
+                       and np.isfinite(model.asignatures.X).all()),
+    }
+    (MESH_OUT / f"rank{rank}.json").write_text(json.dumps(report))
+    from salamander_tpu_torch.parallel.mesh import barrier
+
+    barrier(samples)
+    dist.destroy_process_group()
+
+
+def start_mesh_ranks():
+    """Spawn phase 18b's two ranks (mesh_rank) at the start of the phase:
+    they import while 18a runs and wait for phase_mesh_ranks's go."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    shutil.rmtree(MESH_OUT / "ranks", ignore_errors=True)
+    for rank in range(2):
+        (MESH_OUT / f"rank{rank}.json").unlink(missing_ok=True)
+    (MESH_OUT / "ranks").mkdir(parents=True)
+    context = mp.start_processes(
+        mesh_rank, args=(str(MESH_OUT / "ranks" / "store"),), nprocs=2,
+        join=False, start_method="spawn")
+    return context, time.perf_counter()
+
+
+def phase_mesh_ranks(torch, sal, ranks, meshless_losses):
+    """18b: the two ranks of start_mesh_ranks, both on cuda:0 over gloo,
+    told to go. The (2, 1)
+    headline: each rank's lanes launch the kernel, the gathered losses
+    equal the meshless fit's at rtol 2e-4 and the best is within 1e-4 of
+    20414. The (1, 2) sample-sharded KLNMF(5).fit: no launches, KL within
+    1e-4 of the meshless plain fit from the same init, iterations within
+    5%. Returns {path: (launches, by_variant, by_x)} of each rank."""
+    context, spawned = ranks
+    (MESH_OUT / "ranks" / "go").touch()
+    start = time.perf_counter()
+    while not context.join(timeout=5):
+        check(time.perf_counter() - spawned < MESH_JOIN_LIMIT,
+              f"the two ranks did not end within {MESH_JOIN_LIMIT} s")
+    wall = time.perf_counter() - start
+    reports = [json.loads((MESH_OUT / f"rank{rank}.json").read_text())
+               for rank in range(2)]
+    plain_n, plain_kl = plain_fit(sal)
+    print(f"[18b] {card_line()}")
+    print(f"[18b] two ranks on cuda:{reports[0]['device']} and "
+          f"cuda:{reports[1]['device']} over gloo (all_reduce and broadcast "
+          f"of CUDA tensors checked): {wall:.3f} s wall from their go to "
+          f"their end ({start - spawned:.3f} s after their spawn; process "
+          "start and imports overlapped 18a)")
+    counts = {}
+    for report in reports:
+        rank, lanes, fit = report["rank"], report["2x1"], report["1x2"]
+        losses = np.asarray(lanes["losses"])
+        check(lanes["launches"] > 0 and lanes["by_variant"]["resident"] > 0,
+              f"rank {rank}: the (2, 1) mesh launched no kernel")
+        check(bool(np.allclose(losses, meshless_losses, rtol=KERNEL_RTOL,
+                               atol=0.0)),
+              f"rank {rank}: the (2, 1) losses differ from the meshless fit")
+        check(abs(losses.min() - SBS_BEST_OF_100)
+              <= FIT_RTOL * SBS_BEST_OF_100,
+              f"rank {rank}: best-of-100 {losses.min()} not within 1e-4 "
+              "of 20414")
+        relative = np.abs(losses - meshless_losses) / meshless_losses
+        print(f"[18b] rank {rank}, mesh (2, 1): fit_klnmf_restarts(k=5, "
+              f"R=100, {WINDOW} iterations) {lanes['seconds']:.4f} s, "
+              f"{lanes['launches']} kernel launches for its 50 lanes, best "
+              f"KL {losses.min():.4f}; gathered losses against the "
+              f"meshless fit: bit-equal "
+              f"{np.array_equal(losses, meshless_losses)}, max relative "
+              f"difference {relative.max():.3e}")
+        check(fit["launches"] == 0,
+              f"rank {rank}: the sample-sharded fit launched the kernel")
+        check(fit["finite"] and fit["exposures_shape"] == [192, 5],
+              f"rank {rank}: the sample-sharded fit's exposures")
+        check(abs(fit["kl"] - plain_kl) <= FIT_RTOL * abs(plain_kl),
+              f"rank {rank}: the (1, 2) KL {fit['kl']} is not within 1e-4 "
+              f"of the meshless plain fit's {plain_kl}")
+        check(abs(fit["n_iterations"] - plain_n) <= 0.05 * plain_n,
+              f"rank {rank}: the (1, 2) fit's iterations differ by over 5%")
+        print(f"[18b] rank {rank}, mesh (1, 2): KLNMF(5).fit on its 96 of "
+              f"192 samples, {fit['seconds']:.3f} s, {fit['n_iterations']} "
+              f"iterations, KL {fit['kl']:.4f}, {fit['launches']} kernel "
+              f"launches; meshless plain fit from the same init: "
+              f"{plain_n} iterations, KL {plain_kl:.4f}")
+        for shape, entry in (("(2, 1)", lanes), ("(1, 2)", fit)):
+            counts[f"18b mesh {shape} rank {rank}"] = (
+                entry["launches"], entry["by_variant"], entry["by_x"])
+    check(reports[0]["2x1"]["losses"] == reports[1]["2x1"]["losses"]
+          and reports[0]["1x2"]["kl"] == reports[1]["1x2"]["kl"]
+          and reports[0]["1x2"]["n_iterations"]
+          == reports[1]["1x2"]["n_iterations"],
+          "the two ranks hold different results")
+    return counts
+
+
+
+def phase_mesh(torch, sal, cuda_klnmf, X_host, drive):
+    """Phase 18: 18a and 18b, each a path of its own for the launch counts,
+    with 18b's ranks and 18a's CLI process started first so that their
+    start-up overlaps 18a. Returns 18b's per-rank counts."""
+    start = time.perf_counter()
+    ranks = start_mesh_ranks()
+    try:
+        cli = start_mesh_cli(sal)
+        try:
+            meshless = drive("18a mesh, NCCL world of one",
+                             phase_mesh_world_of_one, torch, sal, cuda_klnmf,
+                             X_host, cli)
+        finally:
+            if cli[0].poll() is None:
+                cli[0].kill()
+                cli[0].communicate()
+        counts = drive("18b mesh, two ranks over gloo (this process)",
+                       phase_mesh_ranks, torch, sal, ranks, meshless)
+    finally:
+        for process in ranks[0].processes:
+            if process.is_alive():
+                process.kill()
+    print(f"[18] {card_line()}: the phase took "
+          f"{time.perf_counter() - start:.3f} s")
+    return counts
+
 
 def main() -> int:
     import torch
@@ -1973,16 +2294,26 @@ def main() -> int:
     drive("15 MultimodalCorrNMF", phase_multimodal, torch, sal)
     drive("16 SVI and streaming", phase_svi, torch, sal)
     phase_cli(torch, sal, cuda_klnmf, drive)
+    ranks = phase_mesh(torch, sal, cuda_klnmf, X_host, drive)
+    check(launches["18b mesh, two ranks over gloo (this process)"] == 0,
+          "phase 18b's fits run in its two ranks, not here")
+    for path, (count, variants, xs) in ranks.items():
+        launches[path], by_variant[path], by_x[path] = count, variants, xs
     check(launches["16 SVI and streaming"] == 0,
           "the minibatch paths have no hand kernel to launch")
     for command in ("assign", "assign --dense", "bootstrap"):
         check(launches[f"17b CLI {command}"] == 0,
               f"CLI {command} runs plain ops: it has no kernel to launch")
     cli_kernel = [f"17b CLI {command}" for command in CLI_KERNEL]
+    mesh_kernel = [f"18b mesh (2, 1) rank {rank}" for rank in range(2)]
+    for rank in range(2):
+        check(launches[f"18b mesh (1, 2) rank {rank}"] == 0,
+              "a sample-sharded fit runs plain updates: no kernel")
     for path in ("4 KLNMF.fit", "5 fit_klnmf_restarts",
                  "6 fit_best_of KLNMF", "8 rank_scan_klnmf",
                  "12 extract_signatures", "14 bootstrap", *cli_kernel,
-                 "17d profiling"):
+                 "17d profiling", "18a mesh, NCCL world of one",
+                 *mesh_kernel):
         check(launches[path] > 0, f"path {path} launched no kernel")
         check(by_variant[path]["resident"] > 0,
               f"path {path} did not run the resident kernel")

@@ -14,8 +14,9 @@ streaming, catalog assignment (dense, sparse, bootstrap), de novo
 consensus extraction, bootstrap stability, the analysis tools (`tl`), the
 plots (`pl`, when matplotlib and seaborn are installed), model and
 extraction checkpoints (`io`), profiling and the command line
-(``python -m salamander_tpu_torch``). Sharding over devices (mesh=) is not
-ported yet.
+(``python -m salamander_tpu_torch``), and (restarts, samples) meshes over
+torch.distributed (`make_mesh`, `init_distributed`: one process per card)
+for the KLNMF fits and the restart axis of every multi-start fit.
 """
 
 from . import (  # noqa: F401
@@ -68,10 +69,16 @@ from .parallel import (  # noqa: F401
     build_klnmf_restart_runner,
     fit_best_of,
     fit_klnmf_restarts,
+    hybrid_mesh_shape,
+    init_distributed,
+    make_hybrid_mesh,
+    make_mesh,
     rank_scan,
     rank_scan_corrnmf,
     rank_scan_klnmf,
     rank_scan_mvnmf,
+    restart_sharding,
+    slice_groups,
 )
 
 __version__ = "0.1.0"
@@ -109,10 +116,14 @@ __all__ = [
     "extraction",
     "fit_best_of",
     "fit_klnmf_restarts",
+    "hybrid_mesh_shape",
+    "init_distributed",
     "initialization",
     "io",
     "load_extraction",
     "load_model",
+    "make_hybrid_mesh",
+    "make_mesh",
     "models",
     "ops",
     "parallel",
@@ -121,8 +132,10 @@ __all__ = [
     "rank_scan_corrnmf",
     "rank_scan_klnmf",
     "rank_scan_mvnmf",
+    "restart_sharding",
     "save_extraction",
     "save_model",
+    "slice_groups",
     "tl",
     "tools",
     "utils",

@@ -22,7 +22,7 @@ total memory (never its free memory), and decides no result: candidates
 run a fixed step count per sample, bootstrap replicates converge each on
 their own and draw from a generator keyed by (seed, replicate), and the
 stores hold no memory-sized chunk. The JAX package sizes its chunks by its
-accelerator's program kill. mesh= is not ported.
+accelerator's program kill. mesh= waits for ROADMAP item 18.
 """
 
 from __future__ import annotations

@@ -14,10 +14,16 @@ Every command runs on the card; ``--cpu`` runs it on the CPU instead
 (``device="cpu"`` for every model and batched routine). Without a card
 and without ``--cpu`` a command exits non-zero: nothing moves to the CPU
 unasked.
-``--mesh`` (sharding over devices) exits non-zero until the port of
-parallel/mesh.py (ROADMAP Queue 1 item 17). ``fit --resume`` checks that
-the counts are the checkpoint's own cohort, modality by modality: shape,
-sample and feature names, and values.
+``--mesh auto|samples=N`` shards ``fit`` (``--resume`` included) and
+``scan`` over a (restarts, samples) mesh of torch.distributed ranks, one
+process per card: launch the command under ``torchrun --nproc-per-node N``
+(a plain process is a world of one). ``--model klnmf`` shards both axes;
+mvnmf and ardnmf take a restart-only mesh (``samples=1``). The other
+models, ``fit --batch-size``, ``extract``, ``assign`` and ``bootstrap``
+exit naming ROADMAP Queue 1 item 18. Under a mesh the mesh's first rank
+alone writes the outputs. ``fit --resume`` checks that the counts are the
+checkpoint's own cohort, modality by modality: shape, sample and feature
+names, and values.
 
 Input conventions
 -----------------
@@ -93,12 +99,11 @@ def _parse_ranks(spec: str) -> list[int]:
     return sorted(ranks)
 
 
-def _refuse_mesh(spec: str | None) -> None:
-    """--mesh spec: 'auto' (all visible devices as restarts x samples) or
-    'samples=N'. A valid spec exits with MESH_NOT_PORTED: sharding waits
-    for the port of parallel/mesh.py (ROADMAP Queue 1 item 17)."""
-    if spec is None:
-        return
+def _sample_ways(spec: str | None) -> int | None:
+    """The sample ways a valid --mesh spec pins: N for 'samples=N', None
+    for 'auto' (and without a spec)."""
+    if spec is None or spec == "auto":
+        return None
     if spec.startswith("samples="):
         try:
             ways = int(spec.split("=", 1)[1])
@@ -111,19 +116,70 @@ def _refuse_mesh(spec: str | None) -> None:
             raise SystemExit(
                 f"invalid mesh spec {spec!r}: N must be >= 1"
             )
-    elif spec != "auto":
-        raise SystemExit(
-            f"invalid mesh spec {spec!r}: use 'auto' or 'samples=N'"
-        )
-    raise SystemExit(MESH_NOT_PORTED)
+        return ways
+    raise SystemExit(
+        f"invalid mesh spec {spec!r}: use 'auto' or 'samples=N'"
+    )
+
+
+def _refuse_mesh(spec: str | None) -> None:
+    """A valid --mesh spec on a path whose mesh waits for ROADMAP item 18
+    exits with MESH_NOT_PORTED."""
+    _sample_ways(spec)
+    if spec is not None:
+        raise SystemExit(MESH_NOT_PORTED)
+
+
+def _make_mesh(args, shards_samples: bool = True):
+    """--mesh spec -> parallel.make_mesh() over the ranks of the process
+    group (init_distributed: torchrun's ranks, or a world of one). 'auto'
+    factors all ranks into (restarts, samples); 'samples=N' pins the sample
+    ways. A path that shards restarts only exits (ROADMAP item 18) on a
+    mesh with more than one sample way."""
+    ways = _sample_ways(args.mesh)
+    if args.mesh is None:
+        return None
+    from .parallel.mesh import (
+        SAMPLE_AXIS,
+        axis_size,
+        init_distributed,
+        make_mesh,
+    )
+
+    device = _device(args)
+    try:
+        init_distributed(device=device if device.type == "cpu" else None)
+        mesh = make_mesh(sample_ways=ways, device=device)
+    except ValueError as err:
+        raise SystemExit(f"--mesh {args.mesh}: {err}") from None
+    if not shards_samples and axis_size(mesh, SAMPLE_AXIS) > 1:
+        raise SystemExit(MESH_NOT_PORTED)
+    return mesh
+
+
+def _writes(mesh) -> bool:
+    """Whether this process writes the command's outputs: the mesh's first
+    rank, or the only process without a mesh."""
+    if mesh is None:
+        return True
+    from .parallel.mesh import is_writer
+
+    return is_writer(mesh)
+
+
+def _fit_mesh(args):
+    """The mesh of `fit`: klnmf shards both axes, mvnmf and ardnmf the
+    restart axis alone; corrnmf and mmcorrnmf wait for ROADMAP item 18."""
+    if args.model in ("corrnmf", "mmcorrnmf"):
+        _refuse_mesh(args.mesh)
+    return _make_mesh(args, shards_samples=args.model == "klnmf")
 
 
 def _add_mesh(parser: argparse.ArgumentParser) -> None:
     parser.add_argument(
         "--mesh", default=None,
-        help="shard over the visible devices: 'auto' (factor all devices "
-        "into restarts x samples) or 'samples=N' (waits for the port of "
-        "parallel/mesh.py: exits non-zero)",
+        help="shard over the ranks (torchrun, one per card): 'auto' "
+        "(factor all ranks into restarts x samples) or 'samples=N'",
     )
 
 
@@ -303,7 +359,7 @@ def _cmd_fit(args) -> int:
                 "--resume continues a full-batch fit; it cannot be "
                 "combined with --batch-size/--streaming"
             )
-        _refuse_mesh(args.mesh)
+        mesh = _fit_mesh(args)
         model = sio.load_model(args.resume, device=_device(args))
         expected_class = {
             "klnmf": "KLNMF", "mvnmf": "MvNMF", "corrnmf": "CorrNMFDet",
@@ -320,8 +376,11 @@ def _cmd_fit(args) -> int:
         for attr in ("min_iterations", "max_iterations",
                      "conv_test_freq", "tol"):
             setattr(model, attr, getattr(args, attr))
-        model.fit(container, warm_start=True, verbose=args.verbose)
+        model.fit(container, warm_start=True, verbose=args.verbose,
+                  mesh=mesh)
         model_path = out / "model.npz"
+        if not _writes(mesh):
+            return 0
         sio.save_model(model, str(model_path))
         if hasattr(model, "mdata"):
             for name in model.mod_names:
@@ -358,7 +417,15 @@ def _cmd_fit(args) -> int:
             "--streaming is the host-resident minibatch path; pass "
             "--batch-size to enable online fitting"
         )
-    _refuse_mesh(args.mesh)
+    if args.mesh is not None and args.streaming:
+        _sample_ways(args.mesh)
+        raise SystemExit(
+            "--mesh and --streaming are mutually exclusive: streaming "
+            "keeps the counts host-resident on ONE device"
+        )
+    if minibatch:
+        _refuse_mesh(args.mesh)
+    mesh = _fit_mesh(args)
     common["device"] = _device(args)
 
     def _minibatch_kwargs():
@@ -403,6 +470,7 @@ def _cmd_fit(args) -> int:
         )
         return 0
 
+    fit_kwargs = {} if mesh is None else {"mesh": mesh}
     adata = AnnData(frames[0])
     if args.model == "klnmf":
         model = KLNMF(n_signatures=ks[0], **common)
@@ -417,7 +485,10 @@ def _cmd_fit(args) -> int:
     if minibatch:
         model.fit_minibatch(adata, **_minibatch_kwargs())
     else:
-        model.fit(adata, init_kwargs=init_kwargs, verbose=args.verbose)
+        model.fit(adata, init_kwargs=init_kwargs, verbose=args.verbose,
+                  **fit_kwargs)
+    if not _writes(mesh):
+        return 0
 
     model_path = out / "model.npz"
     sio.save_model(model, str(model_path))
@@ -453,7 +524,9 @@ def _cmd_scan(args) -> int:
         conv_test_freq=args.conv_test_freq,
         tol=args.tol,
     )
-    _refuse_mesh(args.mesh)
+    if args.model == "corrnmf":
+        _refuse_mesh(args.mesh)
+    mesh = _make_mesh(args, shards_samples=args.model == "klnmf")
     device = _device(args)
     out = _outdir(args)
 
@@ -479,7 +552,7 @@ def _cmd_scan(args) -> int:
 
         results = rank_scan_mvnmf(
             frame.values.T, ranks, args.n_restarts, seed=args.seed,
-            lam=args.lam, delta=args.delta, config=config,
+            lam=args.lam, delta=args.delta, config=config, mesh=mesh,
             checkpoint_dir=args.checkpoint_dir, device=device,
         )
     else:
@@ -487,9 +560,11 @@ def _cmd_scan(args) -> int:
 
         results = rank_scan_klnmf(
             frame.values.T, ranks, args.n_restarts, seed=args.seed,
-            config=config,
+            config=config, mesh=mesh,
             checkpoint_dir=args.checkpoint_dir, device=device,
         )
+    if not _writes(mesh):
+        return 0
 
     table = tl.rank_selection_table(results)
     table.to_csv(out / "rank_selection.csv")
@@ -892,7 +967,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    import torch.distributed as dist
+
     args = build_parser().parse_args(argv)
+    # a process group that --mesh brings up ends with the command
+    started = dist.is_available() and dist.is_initialized()
     try:
         return args.func(args)
     except FileNotFoundError as err:
@@ -900,6 +979,9 @@ def main(argv=None) -> int:
         raise SystemExit(f"file not found: {path}") from None
     except pd.errors.ParserError as err:
         raise SystemExit(f"could not parse CSV: {err}") from None
+    finally:
+        if not started and dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":  # pragma: no cover - exercised via __main__

@@ -39,8 +39,8 @@ a store keeps one entry per lane, so it resumes under any budget. The B
 resamples stay resident across chunks while they fit 2 GiB; beyond it they
 are drawn anew per chunk from the same seed.
 
-Not ported: meshes (mesh= raises NotImplementedError) and the JAX
-package's accelerator-specific chunk and runner choices.
+Not ported: meshes (mesh= raises NotImplementedError, ROADMAP item 18)
+and the JAX package's accelerator-specific chunk and runner choices.
 """
 
 from __future__ import annotations
@@ -476,7 +476,7 @@ def extract_signatures(
     and per-rank consensus refits (checkpoint.ChunkStore). Its identity
     holds the data, the arguments, the compute dtype and the lane layout,
     not the chunk size; a store of a different run is warned about and
-    discarded. mesh= is not ported.
+    discarded. mesh= waits for ROADMAP item 18.
     """
     from .assign import _align_catalog, _extract_counts
     from .models.signature_nmf import resolve_device, resolve_dtype

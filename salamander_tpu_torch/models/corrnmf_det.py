@@ -235,9 +235,9 @@ class CorrNMFDet(CorrNMF):
         (20-100) tempers the early noisy steps and preserves more of the
         initialization basin.
 
-        Sharding the sample axis over devices (mesh=) is not ported; with
-        streaming=True it is refused, as the streaming path is host-driven
-        and single-device.
+        Sharding the sample axis over devices (mesh=) waits for ROADMAP
+        item 18; with streaming=True it is refused, as the streaming path
+        is host-driven and single-device.
         """
         from ..ops import svi
 

@@ -9,7 +9,8 @@ one launch of the fused CUDA kernel (ops/cuda_klnmf.py); every other fit
 runs the plain PyTorch update. fit_minibatch is online NMF over the sample
 axis (ops/svi.py), with the counts on the device or streamed from the host;
 it runs plain PyTorch ops (its step is not the joint block the kernel
-carries).
+carries). fit(mesh=) shards the sample axis over a mesh's ranks
+(models/signature_nmf.py); fit_minibatch(mesh=) waits for ROADMAP item 18.
 """
 
 from __future__ import annotations
@@ -88,15 +89,19 @@ class KLNMF(StandardNMF):
             data["weights_lhalf"] = self._to_device(self.weights_lhalf)
         return params, data
 
-    def _build_step(self, given_parameters=None):
+    _shards_samples = True
+
+    def _build_step(self, given_parameters=None, reduce_samples=None):
         return ops.make_step_functions(
-            self._n_given_signatures(given_parameters)
+            self._n_given_signatures(given_parameters), reduce_samples
         )
 
-    def _block_update_fn(self, params, data, given_parameters=None):
+    def _block_update_fn(self, params, data, given_parameters=None,
+                         sample_sharded: bool = False):
         if cuda_klnmf.mu_block_supported(
             data["X"], params["W"], params["H"], data,
             self._n_given_signatures(given_parameters),
+            sample_sharded=sample_sharded,
         ):
             return cuda_klnmf.fused_block_update
         return None
@@ -157,9 +162,9 @@ class KLNMF(StandardNMF):
         slowly, so fast statistic decay (e.g. the CorrNMF default 0.7)
         freezes the signatures far from the optimum.
 
-        Sharding the sample axis over devices (mesh=) is not ported; with
-        streaming=True it is refused, as the streaming path is host-driven
-        and single-device.
+        Sharding the sample axis over devices (mesh=) waits for ROADMAP
+        item 18; with streaming=True it is refused, as the streaming path
+        is host-driven and single-device.
         """
         from ..ops import svi
 

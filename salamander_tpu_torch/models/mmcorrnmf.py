@@ -27,8 +27,8 @@ No kernel: step 7 is update_W at fixed exposures, not the joint W/H step
 that the fused KLNMF kernel carries, so the cycle runs as plain PyTorch
 ops, like CorrNMFDet's. fit_minibatch is the stochastic (minibatch)
 variational EM of ops/svi.py with one shared minibatch across the
-modalities. The plot_* methods draw through plot.py; mesh= waits for the
-sharding port.
+modalities. The plot_* methods draw through plot.py; mesh= waits for ROADMAP
+item 18.
 """
 
 from __future__ import annotations
@@ -760,8 +760,8 @@ class MultimodalCorrNMF:
         warm_start=True skips initialization and CONTINUES from the state
         already in the model/containers; the convergence rule restarts
         fresh. The convergence objective is evaluated in float64
-        (promote_objective). Sharding one fit over devices (mesh=) is not
-        ported.
+        (promote_objective). Sharding one fit over devices (mesh=) waits
+        for ROADMAP item 18.
         """
         if mesh is not None:
             raise NotImplementedError(MESH_NOT_PORTED)
@@ -860,8 +860,8 @@ class MultimodalCorrNMF:
         modality's count matrix HOST-resident with per-step minibatch
         uploads, bit-equal to the resident path at the same seed (see
         CorrNMFDet.fit_minibatch / ops/svi.py run_svi_streaming). Sharding
-        the sample axis over devices (mesh=) is not ported; with
-        streaming=True it is refused."""
+        the sample axis over devices (mesh=) waits for ROADMAP item 18;
+        with streaming=True it is refused."""
         from ..ops import svi
 
         check_minibatch_placement(mesh, streaming)

@@ -14,6 +14,9 @@ Concrete models implement the engine hooks:
                                -> a fused block update, or None for the
                                   plain update loop
   _absorb_params(params)       -> write fitted arrays back into the containers
+
+A family whose step functions take `reduce_samples` (KLNMF) sets
+`_shards_samples`: its fit then shards the sample axis over a mesh.
 """
 
 from __future__ import annotations
@@ -102,7 +105,8 @@ NEWTON_CG_COMPAT_MINIBATCH = (
 
 
 def check_minibatch_placement(mesh, streaming: bool) -> None:
-    """The mesh= rules shared by every fit_minibatch."""
+    """The mesh= rules shared by every fit_minibatch: with streaming, the
+    JAX package's refusal; alone, ROADMAP item 18."""
     if mesh is not None and streaming:
         raise ValueError(MESH_WITH_STREAMING)
     if mesh is not None:
@@ -173,6 +177,10 @@ def segment_progress_printer():
 
 class SignatureNMF(ABC):
     """Shared structure of all NMF models used for signature analysis."""
+
+    # whether fit(mesh=) may shard the sample axis (_build_step takes
+    # reduce_samples); the other families wait for ROADMAP item 18
+    _shards_samples = False
 
     def __init__(
         self,
@@ -296,7 +304,8 @@ class SignatureNMF(ABC):
     def _build_step(self, given_parameters=None):
         """Return (update_fn, objective_fn) over (params, data)."""
 
-    def _block_update_fn(self, params, data, given_parameters=None):
+    def _block_update_fn(self, params, data, given_parameters=None,
+                         sample_sharded: bool = False):
         """A fused block update (params, data, n_steps) -> params for this
         fit, or None to run the plain update loop."""
         return None
@@ -361,6 +370,51 @@ class SignatureNMF(ABC):
             tol=self.tol,
         )
 
+    # ------------------------------------------------------------------ #
+    # sample-axis sharding of a single fit
+    # ------------------------------------------------------------------ #
+    def _sample_axes(self):
+        """Which axis of each _device_state leaf carries the sample (D)
+        dimension, keyed by leaf name; absent = replicated. The StandardNMF
+        layout in kernel orientation: W (V, K) replicated, H (K, D) and
+        X (V, D) on their trailing axis, per-sample weights on axis 0."""
+        return (
+            {"H": 1},                                        # params
+            {"X": 1, "weights_kl": 0, "weights_lhalf": 0},   # data
+        )
+
+    def _check_fit_mesh(self, mesh) -> int:
+        """The sample ways of fit(mesh=): a DeviceMesh with a 'samples'
+        axis (the JAX package's message otherwise); above 1 only for a
+        family that shards samples."""
+        from ..parallel.mesh import SAMPLE_AXIS, axis_size, check_mesh
+
+        check_mesh(mesh)
+        names = tuple(mesh.mesh_dim_names or ())
+        if SAMPLE_AXIS not in names:
+            raise ValueError(
+                f"mesh has axes {names}; model.fit expects a "
+                f"'{SAMPLE_AXIS}' axis (parallel.make_mesh(sample_ways=...))."
+            )
+        sample_ways = axis_size(mesh, SAMPLE_AXIS)
+        if sample_ways > 1 and not self._shards_samples:
+            raise NotImplementedError(MESH_NOT_PORTED)
+        return sample_ways
+
+    def _local_state(self, params, data, mesh):
+        """This rank's block of the samples of every leaf _sample_axes
+        names (the counterpart of the JAX package's _shard_state)."""
+        from ..parallel.mesh import sample_range
+
+        lo, hi = sample_range(int(self.adata.n_obs), mesh)
+
+        def block(tree, axes):
+            return {name: leaf.narrow(axes[name], lo, hi - lo).contiguous()
+                    if name in axes else leaf for name, leaf in tree.items()}
+
+        param_axes, data_axes = self._sample_axes()
+        return block(params, param_axes), block(data, data_axes)
+
     def _check_warm_start(self, given_parameters) -> None:
         """Validate that the model/container pair carries a previous fit's
         state to resume from (warm_start=True skips initialization)."""
@@ -415,10 +469,19 @@ class SignatureNMF(ABC):
         the state already in the model/container; the convergence rule
         restarts fresh. Models with `_fits_on_host` set (CorrNMF's
         newton_cg_compat) run the reference's host loop (`_fit_host`).
-        Sharding one fit over devices (mesh=) waits for item 17.
+
+        mesh (optional): a DeviceMesh with a 'samples' axis
+        (parallel.make_mesh) that every rank passes. A family that shards
+        samples (KLNMF) then fits each rank's block of the samples, the
+        sums over D all-reduced over the axis (plain updates: the kernel
+        sums over all of D), and the fitted exposures are gathered, so
+        every rank's model equals the unsharded fit. The mesh's sample
+        ways must divide the samples. With one sample way every rank does
+        the whole fit; the other families raise above one (item 18).
         """
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
+        from ..parallel.mesh import gather_samples, sample_sum
+
+        sample_ways = 1 if mesh is None else self._check_fit_mesh(mesh)
         self._setup_adata(adata)
         if warm_start:
             self._check_warm_start(given_parameters)
@@ -427,15 +490,26 @@ class SignatureNMF(ABC):
         self._setup_fitting_parameters(fitting_kwargs)
 
         if getattr(self, "_fits_on_host", False):
+            if mesh is not None:
+                raise ValueError(
+                    "mesh= is not available in host-loop compatibility "
+                    "modes (newton_cg_compat): the fit runs host-side."
+                )
             return self._fit_host(
                 given_parameters, history, verbose, verbosity_freq
             )
         if self.device.type == "cuda":
             require_ieee_float32()
         params0, data = self._device_state()
-        update_fn, objective_fn = self._build_step(given_parameters)
-        block_update_fn = self._block_update_fn(params0, data,
-                                                given_parameters)
+        step_kwargs = {}
+        if sample_ways > 1:
+            params0, data = self._local_state(params0, data, mesh)
+            step_kwargs["reduce_samples"] = lambda partial: sample_sum(
+                partial, mesh)
+        update_fn, objective_fn = self._build_step(given_parameters,
+                                                   **step_kwargs)
+        block_update_fn = self._block_update_fn(
+            params0, data, given_parameters, sample_sharded=sample_ways > 1)
         objective_fn = promote_objective(objective_fn, params0)
         config = self._fit_config()
         if stop_on_nonfinite:
@@ -451,7 +525,15 @@ class SignatureNMF(ABC):
             verbosity_freq=verbosity_freq, block_update_fn=block_update_fn,
         )
         result = run(params0, data)
-        self._absorb_params(params_to_numpy(result.params))
+        params = result.params
+        if sample_ways > 1:
+            param_axes, _ = self._sample_axes()
+            params = {name: gather_samples(leaf, mesh,
+                                           int(self.adata.n_obs),
+                                           param_axes[name])
+                      if name in param_axes else leaf
+                      for name, leaf in params.items()}
+        self._absorb_params(params_to_numpy(params))
         if history:
             n_evals = int(result.n_evals)
             self.history["objective_function"] = list(

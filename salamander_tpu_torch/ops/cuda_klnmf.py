@@ -158,7 +158,7 @@ def plan_launch(R: int, V: int, K: int, D: int, n_sms: int) -> LaunchPlan:
 
 
 def unsupported_reason(X, W, H, data=None, n_given_signatures: int = 0,
-                       mask=None):
+                       mask=None, sample_sharded: bool = False):
     """Why no kernel can run this block update, or None if one can.
 
     The kernels cover float32, unweighted, unpadded fits without given
@@ -167,8 +167,15 @@ def unsupported_reason(X, W, H, data=None, n_given_signatures: int = 0,
     matrix per lane of W (R, V, K). Every other configuration runs the plain
     update (as the JAX package runs XLA); a rank `mask` marks a padded
     (rank-masked) fit. Whether a kernel takes the shapes does not depend
-    on the card's SM count (see plan_launch).
+    on the card's SM count (see plan_launch). A `sample_sharded` block
+    (each rank of a mesh's sample axis holds a block of D) runs the plain
+    update too: the kernel sums the W numerator over all of D inside its
+    body, where the plain update all-reduces it once a step. On a
+    restart-only mesh each rank's lanes take the kernel as without one.
     """
+    if sample_sharded:
+        return ("the kernel sums the W numerator over all of D: a "
+                "sample-sharded block runs the plain update")
     data = {} if data is None else data
     if any(t.dtype != torch.float32 for t in (X, W, H)):
         return "the kernel is float32 only"
@@ -197,11 +204,11 @@ def unsupported_reason(X, W, H, data=None, n_given_signatures: int = 0,
 
 
 def mu_block_supported(X, W, H, data=None, n_given_signatures: int = 0,
-                       mask=None):
+                       mask=None, sample_sharded: bool = False):
     """Whether a fit's block update runs a kernel (see
     unsupported_reason)."""
-    return unsupported_reason(X, W, H, data, n_given_signatures,
-                              mask) is None
+    return unsupported_reason(X, W, H, data, n_given_signatures, mask,
+                              sample_sharded) is None
 
 
 def _nvcc() -> str:

@@ -13,6 +13,13 @@ Every function is batched-native: a leading restart axis on W and H (and
 optionally X) broadcasts through, and an objective returns one value per
 leading index. Reductions run over the named trailing axes, so a single
 problem and a batch of R restarts share one code path.
+
+reduce_samples: under a sample-sharded mesh each rank holds a block of the
+samples, and every sum over D is completed by this hook (an all_reduce over
+the mesh's sample axis, parallel.mesh.sample_sum): the W-update numerator
+before the column normalization, and the objective's total. The H update
+is per sample and needs none. None (the default) means all samples are
+local.
 """
 
 from __future__ import annotations
@@ -95,7 +102,12 @@ def _clip(values):
     return torch.clamp_min(values, EPSILON)
 
 
-def update_W(X, W, H, weights_kl=None, n_given_signatures: int = 0):
+def _sum_samples(partial, reduce_samples):
+    return partial if reduce_samples is None else reduce_samples(partial)
+
+
+def update_W(X, W, H, weights_kl=None, n_given_signatures: int = 0,
+             reduce_samples=None):
     """Multiplicative W update under column-normalization.
 
     Only the free (non-given) columns are clipped to EPSILON, so given
@@ -108,7 +120,7 @@ def update_W(X, W, H, weights_kl=None, n_given_signatures: int = 0):
     aux = X / mm(W, H)
     if weights_kl is not None:
         aux = aux * _columns(weights_kl)
-    W_new = W * mm(aux, H.mT)
+    W_new = W * _sum_samples(mm(aux, H.mT), reduce_samples)
     W_new = W_new / W_new.sum(-2, keepdim=True)
     clipped = _clip(W_new)
     if n_given_signatures > 0:
@@ -146,7 +158,8 @@ def update_H(X, W, H, weights_kl=None, weights_lhalf=None):
 
 
 def update_WH(
-    X, W, H, weights_kl=None, weights_lhalf=None, n_given_signatures: int = 0
+    X, W, H, weights_kl=None, weights_lhalf=None, n_given_signatures: int = 0,
+    reduce_samples=None,
 ):
     """Joint W,H update sharing one aux = X/(WH) computed from the OLD W,H.
 
@@ -160,7 +173,7 @@ def update_WH(
         W_new = W
     else:
         scaled_aux = aux if weights_kl is None else _columns(weights_kl) * aux
-        W_new = W * mm(scaled_aux, H.mT)
+        W_new = W * _sum_samples(mm(scaled_aux, H.mT), reduce_samples)
         W_new = W_new / W_new.sum(-2, keepdim=True)
         W_new = _freeze_given_columns(W_new, W, n_given_signatures)
         W_new = _clip(W_new)
@@ -181,21 +194,25 @@ def lhalf_penalty(H, weights_lhalf):
     return (torch.sqrt(H).sum(-2) * weights_lhalf).sum(-1)
 
 
-def klnmf_objective(X, W, H, weights_kl=None, weights_lhalf=None):
-    """Full KLNMF objective: weighted KL + optional l1/2 penalty."""
+def klnmf_objective(X, W, H, weights_kl=None, weights_lhalf=None,
+                    reduce_samples=None):
+    """Full KLNMF objective: weighted KL + optional l1/2 penalty. Both
+    sum over D, so under a sample-sharded mesh their local total is
+    completed by one reduce_samples."""
     value = kl_divergence(X, W, H, weights_kl)
     if weights_lhalf is not None:
         value = value + lhalf_penalty(H, weights_lhalf)
-    return value
+    return _sum_samples(value, reduce_samples)
 
 
-def make_step_functions(n_given_signatures: int = 0):
+def make_step_functions(n_given_signatures: int = 0, reduce_samples=None):
     """The engine step functions of the KLNMF family.
 
     Both take (params, data) with params = {"W": (..., V, K),
     "H": (..., K, D)} and data = {"X": (V, D)} plus optional
     'weights_kl'/'weights_lhalf' entries. A leading restart axis on the
-    params batches both.
+    params batches both. reduce_samples completes the sums over D of a
+    sample-sharded fit (module docstring).
     """
 
     def update_fn(params, data):
@@ -206,6 +223,7 @@ def make_step_functions(n_given_signatures: int = 0):
             data.get("weights_kl"),
             data.get("weights_lhalf"),
             n_given_signatures,
+            reduce_samples,
         )
         return {"W": W, "H": H}
 
@@ -216,12 +234,14 @@ def make_step_functions(n_given_signatures: int = 0):
             params["H"],
             data.get("weights_kl"),
             data.get("weights_lhalf"),
+            reduce_samples,
         )
 
     return update_fn, objective_fn
 
 
-def make_masked_step_functions(n_given_signatures: int = 0):
+def make_masked_step_functions(n_given_signatures: int = 0,
+                               reduce_samples=None):
     """Rank-masked twin of make_step_functions for K-padded batching.
 
     params carry a boolean 'mask' (..., K) marking the active leading
@@ -244,7 +264,7 @@ def make_masked_step_functions(n_given_signatures: int = 0):
         else:
             scaled_aux = aux if weights_kl is None else \
                 _columns(weights_kl) * aux
-            W_new = W * mm(scaled_aux, H.mT)
+            W_new = W * _sum_samples(mm(scaled_aux, H.mT), reduce_samples)
             # padded columns have all-zero numerators; keep their sum at 1
             column_sums = W_new.sum(-2, keepdim=True)
             W_new = W_new / torch.where(column_mask, column_sums, 1.0)
@@ -265,6 +285,7 @@ def make_masked_step_functions(n_given_signatures: int = 0):
             params["H"],
             data.get("weights_kl"),
             data.get("weights_lhalf"),
+            reduce_samples,
         )
 
     return update_fn, objective_fn

@@ -15,6 +15,10 @@ uncompacted loop. One host sync per halving decides the gather. With
 each data leaf carries the leading lane axis and is gathered with the
 survivors' state.
 
+Under a mesh (parallel/mesh.py) each rank compacts its own lanes
+(``on_mesh``): ranks of one sample-axis row hold the same lanes, read the
+same all-reduced objectives, and so take the same decisions.
+
 Not ported: the JAX package's guards against its accelerator's program
 kill (``CappedFitDispatcher``, the time-capped segments and their cost
 model), which the card does not need.
@@ -26,7 +30,7 @@ from typing import Any, Callable
 
 import torch
 
-from ..engine import FitConfig
+from ..engine import FitConfig, FitResult
 from ..engine.fit import (
     LockstepState,
     _effective_tol,
@@ -35,8 +39,24 @@ from ..engine.fit import (
     init_lockstep_state,
     run_lockstep_segment,
 )
-from ..engine.tree import tree_leaves, tree_map
-from ..utils import MESH_NOT_PORTED
+from ..engine.tree import (
+    SEPARATOR,
+    tree_flatten,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
+from .mesh import (
+    RESTART_AXIS,
+    SAMPLE_AXIS,
+    axis_size,
+    check_divides,
+    check_mesh,
+    KLNMF_LAYOUT,
+    gather_block,
+    local_block,
+    sample_sum,
+)
 
 
 def _take_lanes(state: LockstepState, idx) -> LockstepState:
@@ -196,17 +216,19 @@ def lockstep_fit(objective_fn, config: FitConfig,
     return result, objective(result.params)
 
 
-def klnmf_block_builder(update_fn) -> BlockBuilder:
+def klnmf_block_builder(update_fn,
+                        sample_sharded: bool = False) -> BlockBuilder:
     """make_block_update of the KLNMF flavors: the CUDA kernel where
     cuda_klnmf.mu_block_supported holds for the bucket's tensors, else
-    `update_fn` steps as plain torch ops (the rank-masked flavor
-    always)."""
+    `update_fn` steps as plain torch ops (the rank-masked and the
+    sample-sharded flavors always)."""
     from ..ops import cuda_klnmf
 
     def make_block_update(params, data):
         if cuda_klnmf.mu_block_supported(data["X"], params["W"],
                                          params["H"], data,
-                                         mask=params.get("mask")):
+                                         mask=params.get("mask"),
+                                         sample_sharded=sample_sharded):
             return lambda p, n: cuda_klnmf.fused_block_update(p, data, n)
         return plain_block_builder(update_fn)(params, data)
 
@@ -227,20 +249,24 @@ def plain_block_builder(update_fn) -> BlockBuilder:
     return make_block_update
 
 
-def compacting_runner(config: FitConfig, masked: bool,
-                      min_bucket: int) -> CompactingRunner:
+def compacting_runner(config: FitConfig, masked: bool, min_bucket: int,
+                      reduce_samples=None) -> CompactingRunner:
     """The runner of one KLNMF fit flavor (JAX:
     ``_cached_compacting_runner``; nothing is compiled here, so nothing is
-    cached)."""
+    cached). reduce_samples completes the sums over D of a sample-sharded
+    fit (ops.klnmf)."""
     from ..ops import klnmf as ops
 
     if masked:
-        update_fn, objective_fn = ops.make_masked_step_functions()
+        update_fn, objective_fn = ops.make_masked_step_functions(
+            reduce_samples=reduce_samples)
     else:
-        update_fn, objective_fn = ops.make_step_functions()
-    return CompactingRunner(config, objective_fn,
-                            klnmf_block_builder(update_fn),
-                            min_bucket=min_bucket)
+        update_fn, objective_fn = ops.make_step_functions(
+            reduce_samples=reduce_samples)
+    return CompactingRunner(
+        config, objective_fn,
+        klnmf_block_builder(update_fn, reduce_samples is not None),
+        min_bucket=min_bucket)
 
 
 def mvnmf_compacting_runner(config: FitConfig, lam: float, delta: float,
@@ -315,29 +341,105 @@ def extraction_compacting_runner(config: FitConfig, promote: bool,
                             min_bucket=min_bucket, batched_data=True)
 
 
+def mesh_restart_ways(mesh) -> int:
+    """Ranks along the mesh's restart axis (1 without a mesh or without a
+    'restarts' axis)."""
+    return axis_size(mesh, RESTART_AXIS)
+
+
 def resolve_compact(compact, config: FitConfig, mesh, n_restarts: int,
                     min_bucket: int, device=None) -> bool:
     """Auto policy for lane compaction (compact=None).
 
     Compaction is legal where a convergence rule can free lanes
     (min_iterations < max_iterations) and at least one halving exists
-    (n_restarts >= 2 * min_bucket). Auto takes it on a CUDA device, where
-    it was measured (PCAWG SBS, NVIDIA H100 80GB HBM3, 700 W; PERF.md):
-    2.2-2.8x faster for fit_best_of(MvNMF(5), R=50), 1.5x for a packed
-    MvNMF rank scan, and within the spread of the monolithic wall on the
-    KLNMF kernel path (0.47-0.86 s against 0.52-0.66 s at R=100). On the
-    CPU
-    it stays opt-in. Per-lane results are identical either way. mesh= is
-    not ported."""
+    (n_restarts >= 2 * the floor, where the floor is min_bucket or, under
+    a mesh, the restart ways if more: the JAX package's rule). Auto takes
+    it on a CUDA device, where it was measured (PCAWG SBS, NVIDIA H100
+    80GB HBM3, 700 W; PERF.md): 2.2-2.8x faster for fit_best_of(MvNMF(5),
+    R=50), 1.5x for a packed MvNMF rank scan, and within the spread of the
+    monolithic wall on the KLNMF kernel path (0.47-0.86 s against
+    0.52-0.66 s at R=100). On the CPU it stays opt-in. Per-lane results
+    are identical either way; under a mesh each rank compacts its own
+    lanes."""
     if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+        check_mesh(mesh)
     if compact is not None:
         return bool(compact)
+    floor = max(1, int(min_bucket), mesh_restart_ways(mesh))
     return (
         config.min_iterations < config.max_iterations
-        and n_restarts >= 2 * max(1, int(min_bucket))
+        and n_restarts >= 2 * floor
         and device is not None and torch.device(device).type == "cuda"
     )
+
+
+# where the KLNMF fit's leaves split on a mesh, by leaf name: (params,
+# data), each a KLNMF_LAYOUT entry (the per-sample weights split like X's
+# columns). Leaves not named are lanes-first (params: W, a rank mask) or
+# replicated (data).
+KLNMF_SHARDS = (
+    {"H": KLNMF_LAYOUT["H"]},
+    {"X": KLNMF_LAYOUT["X"], "weights_kl": (None, 0),
+     "weights_lhalf": (None, 0)},
+)
+
+
+def on_mesh(run, mesh, by_leaf: tuple[dict, dict] | None = None):
+    """run(params0, data) -> (FitResult, losses) over this rank's block of
+    the lanes (axis 0 of every parameter leaf) and, with `by_leaf`
+    (KLNMF_SHARDS), of the samples. The run is given the rank's
+    blocks; every field of its result is gathered back, so every rank
+    returns the whole (FitResult, losses) of the meshless run. Every rank
+    of the mesh calls it. Without a mesh it is `run` itself."""
+    if mesh is None:
+        return run
+    param_dims, data_dims = by_leaf or ({}, {})
+    lanes_first = KLNMF_LAYOUT["per_restart"]
+
+    def dims(path):
+        return param_dims.get(path.split(SEPARATOR)[0], lanes_first)
+
+    def sharded(params0, data):
+        shapes = {path: leaf.shape
+                  for path, leaf in tree_flatten(params0).items()}
+        n_lanes = next(iter(shapes.values()))[0]
+        result, losses = run(
+            tree_unflatten({path: local_block(leaf, mesh, dims(path))
+                            for path, leaf in tree_flatten(params0).items()}),
+            {name: local_block(leaf, mesh, data_dims[name])
+             if name in data_dims else leaf
+             for name, leaf in data.items()},
+        )
+
+        def lanes(leaf):
+            return gather_block(leaf, mesh, lanes_first,
+                                (n_lanes,) + tuple(leaf.shape[1:]))
+
+        params = tree_unflatten({
+            path: gather_block(leaf, mesh, dims(path), shapes[path])
+            for path, leaf in tree_flatten(result.params).items()})
+        return (FitResult(params, *(lanes(getattr(result, field)) for field
+                                    in FitResult._fields[1:])),
+                lanes(losses))
+
+    return sharded
+
+
+def klnmf_mesh_run(make_run, mesh, n_lanes: int, n_samples: int):
+    """The KLNMF run of make_run(reduce_samples) -> run on `mesh`: the
+    mesh must divide the lanes and samples (the JAX package's refusal),
+    and a sample axis above 1 shards the samples, whose sums over D
+    make_run's step functions complete with parallel.mesh.sample_sum.
+    Without a mesh, make_run(None)."""
+    if mesh is None:
+        return make_run(None)
+    check_divides(mesh, n_lanes, n_samples)
+    reduce = None
+    if axis_size(mesh, SAMPLE_AXIS) > 1:
+        def reduce(partial):
+            return sample_sum(partial, mesh)
+    return on_mesh(make_run(reduce), mesh, KLNMF_SHARDS)
 
 
 def fit_klnmf_restarts_compacting(
@@ -351,13 +453,15 @@ def fit_klnmf_restarts_compacting(
     dtype=torch.float32,
     min_bucket: int = 8,
     device=None,
+    mesh=None,
 ):
     """Compacting twin of parallel.restarts.fit_klnmf_restarts (same seeds,
-    same per-lane results). Returns a RestartResult."""
+    same per-lane results). Under a `mesh` each rank compacts its own
+    lanes (and samples). Returns a RestartResult."""
     result, losses = klnmf_restarts_compacting_device(
         X, n_signatures, n_restarts, seed=seed, config=config,
         weights_kl=weights_kl, weights_lhalf=weights_lhalf, dtype=dtype,
-        min_bucket=min_bucket, device=device,
+        min_bucket=min_bucket, device=device, mesh=mesh,
     )
     return finalize_compacting_restarts(result, losses)
 
@@ -373,6 +477,7 @@ def klnmf_restarts_compacting_device(
     dtype=torch.float32,
     min_bucket: int = 8,
     device=None,
+    mesh=None,
 ):
     """Body of fit_klnmf_restarts_compacting: the (FitResult, losses) pair
     with every tensor still on the device."""
@@ -381,7 +486,10 @@ def klnmf_restarts_compacting_device(
     config = config or FitConfig()
     params0, data = _restart_inputs(X, n_signatures, n_restarts, seed,
                                     weights_kl, weights_lhalf, dtype, device)
-    return compacting_runner(config, False, min_bucket).run(params0, data)
+    return klnmf_mesh_run(
+        lambda reduce: compacting_runner(config, False, min_bucket,
+                                         reduce).run,
+        mesh, n_restarts, data["X"].shape[-1])(params0, data)
 
 
 def finalize_compacting_restarts(result, losses):

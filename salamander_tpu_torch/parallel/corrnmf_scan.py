@@ -36,7 +36,8 @@ from .compaction import (
     plain_block_builder,
     resolve_compact,
 )
-from .restarts import _fit_with, _mesh_unported, _resolve_pack
+from ..utils import MESH_NOT_PORTED
+from .restarts import _fit_with, _resolve_pack
 
 # the batched aux/ratio intermediates cost ~3 (D, V) + 2 (D, Kp) buffers
 # per lane; a packed call holds at most this many bytes of them
@@ -230,14 +231,15 @@ def rank_scan_corrnmf(
     checkpoint_dir: per-point preemption-safe resume (checkpoint.ChunkStore)
     - each completed (k[, m]) point is one atomic entry. The store cannot
     fingerprint a custom `model_factory`; keep one directory per factory.
-    mesh= is not ported yet.
+    mesh= waits for ROADMAP item 18 (utils.MESH_NOT_PORTED).
     """
     from ..containers import AnnData
     from ..models import CorrNMFDet
     from ..models.signature_nmf import promote_objective
     from ..ops.precision import require_ieee_float32
 
-    _mesh_unported(mesh)
+    if mesh is not None:
+        raise NotImplementedError(MESH_NOT_PORTED)
     config = config or FitConfig()
     ranks = [int(k) for k in n_signatures_range]
     grid_mode = dim_embeddings_range is not None

@@ -13,6 +13,11 @@ Every family is batched: KLNMF, MvNMF, ARDNMF, CorrNMFDet and
 MultimodalCorrNMF, whose parameters are a nested dict (engine.tree) and
 whose data container is a MuData. The JAX package's runner cache exists to
 avoid recompiles; nothing is compiled here, so there is none.
+
+Under a (restarts, samples) mesh (parallel/mesh.py) every rank draws the
+whole params0, runs its block of the lanes and gathers the rest, so every
+rank absorbs the same best restart. The sample axis is KLNMF's alone; the
+other families take restart-only meshes (ROADMAP item 18).
 """
 
 from __future__ import annotations
@@ -29,9 +34,19 @@ from ..engine.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from ..utils import MESH_NOT_PORTED
 from .compaction import (
     CompactingRunner,
+    KLNMF_SHARDS,
     lockstep_fit,
+    on_mesh,
     plain_block_builder,
     resolve_compact,
+)
+from .mesh import (
+    SAMPLE_AXIS,
+    axis_size,
+    check_divides,
+    mesh_meta,
+    open_store,
+    sample_sum,
 )
 
 # the families fit_best_of batches; each has a device-side batched
@@ -139,14 +154,14 @@ def _host_init_batch(model, n_restarts: int, base_seed: int,
 
 
 def _best_of_store(checkpoint_dir, model, n_restarts: int, base_seed: int,
-                   config, restart_chunk):
+                   config, restart_chunk, mesh=None):
     """ChunkStore for a fit_best_of run: identity = counts (+ weights)
     fingerprint (every modality's counts, in mod_names order, for
     MultimodalCorrNMF), model class + constructor hyperparameters
     (CorrNMF's embedding dimension, ARDNMF's prior, a and resolved b
     included), compute dtype, MvNMF's line-search trial batch, restart
-    layout."""
-    from ..checkpoint import ChunkStore, data_fingerprint
+    layout, mesh (a mesh.MeshStore under one)."""
+    from ..checkpoint import data_fingerprint
 
     if _is_multimodal(model):
         arrays = [np.asarray(model.mdata[name].X)
@@ -159,7 +174,7 @@ def _best_of_store(checkpoint_dir, model, n_restarts: int, base_seed: int,
                 arrays.append(np.asarray(weights))
     trial_batch = (model._resolve_trial_batch()
                    if hasattr(model, "_resolve_trial_batch") else None)
-    return ChunkStore(checkpoint_dir, {
+    return open_store(checkpoint_dir, {
         "task": "fit_best_of",
         "model": type(model).__name__,
         "n_signatures": getattr(model, "n_signatures", None),
@@ -179,8 +194,9 @@ def _best_of_store(checkpoint_dir, model, n_restarts: int, base_seed: int,
         "restart_chunk": (
             None if restart_chunk is None else int(restart_chunk)
         ),
+        "mesh": mesh_meta(mesh),
         "data": data_fingerprint(*arrays),
-    })
+    }, mesh)
 
 
 def _result_to_entry(result: FitResult, losses) -> dict:
@@ -276,7 +292,13 @@ def fit_best_of(
     checkpoint_dir simply batches the run in chunks.
 
     verbose=1 prints one objective-range line per compaction segment.
-    mesh= is not ported yet.
+
+    mesh: a (restarts, samples) DeviceMesh (parallel.make_mesh) that every
+    rank passes. Each rank runs its block of every chunk's lanes (the
+    mesh's restart ways must divide each chunk) and the results are
+    gathered, so every rank's model holds the best restart. KLNMF also
+    shards the samples (the ways must divide them); another family on a
+    mesh with more than one sample way raises (ROADMAP item 18).
     """
     from ..models.signature_nmf import (
         promote_objective,
@@ -286,7 +308,8 @@ def fit_best_of(
 
     _check_family(model)
     is_multimodal = _is_multimodal(model)
-    if mesh is not None:
+    sample_sharded = axis_size(mesh, SAMPLE_AXIS) > 1
+    if sample_sharded and not getattr(model, "_shards_samples", False):
         raise NotImplementedError(MESH_NOT_PORTED)
     if checkpoint_dir is not None and given_parameters:
         raise ValueError(
@@ -347,7 +370,12 @@ def fit_best_of(
             fitting_kwargs, seeds_init_kwargs,
         )
 
-    update_fn, objective_fn = model._build_step(given_parameters)
+    step_kwargs = {}
+    if sample_sharded:
+        step_kwargs["reduce_samples"] = lambda partial: sample_sum(partial,
+                                                                   mesh)
+    update_fn, objective_fn = model._build_step(given_parameters,
+                                                **step_kwargs)
     objective_fn = promote_objective(objective_fn, params0)
     config = model._fit_config()
     model.history["tol_effective"] = effective_tolerance(
@@ -357,29 +385,43 @@ def fit_best_of(
     def make_block_update(params, data_):
         fused = None
         if not is_multimodal:  # only W/H families have a fused block
-            fused = model._block_update_fn(params, data_, given_parameters)
+            fused = model._block_update_fn(params, data_, given_parameters,
+                                           sample_sharded=sample_sharded)
         if fused is not None:
             return lambda p, n: fused(p, data_, n)
         return plain_block_builder(update_fn)(params, data_)
 
     def run_lanes(part0):
-        """One lockstep run over a chunk of lanes: (FitResult, losses)."""
+        """One lockstep run over a chunk of lanes: (FitResult, losses),
+        the whole chunk's on every rank of a mesh."""
         n_lanes = int(tree_leaves(part0)[0].shape[0])
-        if resolve_compact(compact, config, None, n_lanes,
-                           compact_min_bucket, model.device):
-            runner = CompactingRunner(config, objective_fn,
-                                      make_block_update,
-                                      min_bucket=compact_min_bucket)
-            if verbose:
-                runner.progress = segment_progress_printer()
-            return runner.run(part0, data)
-        return lockstep_fit(objective_fn, config, make_block_update, part0,
-                            data)
+        compacting = resolve_compact(compact, config, mesh, n_lanes,
+                                     compact_min_bucket, model.device)
 
+        def run(local0, local_data):
+            if compacting:
+                runner = CompactingRunner(config, objective_fn,
+                                          make_block_update,
+                                          min_bucket=compact_min_bucket)
+                if verbose:
+                    runner.progress = segment_progress_printer()
+                return runner.run(local0, local_data)
+            return lockstep_fit(objective_fn, config, make_block_update,
+                                local0, local_data)
+
+        if mesh is not None:
+            check_divides(mesh, n_lanes, n_samples)
+        return on_mesh(run, mesh, KLNMF_SHARDS if sample_sharded
+                       else None)(part0, data)
+
+    # the samples of the data's sample axis (counts are (V, D) for the W/H
+    # families, (D, V) for CorrNMF and each modality of MultimodalCorrNMF)
+    n_samples = (model.mdata.n_obs if is_multimodal
+                 else int(model.adata.n_obs))
     store = None
     if checkpoint_dir is not None:
         store = _best_of_store(checkpoint_dir, model, n_restarts, base_seed,
-                               config, restart_chunk)
+                               config, restart_chunk, mesh)
     if restart_chunk is None or restart_chunk >= n_restarts:
         chunks = [(0, n_restarts)]
     else:

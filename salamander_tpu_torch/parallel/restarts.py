@@ -9,7 +9,13 @@ fit runs each block as one launch of the fused CUDA kernel over all lanes
 (ops/cuda_klnmf.py); the rank-masked (padded) scans and MvNMF run as plain
 PyTorch ops.
 
-Not ported yet: meshes (mesh= raises NotImplementedError).
+Under a (restarts, samples) mesh (parallel/mesh.py) every rank draws the
+whole init from the seed on its own device, keeps its block of the lanes
+(and, for KLNMF, of the samples), and the losses, iterations, W and H are
+gathered at the end, so every rank holds the whole RestartResult. On a
+restart-only mesh each rank's lanes take the kernel as without a mesh; a
+sample-sharded block runs the plain update with one all_reduce a step.
+MvNMF takes the restart axis only.
 """
 
 from __future__ import annotations
@@ -31,11 +37,14 @@ from .compaction import (
     compacting_runner,
     fit_klnmf_restarts_compacting,
     klnmf_block_builder,
+    klnmf_mesh_run,
     lockstep_fit,
     mvnmf_compacting_runner,
+    on_mesh,
     plain_block_builder,
     resolve_compact,
 )
+from .mesh import SAMPLE_AXIS, axis_size, check_divides, mesh_meta, open_store
 
 
 class RestartResult(NamedTuple):
@@ -67,11 +76,6 @@ class RestartResult(NamedTuple):
     @property
     def best_H(self) -> np.ndarray:
         return self._best_lane(self.H)
-
-
-def _mesh_unported(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
 
 
 def _to_device(array, dtype, device) -> torch.Tensor:
@@ -111,28 +115,39 @@ def _fit_with(objective_fn, config: FitConfig, make_block_update):
     return run
 
 
-def _lockstep_run(objective_fn, config: FitConfig, make_block_update):
-    """The shared batched fit as a runner (params0, data) -> (params,
-    losses, n_iterations)."""
-    fit = _fit_with(objective_fn, config, make_block_update)
+def _klnmf_runner(config: FitConfig, mesh, masked: bool):
+    """(params0, data) -> (params, losses, n_iterations) of the monolithic
+    lockstep KLNMF fit (rank-masked or not) on `mesh`
+    (compaction.klnmf_mesh_run)."""
+    make_steps = (ops.make_masked_step_functions if masked
+                  else ops.make_step_functions)
+
+    def make_run(reduce_samples):
+        update_fn, objective_fn = make_steps(reduce_samples=reduce_samples)
+        builder = (plain_block_builder(update_fn) if masked else
+                   klnmf_block_builder(update_fn, reduce_samples is not None))
+        return _fit_with(objective_fn, config, builder)
 
     def run(params0, data):
-        result, losses = fit(params0, data)
+        result, losses = klnmf_mesh_run(
+            make_run, mesh, params0["W"].shape[0], data["X"].shape[-1])(
+            params0, data)
         return result.params, losses, result.n_iterations
 
     return run
 
 
-def build_klnmf_restart_runner(config: FitConfig):
+def build_klnmf_restart_runner(config: FitConfig, mesh=None):
     """The batched multi-start KLNMF fit.
 
     Returns a function (params0, data) -> (params, losses, n_iterations)
     where params0 = {"W": (R, V, K), "H": (R, K, D)} and data = {"X": (V, D)}
     plus any 'weights_kl'/'weights_lhalf' entries. The block update is
     chosen per call from the tensors (cuda_klnmf.mu_block_supported).
+    Under a `mesh` every rank passes the whole params0 and data and gets
+    the whole result back; it fits its own block of them.
     """
-    update_fn, objective_fn = ops.make_step_functions()
-    return _lockstep_run(objective_fn, config, klnmf_block_builder(update_fn))
+    return _klnmf_runner(config, mesh, masked=False)
 
 
 def fit_klnmf_restarts(
@@ -162,9 +177,14 @@ def fit_klnmf_restarts(
     fit through the lane-compacting driver - as restarts converge,
     survivors are gathered into smaller batches so frozen lanes stop
     costing block updates. Per-lane results are those of the uncompacted
-    loop. mesh= is not ported yet.
+    loop.
+
+    mesh: a (restarts, samples) DeviceMesh (parallel.make_mesh) that every
+    rank passes: each rank fits its block of the lanes and samples, and
+    every rank gets the whole result (module docstring). The mesh's ways
+    must divide n_restarts and the samples. A `runner` must then be built
+    on the same mesh.
     """
-    _mesh_unported(mesh)
     config = config or FitConfig()
     if runner is None and resolve_compact(
         compact, config, mesh, n_restarts, compact_min_bucket,
@@ -173,12 +193,12 @@ def fit_klnmf_restarts(
         return fit_klnmf_restarts_compacting(
             X, n_signatures, n_restarts, seed=seed, config=config,
             weights_kl=weights_kl, weights_lhalf=weights_lhalf, dtype=dtype,
-            min_bucket=compact_min_bucket, device=device,
+            min_bucket=compact_min_bucket, device=device, mesh=mesh,
         )
     params0, data = _restart_inputs(X, n_signatures, n_restarts, seed,
                                     weights_kl, weights_lhalf, dtype, device)
     if runner is None:
-        runner = build_klnmf_restart_runner(config)
+        runner = build_klnmf_restart_runner(config, mesh)
     params, losses, n_iterations = runner(params0, data)
     losses_host = losses.cpu().numpy()
     return RestartResult(
@@ -193,7 +213,7 @@ def fit_klnmf_restarts(
 def _rank_scan_with_checkpoint(checkpoint_dir, task: str, X, ranks,
                                n_restarts: int, seed: int,
                                config: FitConfig, meta_extra: dict,
-                               run_point):
+                               run_point, mesh=None):
     """Per-rank resumable wrapper shared by the scan drivers.
 
     Each completed rank is one atomic ChunkStore entry (host arrays); a
@@ -201,11 +221,13 @@ def _rank_scan_with_checkpoint(checkpoint_dir, task: str, X, ranks,
     only the missing ones. run_point(offset, k) -> RestartResult computes
     one rank through the normal driver with its ORIGINAL seed
     (seed + 1000 * offset), so a resumed scan equals an uninterrupted one.
+    The mesh is part of the run's identity; under one, the mesh's first
+    rank writes the store and every rank loads it (mesh.MeshStore).
     """
-    from ..checkpoint import ChunkStore, data_fingerprint
+    from ..checkpoint import data_fingerprint
 
     X_host = X.cpu().numpy() if isinstance(X, torch.Tensor) else X
-    store = ChunkStore(checkpoint_dir, {
+    store = open_store(checkpoint_dir, {
         "task": task,
         "ranks": [int(k) for k in ranks],
         "n_restarts": int(n_restarts),
@@ -213,7 +235,8 @@ def _rank_scan_with_checkpoint(checkpoint_dir, task: str, X, ranks,
         "config": list(config),
         "data": data_fingerprint(np.asarray(X_host)),
         **meta_extra,
-    })
+        "mesh": mesh_meta(mesh),
+    }, mesh)
     results: dict[int, RestartResult] = {}
     for offset, k in enumerate(ranks):
         entry = store.load(f"rank{k}")
@@ -284,14 +307,13 @@ def rank_scan(
     return results
 
 
-def build_klnmf_masked_runner(config: FitConfig):
+def build_klnmf_masked_runner(config: FitConfig, mesh=None):
     """A rank-MASKED multi-start KLNMF fit: lanes of different rank share
     one K-padded batch. params0 = {"W": (R, V, Kp), "H": (R, Kp, D),
     "mask": (R, Kp) bool}; returns (params, losses, n_iterations) like
-    build_klnmf_restart_runner. Plain PyTorch ops: the CUDA kernel has no
-    rank mask."""
-    update_fn, objective_fn = ops.make_masked_step_functions()
-    return _lockstep_run(objective_fn, config, plain_block_builder(update_fn))
+    build_klnmf_restart_runner, on a `mesh` as it does. Plain PyTorch ops:
+    the CUDA kernel has no rank mask."""
+    return _klnmf_runner(config, mesh, masked=True)
 
 
 def _padded_random_init(generator, X, n_signatures: int, n_restarts: int,
@@ -431,12 +453,15 @@ def rank_scan_klnmf(
     pack_points: whether several ranks of a bucket share one lockstep call
     (None = auto, see _resolve_pack). compact (None = auto, see
     parallel.compaction.resolve_compact) runs each call through the
-    lane-compacting driver. mesh= is not ported yet.
+    lane-compacting driver. Under a `mesh` (every rank calls) each call's
+    lanes and samples are sharded as in fit_klnmf_restarts; the mesh's
+    ways must divide n_restarts and the samples.
     """
-    _mesh_unported(mesh)
     config = config or FitConfig()
     device = resolve_device(device)
     ranks = [int(k) for k in n_signatures_range]
+    if mesh is not None:
+        check_divides(mesh, n_restarts, np.shape(X)[-1])
     if checkpoint_dir is not None:
         return _rank_scan_with_checkpoint(
             checkpoint_dir, "rank_scan_klnmf", X, ranks, n_restarts, seed,
@@ -448,11 +473,12 @@ def rank_scan_klnmf(
             },
             lambda offset, k: rank_scan_klnmf(
                 X, [k], n_restarts, seed=seed + 1000 * offset,
-                config=config, dtype=dtype, device=device,
+                config=config, mesh=mesh, dtype=dtype, device=device,
                 pad_ranks=pad_ranks, rank_bucket=rank_bucket,
                 pack_points=pack_points, compact=compact,
                 compact_min_bucket=compact_min_bucket,
             )[k],
+            mesh,
         )
     compact = resolve_compact(compact, config, mesh, n_restarts,
                               compact_min_bucket, device)
@@ -468,16 +494,23 @@ def rank_scan_klnmf(
             # compact is resolved above: pass the decision through
             results[k] = fit_klnmf_restarts(
                 X, k, n_restarts, seed=seed + 1000 * offset, config=config,
-                dtype=dtype, device=device, compact=compact,
+                mesh=mesh, dtype=dtype, device=device, compact=compact,
                 compact_min_bucket=compact_min_bucket,
             )
         return results
 
-    if compact:
-        run = compacting_runner(config, True, compact_min_bucket).run
-    else:
-        update_fn, objective_fn = ops.make_masked_step_functions()
-        run = _fit_with(objective_fn, config, plain_block_builder(update_fn))
+    def make_run(reduce_samples):
+        if compact:
+            return compacting_runner(config, True, compact_min_bucket,
+                                     reduce_samples).run
+        update_fn, objective_fn = ops.make_masked_step_functions(
+            reduce_samples=reduce_samples)
+        return _fit_with(objective_fn, config, plain_block_builder(update_fn))
+
+    def run(params0, data):
+        return klnmf_mesh_run(make_run, mesh, params0["W"].shape[0],
+                              data["X"].shape[-1])(params0, data)
+
     return _padded_scan(X, ranks, n_restarts, seed, rank_bucket, True,
                         _resolve_pack(pack_points, config, device),
                         _lanes_cap(X, n_restarts, 3), run, gamma=False)
@@ -511,12 +544,17 @@ def rank_scan_mvnmf(
     line-search gamma persists per lane, exactly as the model's _gamma.
     pad_ranks=False runs the same masked step one rank per call (all-true
     masks). Seeding, pack_points, compact and checkpoint_dir as in
-    rank_scan_klnmf. Losses MINIMIZE (KL + lam * volume).
+    rank_scan_klnmf. Losses MINIMIZE (KL + lam * volume). A `mesh` shards
+    the restart axis only (every rank calls; its ways must divide
+    n_restarts): the sample axis of MvNMF waits for ROADMAP item 18.
     """
-    _mesh_unported(mesh)
     config = config or FitConfig()
     device = resolve_device(device)
     ranks = [int(k) for k in n_signatures_range]
+    if mesh is not None:
+        if axis_size(mesh, SAMPLE_AXIS) > 1:
+            raise NotImplementedError(MESH_NOT_PORTED)
+        check_divides(mesh, n_restarts, np.shape(X)[-1])
     if checkpoint_dir is not None:
         return _rank_scan_with_checkpoint(
             checkpoint_dir, "rank_scan_mvnmf", X, ranks, n_restarts, seed,
@@ -530,11 +568,12 @@ def rank_scan_mvnmf(
             },
             lambda offset, k: rank_scan_mvnmf(
                 X, [k], n_restarts, seed=seed + 1000 * offset, lam=lam,
-                delta=delta, config=config, dtype=dtype, device=device,
-                pad_ranks=pad_ranks, rank_bucket=rank_bucket,
+                delta=delta, config=config, mesh=mesh, dtype=dtype,
+                device=device, pad_ranks=pad_ranks, rank_bucket=rank_bucket,
                 pack_points=pack_points, compact=compact,
                 compact_min_bucket=compact_min_bucket,
             )[k],
+            mesh,
         )
     compact = resolve_compact(compact, config, mesh, n_restarts,
                               compact_min_bucket, device)
@@ -550,4 +589,5 @@ def rank_scan_mvnmf(
         run = _fit_with(objective_fn, config, plain_block_builder(update_fn))
     return _padded_scan(X, ranks, n_restarts, seed, rank_bucket, pad_ranks,
                         _resolve_pack(pack_points, config, device),
-                        _lanes_cap(X, n_restarts, 4), run, gamma=True)
+                        _lanes_cap(X, n_restarts, 4), on_mesh(run, mesh),
+                        gamma=True)

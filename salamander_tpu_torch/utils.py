@@ -21,8 +21,10 @@ from scipy.optimize import linear_sum_assignment
 EPSILON = float(np.finfo(np.float32).eps)
 
 MESH_NOT_PORTED = (
-    "mesh= waits for the port of parallel/mesh.py (sharding one fit over "
-    "devices, ROADMAP Queue 1 item 17)"
+    "mesh= on this path waits for ROADMAP Queue 1 item 18: the sample axis "
+    "of MvNMF, ARDNMF, CorrNMFDet and MultimodalCorrNMF, fit_minibatch, "
+    "rank_scan_corrnmf, assignment and extraction under a mesh (the KLNMF "
+    "fits and the restart axis of every multi-start fit are ported)"
 )
 
 

@@ -181,7 +181,7 @@ def test_input_validation_and_mesh(small):
         port.assign_signatures(data, catalog.to_numpy(), **CPU)
     with pytest.raises(ValueError, match="do not match"):
         port.assign_signatures(data, catalog.iloc[:, :-1], **CPU)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(NotImplementedError, match="item 18"):
         port.assign_exposures(data, catalog, mesh=object(), **CPU)
     before = data.copy()
     port.assign_exposures(data, catalog, max_iterations=20, **CPU)

@@ -11,9 +11,11 @@ test_torch_corrnmf_model.py holds the signatures at 1e-5). `assign`, dense and s
 `scan`, `extract` and `bootstrap` draw with jax.random in the JAX package,
 which torch cannot reproduce: for these the files, columns and index are
 checked. Without --cpu and without a card every command exits non-zero;
---mesh exits naming ROADMAP item 17; and fit --resume refuses counts that
-are not the checkpoint's own cohort (the JAX CLI checks only the first
-modality's shape)."""
+fit --mesh runs in a world of one and equals the plain fit, while the
+paths whose mesh is still to port exit naming ROADMAP item 18; and fit
+--resume refuses counts that are not the checkpoint's own cohort (the JAX
+CLI checks only the first modality's shape). The spawned worlds of
+test_torch_sharding.py run the mesh commands across ranks."""
 
 import json
 import subprocess
@@ -352,21 +354,29 @@ def test_cli_fit_multi_counts_requires_mm(cohort, tmp_path):
 
 
 def test_cli_fit_under_mesh(cohort, tmp_path):
-    """fit --mesh waits for the sharding port (ROADMAP item 17): it exits
-    non-zero saying so, and writes nothing."""
-    with pytest.raises(SystemExit, match="item 17") as excinfo:
-        run([
-            "fit", str(cohort["root"] / "counts.csv"),
-            "--model", "klnmf", "-k", "3", "--seed", "1",
-            "--dtype", "float64", "--mesh", "samples=4",
-            "-o", str(tmp_path / "mesh"),
-        ])
+    """fit --mesh auto in a plain process is a world of one: the same
+    files as the plain fit, and no process group left behind. A mesh of
+    4 sample ways on one rank exits non-zero saying why, and writes
+    nothing."""
+    import torch.distributed as dist
+
+    argv = ["fit", str(cohort["root"] / "counts.csv"), "--model", "klnmf",
+            "-k", "3", "--seed", "1", "--dtype", "float64",
+            "--min-iterations", "100", "--max-iterations", "200"]
+    assert run(argv + ["-o", str(tmp_path / "plain")]) == 0
+    assert run(argv + ["--mesh", "auto", "-o", str(tmp_path / "auto")]) == 0
+    assert not dist.is_initialized()
+    for name in ("signatures.csv", "exposures.csv"):
+        pd.testing.assert_frame_equal(read(tmp_path / "auto" / name),
+                                      read(tmp_path / "plain" / name))
+    with pytest.raises(SystemExit, match="not divisible") as excinfo:
+        run(argv + ["--mesh", "samples=4", "-o", str(tmp_path / "mesh")])
     assert excinfo.value.code not in (0, None)
     assert not (tmp_path / "mesh" / "model.npz").exists()
 
 
 def test_cli_fit_mesh_rejects_streaming(cohort, tmp_path):
-    with pytest.raises(SystemExit, match="item 17"):
+    with pytest.raises(SystemExit, match="mutually exclusive"):
         run([
             "fit", str(cohort["root"] / "counts.csv"),
             "--model", "klnmf", "-k", "3", "--batch-size", "8",
@@ -427,7 +437,7 @@ def test_cli_fit_resume_continues(cohort, tmp_path, capsys):
 # Placeholders: C = counts CSV, CAT = catalog CSV (substituted per-test).
 # match=None marks argparse-level failures (SystemExit code 2, message on
 # stderr); a string matches our explicit SystemExit message. A valid
-# --mesh spec exits naming item 17.
+# --mesh spec on a path still to port exits naming item 18.
 NEGATIVE_CASES = [
     # fit
     (["fit", "C", "-k", "abc"], "invalid -k"),
@@ -445,7 +455,8 @@ NEGATIVE_CASES = [
     (["fit", "C", "-k", "3", "--mesh", "bogus"], "invalid mesh spec"),
     (["fit", "C", "-k", "3", "--mesh", "samples=x"], "integer"),
     (["fit", "C", "-k", "3", "--mesh", "samples=0"], ">= 1"),
-    (["fit", "C", "-k", "3", "--mesh", "auto"], "item 17"),
+    (["fit", "C", "-k", "3", "--model", "corrnmf", "--mesh", "auto"],
+     "item 18"),
     (["fit", "/nonexistent/counts.csv", "-k", "3"], "file not found"),
     (["fit", "C"], None),                       # missing -k
     (["fit", "C", "-k", "3", "--model", "nope"], None),
@@ -456,7 +467,8 @@ NEGATIVE_CASES = [
     (["scan", "C", "--ranks", "2", "-r", "0"], "--n-restarts"),
     (["scan", "C", "--ranks", "2", "--min-iterations", "10",
       "--max-iterations", "5"], "exceeds"),
-    (["scan", "C", "--ranks", "2", "--mesh", "auto"], "item 17"),
+    (["scan", "C", "--ranks", "2", "--model", "corrnmf",
+      "--dim-embeddings", "2", "--mesh", "auto"], "item 18"),
     (["scan", "C"], None),                      # missing --ranks
     # extract
     (["extract", "C", "--ranks", "x"], "invalid rank spec"),
@@ -464,7 +476,7 @@ NEGATIVE_CASES = [
      "--n-bootstraps"),
     (["extract", "C", "--ranks", "2", "--min-stability", "1.5"],
      "[0, 1]"),
-    (["extract", "C", "--ranks", "2", "--mesh", "samples=2"], "item 17"),
+    (["extract", "C", "--ranks", "2", "--mesh", "samples=2"], "item 18"),
     (["extract", "C"], None),                   # missing --ranks
     # assign
     (["assign", "C", "CAT", "--rel-tol", "-0.1"], ">= 0"),
@@ -480,7 +492,7 @@ NEGATIVE_CASES = [
     (["bootstrap", "C", "CAT", "--min-fraction", "2"], "[0, 1]"),
     (["bootstrap", "C", "CAT", "--replicate-batch", "0"],
      "--replicate-batch"),
-    (["bootstrap", "C", "CAT", "--mesh", "auto"], "item 17"),
+    (["bootstrap", "C", "CAT", "--mesh", "auto"], "item 18"),
     # top level
     (["frobnicate"], None),                     # unknown subcommand
 ]
@@ -506,8 +518,8 @@ def test_cli_negative_paths(cohort, tmp_path, argv, match):
 
 
 def test_cli_assign_under_mesh(cohort, tmp_path):
-    """assign --mesh waits for the sharding port (ROADMAP item 17)."""
-    with pytest.raises(SystemExit, match="item 17"):
+    """assign --mesh waits for ROADMAP item 18."""
+    with pytest.raises(SystemExit, match="item 18"):
         run([
             "assign", str(cohort["root"] / "counts.csv"),
             str(cohort["root"] / "catalog.csv"), "--max-iterations", "300",

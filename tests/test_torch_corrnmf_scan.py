@@ -167,6 +167,6 @@ def test_defect_e_scan_identity_has_dtype(X, tmp_path):
 def test_arguments_are_checked(X):
     with pytest.raises(ValueError, match="dim_embeddings"):
         port.rank_scan_corrnmf(X, [2], **KWARGS)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(NotImplementedError, match="item 18"):
         port.rank_scan_corrnmf(X, [2], dim_embeddings=2, mesh=object(),
                                **KWARGS)

@@ -438,5 +438,5 @@ def test_invalid_inputs(planted):
                        (dict(ranks=[61]), "exceeds")):
         with pytest.raises(ValueError, match=match):
             port.extract_signatures(data, **dict(dict(device="cpu"), **bad))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(NotImplementedError, match="item 18"):
         port.extract_signatures(data, ranks=[2], mesh=object(), device="cpu")

@@ -39,6 +39,7 @@ MODULES = sorted(
     "salamander_tpu_torch.parallel.bootstrap",
     "salamander_tpu_torch.parallel.compaction",
     "salamander_tpu_torch.parallel.corrnmf_scan",
+    "salamander_tpu_torch.parallel.mesh",
     "salamander_tpu_torch.parallel.multistart",
     "salamander_tpu_torch.parallel.restarts",
     "salamander_tpu_torch.plot",
@@ -65,9 +66,26 @@ def test_every_module_imports_with_jax_blocked():
     assert run.returncode == 0, run.stderr
 
 
+def test_the_mesh_module_loads_no_jax():
+    """parallel.mesh stands on torch.distributed alone: importing it (and
+    building a world of one) loads no jax."""
+    code = (
+        "import sys\n"
+        "import salamander_tpu_torch.parallel.mesh as mesh\n"
+        "grid = mesh.make_mesh(device='cpu')\n"
+        "assert tuple(grid.mesh_dim_names) == ('restarts', 'samples')\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') "
+        "or m.startswith('salamander_tpu.') or m == 'salamander_tpu' "
+        "for m in sys.modules)\n"
+    )
+    run = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr
+
+
 @pytest.mark.parametrize("call, waits_for", [
     (lambda pkg, **kw: pkg.CorrNMFDet(2, **kw).fit_minibatch(
-        None, mesh=object()), "parallel/mesh.py"),
+        None, mesh=object()), "item 18"),
     (lambda pkg, **kw: pkg.CorrNMFDet(2, **kw).plot_embeddings(), None),
     (lambda pkg, **kw: pkg.ARDNMF(2, **kw).plot_relevance(), None),
 ], ids=["fit_minibatch", "plot_embeddings", "plot_relevance"])

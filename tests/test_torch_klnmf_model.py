@@ -184,13 +184,13 @@ def test_fit_klnmf_restarts_on_cpu(catalog):
     assert result.W.shape == (4, 96, 3) and result.H.shape == (4, 3, 48)
     assert result.best_loss == result.losses.min()
     np.testing.assert_allclose(result.best_W.sum(axis=0), 1.0, rtol=1e-12)
-    # lane compaction is ported: the same lanes; meshes are not
+    # lane compaction is ported: the same lanes; a mesh must be a mesh
     packed = port.fit_klnmf_restarts(
         X, 3, 4, seed=1, config=port.FitConfig(20, 60, 10, 1e-6),
         dtype=torch.float64, device="cpu", compact=True,
         compact_min_bucket=1)
     np.testing.assert_array_equal(packed.losses, result.losses)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         port.fit_klnmf_restarts(X, 3, 4, mesh=object(), device="cpu")
 
 
@@ -256,9 +256,10 @@ def test_utils_match_jax(catalog):
 @pytest.mark.parametrize("case, error", [
     ("warm_start_unfitted", ValueError),
     ("warm_start_given", ValueError),
-    ("mesh", NotImplementedError),
+    ("mesh", TypeError),
     ("negative_weights", ValueError),
-])
+], ids=["warm_start_unfitted-ValueError", "warm_start_given-ValueError",
+        "mesh-NotImplementedError", "negative_weights-ValueError"])
 def test_fit_refuses(catalog, case, error):
     _, adata = containers_of(catalog.iloc[:8])
     model = port.KLNMF(n_signatures=2, device="cpu", max_iterations=20)

@@ -556,15 +556,16 @@ def test_device_none_needs_a_card_and_dtype_follows_the_device():
 
 
 @pytest.mark.parametrize("method,item", [
-    ("fit_minibatch", 17), ("plot_history", 6), ("plot_signatures", 6),
+    ("fit_minibatch", 18), ("plot_history", 6), ("plot_signatures", 6),
     ("plot_exposures", 6), ("plot_correlation", 6), ("plot_embeddings", 6),
-])
+], ids=["fit_minibatch-17", "plot_history-6", "plot_signatures-6",
+        "plot_exposures-6", "plot_correlation-6", "plot_embeddings-6"])
 def test_unported_methods_name_their_roadmap_item(fitted, method, item):
     """fit_minibatch itself is ported; sharding it (mesh=) is what still
     waits. The plots (item 6) came with plot.py: each draws what the JAX
     package's method draws, or raises what it raises."""
     model_j, model_t = fitted
-    if item == 17:
+    if item == 18:
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP Queue 1 item {item}"):
             getattr(model_t, method)(mdata=None, mesh=object())
@@ -590,5 +591,5 @@ def test_unported_methods_name_their_roadmap_item(fitted, method, item):
 
 def test_mesh_names_its_roadmap_item():
     model, mdata = build(port, port, {"device": "cpu"})
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 18"):
         model.fit(mdata, mesh=object())

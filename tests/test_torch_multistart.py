@@ -138,9 +138,10 @@ def test_unported_family_and_mesh_raise(frame):
     with pytest.raises(NotImplementedError, match="SomeOtherNMF"):
         port.fit_best_of(SomeOtherNMF(device="cpu"),
                          port.AnnData(frame.copy()), 2)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # the restart axis of every family takes a mesh: a non-mesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         port.fit_best_of(model, mm_mdata(port), 2, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         port.fit_best_of(port_model("KLNMF"), port.AnnData(frame.copy()), 2,
                          mesh=object())
     with pytest.raises(ValueError, match="batched_init=True"):
@@ -442,5 +443,5 @@ def test_next_bucket_schedule_and_auto_policy():
     assert not resolve(None, fixed, None, 100, 8, "cuda")
     assert not resolve(None, config, None, 100, 8, "cpu")
     assert resolve(True, fixed, None, 2, 8, "cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         resolve(None, config, object(), 100, 8, "cuda")

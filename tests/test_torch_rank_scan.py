@@ -197,6 +197,7 @@ def test_pack_auto_policy():
 
 
 def test_mesh_is_not_ported(X):
+    # both scans take meshes now: an object that is not one is refused
     for run in (port.rank_scan_klnmf, port.rank_scan_mvnmf):
-        with pytest.raises(NotImplementedError, match="mesh"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             run(X, [2], 2, mesh=object(), **KWARGS)

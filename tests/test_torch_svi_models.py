@@ -142,7 +142,7 @@ def test_mesh_with_streaming_is_refused_as_in_the_jax_package(family):
 
 @pytest.mark.parametrize("family", list(MODELS))
 def test_mesh_alone_names_the_item_it_waits_for(family):
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(NotImplementedError, match="item 18"):
         MODELS[family]().fit_minibatch(None, mesh=object())
 
 
