@@ -40,7 +40,7 @@ check raises, so the script exits non-zero and prints no result):
 8. rank_scan_klnmf(X, range(2, 11), 20, seed=0) unpadded (with and without
    compaction; launches the kernel) and padded (packed and one point per
    call; plain ops), one run each; best loss per rank at rtol 1e-4.
-9. CorrNMFDet(n_signatures=5, dim_embeddings=2, min 100, max 2000,
+9. CorrNMFDet(n_signatures=5, dim_embeddings=2, min 100, max 1000,
    tol 1e-7).fit on PCAWG SBS in float32 (np.random.seed(0)): EM cycles,
    wall, cycles/s, final ELBO, signature-side Newton steps per cycle; the
    ELBO is finite and its history never falls by more than float32 noise.
@@ -72,7 +72,7 @@ Phases 9-11 run plain PyTorch ops (neither family reaches the kernel).
    {sbs 96, indel 83, sv 32} x 192 (np.random.seed(0)): wall, EM cycles,
    cycles/s, final ELBO; the ELBO trace never falls by more than float32
    noise and its last value equals objective_function() on the absorbed
-   state at rtol 1e-5. fit_best_of(random init, max 500, R=16,
+   state at rtol 1e-5. fit_best_of(random init, max 500, R=8,
    base_seed=0) compacted and monolithic (one run each), best ELBO at rtol
    1e-4. The synthetic {96, 83} x 100,000 cohort (default_rng(1)),
    ns_signatures [4, 3], R=4, 100 cycles, tol 1e-6: the bytes reckoned
@@ -88,10 +88,10 @@ Phases 9-11 run plain PyTorch ops (neither family reaches the kernel).
    that is checked. (a) fit_minibatch resident against streaming at one
    seed for KLNMF (weights_kl and weights_lhalf), CorrNMFDet(5, m=2) and
    MultimodalCorrNMF([5, 4, 3], m=3) on the PCAWG data, batch_size 48 and
-   50 (50 divides no epoch), 200 steps, eval_freq 50: every absorbed
+   50 (50 divides no epoch), 100 steps, eval_freq 25: every absorbed
    parameter bit-equal, traces at rtol 1e-5, streaming prefetch 1, 2 and 4
    bit-equal. (b) The synthetic 96 x 200,000 cohort, CorrNMFDet k=5 m=2,
-   init seed 1: 50 full-batch EM cycles, then 1,000 minibatch steps at
+   init seed 1: 50 full-batch EM cycles, then 500 minibatch steps at
    B=4,096, delay 50, no evaluations, resident and streaming in turns (r,
    s, s, r): steps/s, sample updates/s, peak allocated memory of each
    placement, the four final states bit-equal, the ELBO after the steps
@@ -126,19 +126,35 @@ Phases 9-11 run plain PyTorch ops (neither family reaches the kernel).
    (a) In this process, init_distributed() and make_mesh(): a world of one
    over NCCL and a 1 x 1 mesh, one NCCL all_reduce on the card;
    fit_klnmf_restarts(k=5, R=100, the headline window) on the mesh
-   bit-equal to the meshless fit with the same launches; `python -m
-   salamander_tpu_torch fit --model klnmf -k 5 --mesh auto` as a process of
-   its own equal to the meshless in-process fit. (b) Two ranks on the one
-   card over gloo (NCCL takes one rank a card), spawned with the `fit`
-   process at the start of the phase so that their start-up overlaps (a),
-   and told to go after it: gloo's all_reduce
-   and broadcast of CUDA tensors; on a (2, 1) mesh each rank's 50 lanes
-   launch the kernel, the gathered losses equal the meshless fit's at rtol
-   2e-4 and the best is within 1e-4 of 20414; on a (1, 2) mesh
-   KLNMF(5).fit shards the samples: no launches, KL within 1e-4 of the
-   meshless plain fit from the same init, iterations within 5%. Each
-   rank's launches and walls join the launch counts by path. Both ranks
-   share one card: no number here is a scaling.
+   bit-equal to the meshless fit with the same launches; cell 7
+   (extract_signatures(PCAWG SBS, range(2, 11), 20, seed=0)) on the mesh
+   bit-equal to phase 12's grouped run with as many launches, all with a
+   per-lane X; through cli.main, `extract --ranks 2-6 --n-bootstraps 10`
+   (the kernel, per-lane X), `assign` against COSMIC-79 and `fit --model
+   corrnmf -k 5` (no kernel) under --mesh auto, each writing its files;
+   `python -m salamander_tpu_torch fit --model klnmf -k 5 --mesh auto` as
+   a process of its own equal to the meshless in-process fit. (b) Two
+   ranks on the one card over gloo (NCCL takes one rank a card), spawned
+   with the `fit` process at the start of the phase so that their start-up
+   overlaps (a), and told to go after it: gloo's all_reduce and broadcast
+   of CUDA tensors; on a (2, 1) mesh each rank's 50 lanes launch the
+   kernel, the gathered losses equal the meshless fit's at rtol 2e-4 and
+   the best is within 1e-4 of 20414, and cell 7's 180 lanes split 90 a
+   rank, each rank's through the resident kernel with a per-lane X, the
+   suggested rank phase 12's and each rank's best replicate loss within
+   1e-4 of phase 12's; on a (1, 2) mesh KLNMF(5).fit shards the samples:
+   no launches, KL within 1e-4 of the meshless plain fit from the same
+   init, iterations within 5%; and so do, each against the same call
+   without a mesh in this process from the same init (traces at rtol
+   1e-4, equal windows, 0 launches, the collectives a cycle counted):
+   MvNMF(5) and ARDNMF(10) over 300 iterations, CorrNMFDet(5, m=2) over 50
+   cycles and at cell 3c's full width (96 x 200,000, init seed 1, 20
+   cycles, 100,000 samples a rank), MultimodalCorrNMF([5, 4, 3], m=3) over
+   20 cycles, CorrNMFDet.fit_minibatch at B=48 for 100 steps,
+   assign_signatures(rel_tol=0.02) against COSMIC-79 (none over the
+   budget) and bootstrap_exposures(..., 10). The two ranks hold equal
+   results. Each rank's launches and walls join the launch counts by
+   path. Both ranks share one card: no number here is a scaling.
 
 Each of phases 4-18 runs with the kernel's launch counts (in all, by
 kernel and by shared or per-lane X) set to 0 just before it and read just
@@ -829,7 +845,7 @@ def phase_corrnmf(torch, sal):
     hyper = dict(n_signatures=5, dim_embeddings=2, min_iterations=100,
                  tol=1e-7, device="cuda", dtype="float32")
     np.random.seed(0)
-    model = sal.CorrNMFDet(max_iterations=2000, **hyper)
+    model = sal.CorrNMFDet(max_iterations=1000, **hyper)
     corr_ops._newton_step = counting_step
     corr_ops.update_embeddings = counting_update
     try:
@@ -1209,11 +1225,11 @@ def phase_multimodal(torch, sal):
         summary, seconds = timed(torch, lambda: sal.fit_best_of(
             sal.MultimodalCorrNMF(init_method="random", max_iterations=500,
                                   tol=1e-7, **hyper),
-            pcawg_mdata(sal), n_restarts=16, base_seed=0, compact=compact))
+            pcawg_mdata(sal), n_restarts=8, base_seed=0, compact=compact))
         check(bool(np.isfinite(summary.losses).all()), "non-finite ELBOs")
         walls[compact].append(seconds)
         best[compact] = float(summary.losses.max())
-        print(f"[15] fit_best_of(MultimodalCorrNMF, R=16, compact="
+        print(f"[15] fit_best_of(MultimodalCorrNMF, R=8, compact="
               f"{compact}): {seconds:.3f} s, best ELBO {best[compact]:.4f}, "
               f"cycles {summary.n_iterations.min()}.."
               f"{summary.n_iterations.max()} (mean "
@@ -1394,8 +1410,8 @@ def phase_svi_equality(torch, sal):
         svi.run_svi_streaming = functools.partial(real, prefetch=prefetch)
         try:
             _, seconds = timed(torch, lambda: model.fit_minibatch(
-                make_data(), batch_size=batch_size, n_steps=200,
-                eval_freq=50, seed=0, init_kwargs={"seed": 0},
+                make_data(), batch_size=batch_size, n_steps=100,
+                eval_freq=25, seed=0, init_kwargs={"seed": 0},
                 streaming=streaming, **extra))
         finally:
             svi.run_svi_streaming = real
@@ -1423,7 +1439,7 @@ def phase_svi_equality(torch, sal):
             for values in resident.values():
                 check(bool(np.isfinite(values).all()),
                       f"{label}: non-finite parameters")
-            print(f"[16a] {label} fit_minibatch B={batch_size}, 200 steps: "
+            print(f"[16a] {label} fit_minibatch B={batch_size}, 100 steps: "
                   f"resident {wall_r:.3f} s, streaming "
                   f"{', '.join(walls)}: {len(resident)} parameters "
                   f"bit-equal, traces within {TRACE_RTOL} (last "
@@ -1432,12 +1448,12 @@ def phase_svi_equality(torch, sal):
 
 def phase_svi_cell3c(torch, sal):
     """The 96 x 200,000 synthetic cohort, CorrNMFDet k=5, m=2: full-batch
-    EM cycles/s, then 1,000 minibatch steps at B=4,096 resident and
+    EM cycles/s, then 500 minibatch steps at B=4,096 resident and
     streaming in turns."""
     from salamander_tpu_torch.models.signature_nmf import host_rows
     from salamander_tpu_torch.ops import svi
 
-    D, B, n_steps, n_cycles = 200_000, 4096, 1000, 50
+    D, B, n_steps, n_cycles = 200_000, 4096, 500, 50
     X_host, seconds = timed(torch, lambda: np.ascontiguousarray(
         sal.datasets.synthetic_catalog(96, D, 5, seed=0).T, dtype=np.float32))
     model = sal.CorrNMFDet(n_signatures=5, dim_embeddings=2, device="cuda",
@@ -1937,7 +1953,112 @@ def phase_profiling(torch, sal):
 
 MESH_OUT = ROOT / "build" / "chip_smoke_mesh"  # gitignored, emptied first
 MESH_TIMEOUT_S = 60    # process-group timeout: a rank that stops fails
-MESH_JOIN_LIMIT = 300  # s: the two ranks end within it or are killed
+MESH_JOIN_LIMIT = 420  # s: the two ranks end within it or are killed
+COHORT_3C = (96, 200_000, 5)  # cell 3c: features, samples, signatures
+MESH_RTOL = 1e-4       # a sample-sharded float32 run against the meshless
+
+
+def digest(*arrays) -> str:
+    """A hash of arrays' float64 values: equal on both ranks or not."""
+    import hashlib
+
+    hashed = hashlib.sha1()
+    for array in arrays:
+        hashed.update(np.ascontiguousarray(
+            np.asarray(array, dtype=np.float64)).tobytes())
+    return hashed.hexdigest()
+
+
+def cohort_3c(sal) -> np.ndarray:
+    """Cell 3c's 96 x 200,000 synthetic cohort, samples as rows, float32."""
+    V, D, K = COHORT_3C
+    return np.ascontiguousarray(
+        sal.datasets.synthetic_catalog(V, D, K, seed=0).T, dtype=np.float32)
+
+
+def sample_paths(sal):
+    """18b's (1, 2) paths: {name: run(mesh) -> summary}, run in both ranks
+    on a mesh of 2 sample ways and in this process without one (mesh=None)
+    from the same init. A summary holds the trace held at rtol 1e-4
+    ("trace"), the iterations or steps ("n"; "fixed": a fixed window, so
+    equal), what the collectives are counted per ("units") and a digest of
+    the absorbed parameters (equal on both ranks)."""
+    pcawg = sal.datasets.load_pcawg_sbs
+    cosmic = sal.datasets.load_cosmic_sbs_catalog
+    cuda = dict(device="cuda", dtype="float32")
+
+    def placed(mesh):
+        return {} if mesh is None else {"mesh": mesh}
+
+    def fitted(model, units=None):
+        n = int(model.history["n_iterations"])
+        return {"trace": [float(v) for v in
+                          model.history["objective_function"]],
+                "n": n, "units": units or n, "fixed": True,
+                "digest": digest(*fitted_arrays(model).values())}
+
+    def fit(build, data, **kwargs):
+        def run(mesh):
+            np.random.seed(0)
+            model = build()
+            model.fit(data(), **kwargs, **placed(mesh))
+            return fitted(model)
+
+        return run
+
+    def window(n):
+        return dict(min_iterations=n, max_iterations=n)
+
+    def minibatch(mesh):
+        np.random.seed(0)
+        model = sal.CorrNMFDet(5, dim_embeddings=2, **cuda)
+        model.fit_minibatch(sal.AnnData(pcawg()), batch_size=48,
+                            n_steps=100, eval_freq=50, seed=0,
+                            **placed(mesh))
+        return fitted(model, units=100)
+
+    def assign(mesh):
+        result = sal.assign_signatures(pcawg(), cosmic(), rel_tol=0.02,
+                                       device="cuda", **placed(mesh))
+        kl_dense = result.kl_dense.to_numpy()
+        kl_sparse = result.kl_sparse.to_numpy()
+        rounds = int(result.meta["n_rounds"])
+        return {"trace": [float(kl_sparse.sum()), float(kl_dense.sum())],
+                "n": rounds, "units": rounds, "fixed": False,
+                "over": int(np.sum(kl_sparse > 1.02 * kl_dense)),
+                "support": float(result.n_active.mean()),
+                "active": result.active.to_numpy().astype(int).tolist(),
+                "digest": digest(result.exposures, result.active)}
+
+    def bootstrap(mesh):
+        result = sal.bootstrap_exposures(pcawg(), cosmic(), 10,
+                                         device="cuda", **placed(mesh))
+        return {"trace": [float(result.point.to_numpy().sum()),
+                          float(result.mean.to_numpy().sum())],
+                "n": 10, "units": 10, "fixed": True,
+                "digest": digest(result.point, result.mean, result.std)}
+
+    return {
+        "MvNMF(5).fit": fit(lambda: sal.MvNMF(5, **window(300), **cuda),
+                            lambda: sal.AnnData(pcawg())),
+        "ARDNMF(10).fit": fit(lambda: sal.ARDNMF(10, **window(300), **cuda),
+                              lambda: sal.AnnData(pcawg())),
+        "CorrNMFDet(5, m=2).fit": fit(
+            lambda: sal.CorrNMFDet(5, dim_embeddings=2, **window(50),
+                                   **cuda),
+            lambda: sal.AnnData(pcawg())),
+        "cell 3c CorrNMFDet(5, m=2).fit": fit(
+            lambda: sal.CorrNMFDet(5, dim_embeddings=2, **window(20),
+                                   **cuda),
+            lambda: sal.AnnData(cohort_3c(sal)), init_kwargs={"seed": 1}),
+        "MultimodalCorrNMF([5, 4, 3], m=3).fit": fit(
+            lambda: sal.MultimodalCorrNMF([5, 4, 3], dim_embeddings=3,
+                                          **window(20), **cuda),
+            lambda: pcawg_mdata(sal)),
+        "CorrNMFDet.fit_minibatch(B=48)": minibatch,
+        "assign_signatures(rel_tol=0.02)": assign,
+        "bootstrap_exposures(10)": bootstrap,
+    }
 
 
 def headline_config():
@@ -1983,13 +2104,12 @@ def start_mesh_cli(sal):
     return process, time.perf_counter()
 
 
-def phase_mesh_world_of_one(torch, sal, cuda_klnmf, X_host, cli):
+def phase_mesh_world_of_one(torch, sal, cuda_klnmf, X_host):
     """18a: init_distributed() and make_mesh() in this process: a world of
     one over NCCL, a 1 x 1 mesh; one NCCL all_reduce; fit_klnmf_restarts
     (k=5, R=100, the headline window) on the mesh bit-equal to the meshless
-    fit with the same kernel launches; then the `fit --mesh auto` process
-    (start_mesh_cli) checked against the meshless in-process fit. Returns
-    the meshless fit's losses."""
+    fit with the same kernel launches. The world stays up for the rest of
+    18a. Returns the meshless fit's losses."""
     import torch.distributed as dist
 
     sal.init_distributed()
@@ -2026,6 +2146,86 @@ def phase_mesh_world_of_one(torch, sal, cuda_klnmf, X_host, cli):
           "the 1 x 1 mesh fit is not bit-equal to the meshless fit")
     print("[18a] the 1 x 1 mesh fit equals the meshless fit bit for bit "
           "(losses, W, H, iterations)")
+    return plain.losses
+
+
+def phase_mesh_extract_one(torch, sal, cuda_klnmf, grouped, launches):
+    """18a: cell 7 (extract_signatures(PCAWG SBS, range(2, 11), 20,
+    seed=0)) on the 1 x 1 mesh: bit-equal to phase 12's grouped run
+    (`grouped`, `launches` kernel launches), with as many launches, every
+    one with a per-lane X."""
+    kernel = cuda_klnmf.fused_mu_block
+    before, per_lane = kernel.launches, per_lane_launches(cuda_klnmf)
+    result, seconds = timed(torch, lambda: sal.extract_signatures(
+        sal.datasets.load_pcawg_sbs(), range(2, 11), n_bootstraps=20,
+        seed=0, device="cuda", mesh=sal.make_mesh()))
+    launched = kernel.launches - before
+    per_lane = per_lane_launches(cuda_klnmf) - per_lane
+    check(result.layout == "grouped", f"the mesh run took {result.layout}")
+    check(launched == launches and per_lane == launched,
+          f"the 1 x 1 mesh extraction launched {launched} kernels "
+          f"({per_lane} with a per-lane X), phase 12 {launches}")
+    check(result.table.equals(grouped.table)
+          and result.suggested_rank == grouped.suggested_rank
+          and all(np.array_equal(result.replicate_losses[k],
+                                 grouped.replicate_losses[k])
+                  and np.array_equal(result.consensus[k].to_numpy(),
+                                     grouped.consensus[k].to_numpy())
+                  for k in grouped.replicate_losses),
+          "the 1 x 1 mesh extraction is not bit-equal to phase 12's")
+    print(f"[18a] extract_signatures(PCAWG SBS, k=2..10, B=20) on the 1 x 1 "
+          f"mesh: {seconds:.3f} s, {launched} kernel launches (all with a "
+          f"per-lane X, as phase 12's {launches}); table, losses and "
+          f"consensus bit-equal to phase 12's grouped run, suggested rank "
+          f"{result.suggested_rank}")
+
+
+def mesh_cli_commands(sal) -> dict:
+    """18a's in-process commands under --mesh auto (the world of one)."""
+    csv = str(sbs_csv(sal))
+    return {
+        "extract --mesh auto": ["extract", csv, "--ranks", "2-6",
+                                "--n-bootstraps", "10", "--mesh", "auto"],
+        "assign --mesh auto": ["assign", csv, "cosmic-sbs", "--mesh",
+                               "auto"],
+        "fit --model corrnmf --mesh auto": [
+            "fit", csv, "--model", "corrnmf", "-k", "5", "--dim-embeddings",
+            "2", "--min-iterations", "100", "--max-iterations", "200",
+            "--mesh", "auto"],
+    }
+
+
+def phase_mesh_cli_command(torch, sal, cuda_klnmf, command, argv):
+    """18a: one command through cli.main under --mesh auto in this
+    process's world of one: exit 0 and its files; extract launches the
+    kernel with a per-lane X, assign and a corrnmf fit launch none."""
+    from salamander_tpu_torch import cli
+
+    out = MESH_OUT / "18a_commands" / command.split()[0]
+    kernel = cuda_klnmf.fused_mu_block
+    before, per_lane = kernel.launches, per_lane_launches(cuda_klnmf)
+    code, seconds = timed(torch, lambda: cli.main(argv + ["-o", str(out)]))
+    launched = kernel.launches - before
+    per_lane = per_lane_launches(cuda_klnmf) - per_lane
+    check(code == 0, f"{command} returned {code}")
+    files = {"extract": CLI_FILES["extract"], "assign": CLI_FILES["assign"],
+             "fit": CLI_FILES["fit"]}[command.split()[0]]
+    for name in files:
+        check((out / name).is_file(), f"{command} wrote no {name}")
+    if command.startswith("extract"):
+        check(launched > 0 and per_lane == launched,
+              f"{command} did not launch the kernel with a per-lane X")
+    else:
+        check(launched == 0, f"{command} runs plain ops")
+    print(f"[18a] salamander_tpu_torch {command}: {seconds:.3f} s wall, "
+          f"{launched} kernel launches ({per_lane} with a per-lane X), "
+          f"wrote {', '.join(files)}")
+
+
+def phase_mesh_cli_process(torch, sal, cli):
+    """18a: the world of one ends; then the `fit --mesh auto` process
+    (start_mesh_cli) is checked against the meshless in-process fit."""
+    import torch.distributed as dist
 
     dist.destroy_process_group()
     process, start = cli
@@ -2048,7 +2248,96 @@ def phase_mesh_world_of_one(torch, sal, cuda_klnmf, X_host, cli):
           f"{model.history['n_iterations']} iterations, KL "
           f"{final_kl(model):.4f}; signatures bit-equal: "
           f"{np.array_equal(loaded.asignatures.X, model.asignatures.X)}")
-    return plain.losses
+
+
+def run_sample_paths(torch, sal, mesh, kernel) -> dict:
+    """This rank's run of every sample_paths path on `mesh`: its summary
+    with the wall, the collectives (every collective of parallel/mesh.py
+    is a dist.all_reduce) and the kernel's launch counts."""
+    import torch.distributed as dist
+
+    collectives, all_reduce = [0], dist.all_reduce
+
+    def counted(*args, **kwargs):
+        collectives[0] += 1
+        return all_reduce(*args, **kwargs)
+
+    dist.all_reduce = counted
+    runs = {}
+    try:
+        for name, run in sample_paths(sal).items():
+            reset_counts(kernel)
+            collectives[0] = 0
+            summary, seconds = timed(torch, lambda: run(mesh))
+            runs[name] = dict(summary, seconds=seconds,
+                              collectives=collectives[0],
+                              launches=kernel.launches,
+                              by_variant=dict(kernel.launches_by_variant),
+                              by_x=dict(kernel.launches_by_x))
+    finally:
+        dist.all_reduce = all_reduce
+    return runs
+
+
+def check_sample_paths(torch, sal, reports, counts) -> None:
+    """18b: each sample_paths path of both ranks (reports) against the
+    same call without a mesh in this process: no launches, traces at rtol
+    1e-4, equal windows, the two ranks equal. Adds each rank's launch
+    counts to `counts`."""
+    V, D, K = COHORT_3C
+    print(f"[18b] cell 3c at full width: X {V} x {D} float32 is "
+          f"{V * D * 4 / 1e6:.1f} MB, {V * D * 2 / 1e6:.1f} MB a rank; the "
+          f"cycle's (D, V) ratios and (K, D) statistics add about as much "
+          "again")
+    for name, run in sample_paths(sal).items():
+        plain, seconds = timed(torch, lambda: run(None))
+        ours = [report["1x2 paths"][name] for report in reports]
+        check(ours[0]["digest"] == ours[1]["digest"]
+              and ours[0]["trace"] == ours[1]["trace"],
+              f"{name}: the two ranks hold different results")
+        for report in reports:
+            entry = report["1x2 paths"][name]
+            rank = report["rank"]
+            check(entry["launches"] == 0,
+                  f"rank {rank}: the sample-sharded {name} launched the "
+                  "kernel")
+            check(len(entry["trace"]) == len(plain["trace"])
+                  and bool(np.allclose(entry["trace"], plain["trace"],
+                                       rtol=MESH_RTOL, atol=0.0))
+                  and bool(np.isfinite(entry["trace"]).all()),
+                  f"rank {rank}: {name} {entry['trace'][-3:]} is not within "
+                  f"{MESH_RTOL} of the meshless {plain['trace'][-3:]}")
+            if plain["fixed"]:
+                check(entry["n"] == plain["n"],
+                      f"rank {rank}: {name} ran {entry['n']}, meshless "
+                      f"{plain['n']}")
+            counts[f"18b mesh (1, 2) {name} rank {rank}"] = (
+                entry["launches"], entry["by_variant"], entry["by_x"])
+        entry = ours[0]
+        relative = np.max(np.abs(np.asarray(entry["trace"])
+                                 - plain["trace"])
+                          / np.abs(plain["trace"]))
+        note = ""
+        if "active" in entry:
+            check(entry["over"] == 0 and plain["over"] == 0,
+                  f"{name}: samples over the reported budget")
+            differ = int(np.sum(np.any(np.asarray(entry["active"])
+                                       != np.asarray(plain["active"]),
+                                       axis=1)))
+            note = (f"; mean support {entry['support']:.3f} (meshless "
+                    f"{plain['support']:.3f}), {differ} of "
+                    f"{len(entry['active'])} supports differ, none over the "
+                    "budget")
+        unit = "step" if "minibatch" in name else (
+            "round" if "assign" in name else "replicate"
+            if "bootstrap" in name else "cycle")
+        print(f"[18b] (1, 2) {name}: {entry['seconds']:.3f} s a rank "
+              f"(meshless here {seconds:.3f} s), {entry['n']} {unit}s "
+              f"(meshless {plain['n']}), {entry['collectives']} collectives "
+              f"({entry['collectives'] / max(entry['units'], 1):.2f} a "
+              f"{unit}), 0 kernel launches; trace within {relative:.2e} of "
+              f"the meshless, last {entry['trace'][-1]:.6g}; both ranks "
+              f"equal{note}")
 
 
 def mesh_rank(rank: int, store: str) -> None:
@@ -2101,6 +2390,21 @@ def mesh_rank(rank: int, store: str) -> None:
         "n_iterations": result.n_iterations.tolist(),
     }
 
+    reset_counts(kernel)
+    extracted, seconds = timed(torch, lambda: sal.extract_signatures(
+        sal.datasets.load_pcawg_sbs(), range(2, 11), n_bootstraps=20,
+        seed=0, device="cuda", mesh=restarts))
+    report["2x1 extract"] = {
+        "seconds": seconds, "launches": kernel.launches,
+        "by_variant": dict(kernel.launches_by_variant),
+        "by_x": dict(kernel.launches_by_x),
+        "layout": extracted.layout,
+        "suggested": extracted.suggested_rank,
+        "best": {str(k): float(losses.min())
+                 for k, losses in extracted.replicate_losses.items()},
+        "table": extracted.table.to_numpy().tolist(),
+    }
+
     samples = sal.make_mesh(sample_ways=2)
     reset_counts(kernel)
     model = sal.KLNMF(n_signatures=5, device="cuda", dtype="float32")
@@ -2118,6 +2422,8 @@ def mesh_rank(rank: int, store: str) -> None:
         "finite": bool(np.isfinite(exposures).all()
                        and np.isfinite(model.asignatures.X).all()),
     }
+
+    report["1x2 paths"] = run_sample_paths(torch, sal, samples, kernel)
     (MESH_OUT / f"rank{rank}.json").write_text(json.dumps(report))
     from salamander_tpu_torch.parallel.mesh import barrier
 
@@ -2142,14 +2448,20 @@ def start_mesh_ranks():
     return context, time.perf_counter()
 
 
-def phase_mesh_ranks(torch, sal, ranks, meshless_losses):
+def phase_mesh_ranks(torch, sal, ranks, meshless_losses, grouped):
     """18b: the two ranks of start_mesh_ranks, both on cuda:0 over gloo,
     told to go. The (2, 1)
     headline: each rank's lanes launch the kernel, the gathered losses
     equal the meshless fit's at rtol 2e-4 and the best is within 1e-4 of
-    20414. The (1, 2) sample-sharded KLNMF(5).fit: no launches, KL within
-    1e-4 of the meshless plain fit from the same init, iterations within
-    5%. Returns {path: (launches, by_variant, by_x)} of each rank."""
+    20414. The (2, 1) extraction (cell 7): each rank's 90 lanes launch the
+    resident kernel with a per-lane X, the suggested rank is phase 12's
+    (`grouped`) and each rank's best replicate loss within 1e-4 of it. The
+    (1, 2) sample-sharded KLNMF(5).fit: no launches, KL within 1e-4 of the
+    meshless plain fit from the same init, iterations within 5%; and every
+    path of sample_paths: no launches, its trace at rtol 1e-4 of the same
+    call without a mesh here, equal windows. The two ranks hold equal
+    results. Returns {path: (launches, by_variant, by_x)} of each
+    rank."""
     context, spawned = ranks
     (MESH_OUT / "ranks" / "go").touch()
     start = time.perf_counter()
@@ -2201,22 +2513,50 @@ def phase_mesh_ranks(torch, sal, ranks, meshless_losses):
               f"iterations, KL {fit['kl']:.4f}, {fit['launches']} kernel "
               f"launches; meshless plain fit from the same init: "
               f"{plain_n} iterations, KL {plain_kl:.4f}")
-        for shape, entry in (("(2, 1)", lanes), ("(1, 2)", fit)):
+        extract = report["2x1 extract"]
+        check(extract["layout"] == "grouped"
+              and extract["by_variant"]["resident"] > 0
+              and extract["by_x"]["per_lane"] == extract["launches"] > 0,
+              f"rank {rank}: the (2, 1) extraction did not launch the "
+              "resident kernel with a per-lane X")
+        check(extract["suggested"] == grouped.suggested_rank,
+              f"rank {rank}: the (2, 1) extraction suggests rank "
+              f"{extract['suggested']}, phase 12 {grouped.suggested_rank}")
+        apart = 0.0
+        for k, losses in grouped.replicate_losses.items():
+            best = float(losses.min())
+            check_best_agree(f"[18b] rank {rank} (2, 1) extraction k={k}",
+                             extract["best"][str(k)], best)
+            apart = max(apart, abs(extract["best"][str(k)] - best) / best)
+        print(f"[18b] rank {rank}, mesh (2, 1): extract_signatures(PCAWG "
+              f"SBS, k=2..10, B=20) {extract['seconds']:.3f} s, "
+              f"{extract['launches']} kernel launches for its 90 of 180 "
+              f"lanes ({extract['by_x']['per_lane']} with a per-lane X), "
+              f"suggested rank {extract['suggested']} (phase 12: "
+              f"{grouped.suggested_rank}), best loss per rank within "
+              f"{apart:.2e} of phase 12's")
+        for shape, entry in (("(2, 1)", lanes), ("(2, 1) extract", extract),
+                             ("(1, 2)", fit)):
             counts[f"18b mesh {shape} rank {rank}"] = (
                 entry["launches"], entry["by_variant"], entry["by_x"])
     check(reports[0]["2x1"]["losses"] == reports[1]["2x1"]["losses"]
+          and reports[0]["2x1 extract"]["table"]
+          == reports[1]["2x1 extract"]["table"]
           and reports[0]["1x2"]["kl"] == reports[1]["1x2"]["kl"]
           and reports[0]["1x2"]["n_iterations"]
           == reports[1]["1x2"]["n_iterations"],
           "the two ranks hold different results")
+    check_sample_paths(torch, sal, reports, counts)
     return counts
 
 
 
-def phase_mesh(torch, sal, cuda_klnmf, X_host, drive):
-    """Phase 18: 18a and 18b, each a path of its own for the launch counts,
-    with 18b's ranks and 18a's CLI process started first so that their
-    start-up overlaps 18a. Returns 18b's per-rank counts."""
+def phase_mesh(torch, sal, cuda_klnmf, X_host, drive, grouped, launches):
+    """Phase 18: 18a and 18b, each part a path of its own for the launch
+    counts, with 18b's ranks and 18a's CLI process started first so that
+    their start-up overlaps 18a. `grouped` and `launches` are phase 12's
+    grouped extraction and its kernel launches. Returns 18b's per-rank
+    counts."""
     start = time.perf_counter()
     ranks = start_mesh_ranks()
     try:
@@ -2224,13 +2564,22 @@ def phase_mesh(torch, sal, cuda_klnmf, X_host, drive):
         try:
             meshless = drive("18a mesh, NCCL world of one",
                              phase_mesh_world_of_one, torch, sal, cuda_klnmf,
-                             X_host, cli)
+                             X_host)
+            drive("18a extract_signatures, 1 x 1 mesh",
+                  phase_mesh_extract_one, torch, sal, cuda_klnmf, grouped,
+                  launches)
+            for command, argv in mesh_cli_commands(sal).items():
+                drive(f"18a CLI {command}", phase_mesh_cli_command, torch,
+                      sal, cuda_klnmf, command, argv)
+            drive("18a CLI fit --mesh auto, own process",
+                  phase_mesh_cli_process, torch, sal, cli)
         finally:
             if cli[0].poll() is None:
                 cli[0].kill()
                 cli[0].communicate()
         counts = drive("18b mesh, two ranks over gloo (this process)",
-                       phase_mesh_ranks, torch, sal, ranks, meshless)
+                       phase_mesh_ranks, torch, sal, ranks, meshless,
+                       grouped)
     finally:
         for process in ranks[0].processes:
             if process.is_alive():
@@ -2270,7 +2619,9 @@ def main() -> int:
         for counts in (kernel.launches_by_variant, kernel.launches_by_x):
             for key in counts:
                 counts[key] = 0
+        start = time.perf_counter()
         out = phase(*args)
+        print(f"[path] {path}: {time.perf_counter() - start:.1f} s")
         launches[path] = kernel.launches
         by_variant[path] = dict(kernel.launches_by_variant)
         by_x[path] = dict(kernel.launches_by_x)
@@ -2294,7 +2645,8 @@ def main() -> int:
     drive("15 MultimodalCorrNMF", phase_multimodal, torch, sal)
     drive("16 SVI and streaming", phase_svi, torch, sal)
     phase_cli(torch, sal, cuda_klnmf, drive)
-    ranks = phase_mesh(torch, sal, cuda_klnmf, X_host, drive)
+    ranks = phase_mesh(torch, sal, cuda_klnmf, X_host, drive, extracted,
+                       launches["12 extract_signatures"])
     check(launches["18b mesh, two ranks over gloo (this process)"] == 0,
           "phase 18b's fits run in its two ranks, not here")
     for path, (count, variants, xs) in ranks.items():
@@ -2306,18 +2658,28 @@ def main() -> int:
               f"CLI {command} runs plain ops: it has no kernel to launch")
     cli_kernel = [f"17b CLI {command}" for command in CLI_KERNEL]
     mesh_kernel = [f"18b mesh (2, 1) rank {rank}" for rank in range(2)]
-    for rank in range(2):
-        check(launches[f"18b mesh (1, 2) rank {rank}"] == 0,
-              "a sample-sharded fit runs plain updates: no kernel")
+    mesh_extract = [f"18b mesh (2, 1) extract rank {rank}"
+                    for rank in range(2)]
+    for path in launches:
+        if path.startswith("18b mesh (1, 2)") or path in (
+                "18a CLI assign --mesh auto",
+                "18a CLI fit --model corrnmf --mesh auto"):
+            check(launches[path] == 0,
+                  f"{path}: a sample-sharded path or plain-op command "
+                  "launches no kernel")
     for path in ("4 KLNMF.fit", "5 fit_klnmf_restarts",
                  "6 fit_best_of KLNMF", "8 rank_scan_klnmf",
                  "12 extract_signatures", "14 bootstrap", *cli_kernel,
                  "17d profiling", "18a mesh, NCCL world of one",
-                 *mesh_kernel):
+                 "18a extract_signatures, 1 x 1 mesh",
+                 "18a CLI extract --mesh auto", *mesh_kernel,
+                 *mesh_extract):
         check(launches[path] > 0, f"path {path} launched no kernel")
         check(by_variant[path]["resident"] > 0,
               f"path {path} did not run the resident kernel")
-    for path in ("12 extract_signatures", "14 bootstrap", "17b CLI extract"):
+    for path in ("12 extract_signatures", "14 bootstrap", "17b CLI extract",
+                 "18a extract_signatures, 1 x 1 mesh",
+                 "18a CLI extract --mesh auto", *mesh_extract):
         check(by_x[path]["per_lane"] > 0,
               f"path {path} launched no kernel with a per-lane X")
     print(f"kernel launches by path: {launches}")

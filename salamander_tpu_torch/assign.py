@@ -22,7 +22,14 @@ total memory (never its free memory), and decides no result: candidates
 run a fixed step count per sample, bootstrap replicates converge each on
 their own and draw from a generator keyed by (seed, replicate), and the
 stores hold no memory-sized chunk. The JAX package sizes its chunks by its
-accelerator's program kill. mesh= waits for ROADMAP item 18.
+accelerator's program kill.
+
+mesh= (a parallel.make_mesh DeviceMesh that every rank passes) shards the
+cohort's samples over the mesh's sample ways: each rank refits and
+eliminates on its block, the convergence sums and the elimination's
+stopping count are all-reduced (ops/assign.py), and the tables are
+gathered, so every rank returns the whole result; the mesh's first rank
+writes the stores. The sample ways must divide each chunk's width.
 """
 
 from __future__ import annotations
@@ -38,7 +45,6 @@ from .models.signature_nmf import resolve_device, resolve_dtype
 from .ops import assign as ops
 from .ops.klnmf import EPSILON
 from .ops.precision import require_ieee_float32
-from .utils import MESH_NOT_PORTED
 
 __all__ = [
     "AssignmentResult",
@@ -114,9 +120,12 @@ def _align_catalog(catalog, var_names: pd.Index) -> tuple[np.ndarray, list[str]]
 
 
 def _setup(device, dtype, mesh):
-    """(device, dtype) of an assignment call; mesh= raises."""
+    """(device, dtype) of an assignment call (a mesh= that is not a
+    DeviceMesh is refused)."""
     if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+        from .parallel.mesh import check_mesh
+
+        check_mesh(mesh)
     device = resolve_device(device)
     if device.type == "cuda":
         require_ieee_float32()
@@ -147,6 +156,55 @@ def _memory_lanes(device, bytes_per_lane: float, n: int) -> int:
 
 def _host(tensor) -> np.ndarray:
     return tensor.cpu().numpy()
+
+
+class _Samples:
+    """The sample axis of an assignment call under `mesh`: the ways, and
+    this rank's block of a width the ways must divide (the JAX package's
+    message otherwise). Without a mesh (or with one sample way) a block is
+    the whole width and nothing is reduced."""
+
+    def __init__(self, mesh):
+        from .parallel.mesh import SAMPLE_AXIS, axis_size
+
+        self.mesh = mesh
+        self.ways = axis_size(mesh, SAMPLE_AXIS)
+        self.reduce = None
+        if self.ways > 1:
+            from .parallel.mesh import samples_reducer
+
+            self.reduce = samples_reducer(mesh)
+
+    def block(self, width: int) -> tuple[int, int]:
+        if width % self.ways:
+            raise ValueError(
+                f"the sample axis ({width}) must divide the mesh's "
+                f"{self.ways} sample ways; pass a batch_size that is a "
+                f"multiple of {self.ways} or pad the cohort"
+            )
+        if self.ways == 1:
+            return 0, width
+        from .parallel.mesh import sample_range
+
+        return sample_range(width, self.mesh)
+
+    def gather(self, tensor, width: int):
+        """The whole width of a (..., block) tensor."""
+        if self.ways == 1:
+            return tensor
+        from .parallel.mesh import gather_samples
+
+        return gather_samples(tensor, self.mesh, width)
+
+
+def _open_store(checkpoint_dir, identity: dict, mesh):
+    """The call's store: the mesh's first rank writes it under a mesh,
+    whose runs carry "mesh" in their identity (the JAX package's)."""
+    from .parallel.mesh import open_store
+
+    if mesh is not None:
+        identity = dict(identity, mesh=True)
+    return open_store(checkpoint_dir, identity, mesh)
 
 
 @dataclass
@@ -182,17 +240,23 @@ def assign_exposures(data, catalog, max_iterations: int = 10_000,
     catalog (all signatures active), KLNMF H-updates to convergence, as
     one batched refit of the whole cohort. Equivalent to the reference's
     fit(given_parameters={'asignatures': catalog}) exposures, without
-    learning anything. Returns a samples x signatures DataFrame.
+    learning anything. Returns a samples x signatures DataFrame. mesh=
+    shards the samples (module docstring).
     """
     device, dtype = _setup(device, dtype, mesh)
     X, obs_names, var_names = _extract_counts(data)
     W, sig_names = _align_catalog(catalog, var_names)
-    X_dev = torch.as_tensor(X, dtype=dtype, device=device)
+    samples = _Samples(mesh)
+    D = X.shape[1]
+    lo, hi = samples.block(D)
+    X_dev = torch.as_tensor(X[:, lo:hi], dtype=dtype, device=device)
     W_dev = torch.as_tensor(W, dtype=dtype, device=device)
-    mask = torch.ones((W.shape[1], X.shape[1]), dtype=torch.bool,
+    mask = torch.ones((W.shape[1], hi - lo), dtype=torch.bool,
                       device=device)
     H, _ = ops.refit_exposures(X_dev, W_dev, mask,
-                               max_iterations=max_iterations, tol=tol)
+                               max_iterations=max_iterations, tol=tol,
+                               reduce_samples=samples.reduce)
+    H = samples.gather(H, D)
     return pd.DataFrame(_host(H).T, index=obs_names, columns=sig_names)
 
 
@@ -242,22 +306,30 @@ def assign_signatures(
     every completed chunk is written atomically, and a rerun with the same
     data, arguments, compute dtype and chunk layout skips past completed
     chunks. A store from a different run is warned about and discarded.
+
+    ``mesh`` shards each chunk's samples (module docstring); a
+    ``batch_size`` is rounded up to a multiple of the sample ways, as the
+    JAX package does.
     """
     device, dtype = _setup(device, dtype, mesh)
     X, obs_names, var_names = _extract_counts(data)
     W, sig_names = _align_catalog(catalog, var_names)
     V, D = X.shape
     K = W.shape[1]
+    samples = _Samples(mesh)
+    if batch_size is not None and batch_size % samples.ways:
+        batch_size += samples.ways - batch_size % samples.ways
     W_dev = torch.as_tensor(W, dtype=dtype, device=device)
     width = D if batch_size is None or batch_size >= D else int(batch_size)
+    lo, hi = samples.block(width)
     candidate_chunk = _memory_lanes(device, candidate_bytes_per_sample(
-        V, K, torch.finfo(dtype).bits // 8), width)
+        V, K, torch.finfo(dtype).bits // 8), hi - lo)
 
     store = None
     if checkpoint_dir is not None:
-        from .checkpoint import ChunkStore, data_fingerprint
+        from .checkpoint import data_fingerprint
 
-        store = ChunkStore(checkpoint_dir, {
+        store = _open_store(checkpoint_dir, {
             "pipeline": "assign_signatures",
             "format": 1,
             "data": data_fingerprint(X, W),
@@ -269,18 +341,19 @@ def assign_signatures(
             "tol": float(tol),
             "batch_size": None if batch_size is None else int(batch_size),
             "dtype": str(dtype).removeprefix("torch."),
-        })
+        }, mesh)
 
     def run(chunk: np.ndarray) -> dict[str, np.ndarray]:
         out = ops.eliminate_signatures(
-            torch.as_tensor(chunk, dtype=dtype, device=device), W_dev,
-            rel_tol, abs_tol, candidate_iters=candidate_iters,
+            torch.as_tensor(chunk[:, lo:hi], dtype=dtype, device=device),
+            W_dev, rel_tol, abs_tol, candidate_iters=candidate_iters,
             polish_iterations=polish_iterations,
             max_polish_iterations=max_iterations, polish_tol=tol,
-            candidate_chunk=candidate_chunk,
+            candidate_chunk=candidate_chunk, reduce_samples=samples.reduce,
         )
-        n_rounds = out.pop("n_rounds")
-        fetched = {key: _host(value) for key, value in out.items()}
+        n_rounds = out.pop("n_rounds")  # the chunk's, on every rank
+        fetched = {key: _host(samples.gather(value, width))
+                   for key, value in out.items()}
         fetched["n_rounds"] = int(n_rounds)
         return fetched
 
@@ -405,11 +478,17 @@ def bootstrap_exposures(
     ``checkpoint_dir``: preemption-safe resume, one entry per completed
     replicate; ``quantiles``, ``min_fraction`` and the batch size are not
     part of the store's identity, the compute dtype is.
+
+    ``mesh`` shards the samples (module docstring): every rank draws each
+    replicate's whole resample from replicate_seed(seed, b) and refits its
+    block of it.
     """
     device, dtype = _setup(device, dtype, mesh)
     X, obs_names, var_names = _extract_counts(data)
     W, sig_names = _align_catalog(catalog, var_names)
     K, D = W.shape[1], X.shape[1]
+    samples = _Samples(mesh)
+    block = samples.block(D)
     if n_replicates < 2:
         raise ValueError("n_replicates must be >= 2")
 
@@ -429,7 +508,7 @@ def bootstrap_exposures(
 
     X_dev = torch.as_tensor(X, dtype=dtype, device=device)
     W_dev = torch.as_tensor(W, dtype=dtype, device=device)
-    mask_dev = torch.as_tensor(mask, device=device)
+    mask_dev = torch.as_tensor(mask[:, block[0]:block[1]], device=device)
 
     if replicate_batch is None:
         itemsize = torch.finfo(dtype).bits // 8
@@ -438,9 +517,9 @@ def bootstrap_exposures(
     batch = max(1, min(int(replicate_batch), n_replicates))
     store = None
     if checkpoint_dir is not None:
-        from .checkpoint import ChunkStore, data_fingerprint
+        from .checkpoint import data_fingerprint
 
-        store = ChunkStore(checkpoint_dir, {
+        store = _open_store(checkpoint_dir, {
             "pipeline": "bootstrap_exposures",
             "format": 2,
             "data": data_fingerprint(X, W, mask),
@@ -450,7 +529,7 @@ def bootstrap_exposures(
             "max_iterations": int(max_iterations),
             "tol": float(tol),
             "dtype": str(dtype).removeprefix("torch."),
-        })
+        }, mesh)
     H_all = [None] * n_replicates
     if store is not None:
         for b in range(n_replicates):
@@ -465,10 +544,12 @@ def bootstrap_exposures(
                 replicate_seed(seed, b))
             for b in lanes
         ]  # replicate 0 is the original X
-        H = _host(ops.bootstrap_refit(
+        H = _host(samples.gather(ops.bootstrap_refit(
             X_dev, W_dev, mask_dev, generators, method=method,
             max_iterations=max_iterations, tol=tol,
-        ))
+            samples=None if samples.ways == 1 else block,
+            reduce_samples=samples.reduce,
+        ), D))
         for b, H_b in zip(lanes, H):
             H_all[b] = H_b
             if store is not None:

@@ -14,16 +14,16 @@ Every command runs on the card; ``--cpu`` runs it on the CPU instead
 (``device="cpu"`` for every model and batched routine). Without a card
 and without ``--cpu`` a command exits non-zero: nothing moves to the CPU
 unasked.
-``--mesh auto|samples=N`` shards ``fit`` (``--resume`` included) and
-``scan`` over a (restarts, samples) mesh of torch.distributed ranks, one
-process per card: launch the command under ``torchrun --nproc-per-node N``
-(a plain process is a world of one). ``--model klnmf`` shards both axes;
-mvnmf and ardnmf take a restart-only mesh (``samples=1``). The other
-models, ``fit --batch-size``, ``extract``, ``assign`` and ``bootstrap``
-exit naming ROADMAP Queue 1 item 18. Under a mesh the mesh's first rank
-alone writes the outputs. ``fit --resume`` checks that the counts are the
-checkpoint's own cohort, modality by modality: shape, sample and feature
-names, and values.
+``--mesh auto|samples=N`` shards every command over a (restarts, samples)
+mesh of torch.distributed ranks, one process per card, as the JAX CLI
+does: launch it under ``torchrun --nproc-per-node N`` (a plain process is
+a world of one). ``fit`` (``--resume`` and ``--batch-size`` included)
+shards the samples of every model, ``scan`` and ``extract`` the restarts
+(and samples where the family has them), ``assign`` and ``bootstrap`` the
+samples; ``--mesh`` with ``--streaming`` exits, as in the JAX CLI. Under
+a mesh the mesh's first rank alone writes the outputs. ``fit --resume``
+checks that the counts are the checkpoint's own cohort, modality by
+modality: shape, sample and feature names, and values.
 
 Input conventions
 -----------------
@@ -45,7 +45,7 @@ from pathlib import Path
 import numpy as np
 import pandas as pd
 
-from .utils import EPSILON, MESH_NOT_PORTED
+from .utils import EPSILON
 
 __all__ = ["main"]
 
@@ -122,29 +122,15 @@ def _sample_ways(spec: str | None) -> int | None:
     )
 
 
-def _refuse_mesh(spec: str | None) -> None:
-    """A valid --mesh spec on a path whose mesh waits for ROADMAP item 18
-    exits with MESH_NOT_PORTED."""
-    _sample_ways(spec)
-    if spec is not None:
-        raise SystemExit(MESH_NOT_PORTED)
-
-
-def _make_mesh(args, shards_samples: bool = True):
+def _make_mesh(args):
     """--mesh spec -> parallel.make_mesh() over the ranks of the process
     group (init_distributed: torchrun's ranks, or a world of one). 'auto'
     factors all ranks into (restarts, samples); 'samples=N' pins the sample
-    ways. A path that shards restarts only exits (ROADMAP item 18) on a
-    mesh with more than one sample way."""
+    ways."""
     ways = _sample_ways(args.mesh)
     if args.mesh is None:
         return None
-    from .parallel.mesh import (
-        SAMPLE_AXIS,
-        axis_size,
-        init_distributed,
-        make_mesh,
-    )
+    from .parallel.mesh import init_distributed, make_mesh
 
     device = _device(args)
     try:
@@ -152,8 +138,6 @@ def _make_mesh(args, shards_samples: bool = True):
         mesh = make_mesh(sample_ways=ways, device=device)
     except ValueError as err:
         raise SystemExit(f"--mesh {args.mesh}: {err}") from None
-    if not shards_samples and axis_size(mesh, SAMPLE_AXIS) > 1:
-        raise SystemExit(MESH_NOT_PORTED)
     return mesh
 
 
@@ -165,14 +149,6 @@ def _writes(mesh) -> bool:
     from .parallel.mesh import is_writer
 
     return is_writer(mesh)
-
-
-def _fit_mesh(args):
-    """The mesh of `fit`: klnmf shards both axes, mvnmf and ardnmf the
-    restart axis alone; corrnmf and mmcorrnmf wait for ROADMAP item 18."""
-    if args.model in ("corrnmf", "mmcorrnmf"):
-        _refuse_mesh(args.mesh)
-    return _make_mesh(args, shards_samples=args.model == "klnmf")
 
 
 def _add_mesh(parser: argparse.ArgumentParser) -> None:
@@ -359,7 +335,7 @@ def _cmd_fit(args) -> int:
                 "--resume continues a full-batch fit; it cannot be "
                 "combined with --batch-size/--streaming"
             )
-        mesh = _fit_mesh(args)
+        mesh = _make_mesh(args)
         model = sio.load_model(args.resume, device=_device(args))
         expected_class = {
             "klnmf": "KLNMF", "mvnmf": "MvNMF", "corrnmf": "CorrNMFDet",
@@ -423,10 +399,9 @@ def _cmd_fit(args) -> int:
             "--mesh and --streaming are mutually exclusive: streaming "
             "keeps the counts host-resident on ONE device"
         )
-    if minibatch:
-        _refuse_mesh(args.mesh)
-    mesh = _fit_mesh(args)
+    mesh = _make_mesh(args)
     common["device"] = _device(args)
+    fit_kwargs = {} if mesh is None else {"mesh": mesh}
 
     def _minibatch_kwargs():
         kwargs = dict(
@@ -435,6 +410,7 @@ def _cmd_fit(args) -> int:
             eval_freq=args.eval_freq,
             streaming=args.streaming,
             init_kwargs=init_kwargs,
+            **fit_kwargs,
         )
         if args.seed is not None:
             kwargs["seed"] = args.seed
@@ -452,7 +428,10 @@ def _cmd_fit(args) -> int:
         if minibatch:
             model.fit_minibatch(mdata, **_minibatch_kwargs())
         else:
-            model.fit(mdata, init_kwargs=init_kwargs, verbose=args.verbose)
+            model.fit(mdata, init_kwargs=init_kwargs, verbose=args.verbose,
+                      **fit_kwargs)
+        if not _writes(mesh):
+            return 0
         model_path = out / "model.npz"
         sio.save_model(model, str(model_path))
         for name in names:
@@ -470,7 +449,6 @@ def _cmd_fit(args) -> int:
         )
         return 0
 
-    fit_kwargs = {} if mesh is None else {"mesh": mesh}
     adata = AnnData(frames[0])
     if args.model == "klnmf":
         model = KLNMF(n_signatures=ks[0], **common)
@@ -524,9 +502,7 @@ def _cmd_scan(args) -> int:
         conv_test_freq=args.conv_test_freq,
         tol=args.tol,
     )
-    if args.model == "corrnmf":
-        _refuse_mesh(args.mesh)
-    mesh = _make_mesh(args, shards_samples=args.model == "klnmf")
+    mesh = _make_mesh(args)
     device = _device(args)
     out = _outdir(args)
 
@@ -544,7 +520,7 @@ def _cmd_scan(args) -> int:
             frame.values, ranks,
             dim_embeddings=args.dim_embeddings,
             n_restarts=args.n_restarts, base_seed=args.seed,
-            config=config,
+            config=config, mesh=mesh,
             checkpoint_dir=args.checkpoint_dir, device=device,
         )
     elif args.model == "mvnmf":
@@ -622,7 +598,7 @@ def _cmd_extract(args) -> int:
         raise SystemExit(
             "--min-stability is a cosine threshold in [0, 1]"
         )
-    _refuse_mesh(args.mesh)
+    mesh = _make_mesh(args)
     device = _device(args)
     counts = _read_counts(args.counts, args.samples_as)
     given = (
@@ -645,9 +621,12 @@ def _cmd_extract(args) -> int:
         max_iterations=args.max_iterations,
         tol=args.tol,
         max_lane_gb=args.max_lane_gb,
+        mesh=mesh,
         checkpoint_dir=args.checkpoint_dir,
         device=device,
     )
+    if not _writes(mesh):
+        return 0
     out = _outdir(args)
     save_extraction(result, str(out / "extraction.npz"))
     result.table.to_csv(out / "rank_table.csv")
@@ -673,7 +652,7 @@ def _cmd_assign(args) -> int:
         raise SystemExit("--candidate-iters must be >= 1")
     if args.batch_size is not None and args.batch_size < 1:
         raise SystemExit("--batch-size must be >= 1")
-    _refuse_mesh(args.mesh)
+    mesh = _make_mesh(args)
     device = _device(args)
     counts = _read_counts(args.counts, args.samples_as)
     catalog = _read_catalog(args.catalog)
@@ -682,8 +661,10 @@ def _cmd_assign(args) -> int:
         exposures = assign_exposures(
             counts, catalog,
             max_iterations=args.max_iterations, tol=args.tol,
-            device=device,
+            mesh=mesh, device=device,
         )
+        if not _writes(mesh):
+            return 0
         exposures.to_csv(out / "exposures.csv")
         print(
             f"assign (dense): {exposures.shape[0]} samples x "
@@ -699,9 +680,12 @@ def _cmd_assign(args) -> int:
         max_iterations=args.max_iterations,
         tol=args.tol,
         batch_size=args.batch_size,
+        mesh=mesh,
         checkpoint_dir=args.checkpoint_dir,
         device=device,
     )
+    if not _writes(mesh):
+        return 0
     result.exposures.to_csv(out / "exposures.csv")
     result.active.to_csv(out / "active.csv")
     summary = pd.DataFrame({
@@ -743,7 +727,7 @@ def _cmd_bootstrap(args) -> int:
             f"invalid --quantiles {args.quantiles!r}: quantiles must lie "
             "strictly inside (0, 1)"
         )
-    _refuse_mesh(args.mesh)
+    mesh = _make_mesh(args)
     device = _device(args)
     counts = _read_counts(args.counts, args.samples_as)
     catalog = _read_catalog(args.catalog)
@@ -761,9 +745,12 @@ def _cmd_bootstrap(args) -> int:
         max_iterations=args.max_iterations,
         tol=args.tol,
         replicate_batch=args.replicate_batch,
+        mesh=mesh,
         checkpoint_dir=args.checkpoint_dir,
         device=device,
     )
+    if not _writes(mesh):
+        return 0
     out = _outdir(args)
     result.point.to_csv(out / "exposures_point.csv")
     result.mean.to_csv(out / "exposures_mean.csv")

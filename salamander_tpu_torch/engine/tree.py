@@ -56,6 +56,13 @@ def tree_flatten(tree: dict, prefix: str = "") -> dict[str, Any]:
     return flat
 
 
+def by_leaf_name(path: str, table: dict, default=None):
+    """The entry of `table` for the leaf at `path`: by the leaf's own name,
+    then by its top-level key (a per-modality leaf of data["X"])."""
+    parts = path.split(SEPARATOR)
+    return table.get(parts[-1], table.get(parts[0], default))
+
+
 def tree_unflatten(flat: dict[str, Any]) -> dict:
     """The inverse of tree_flatten."""
     tree: dict = {}

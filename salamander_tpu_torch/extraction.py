@@ -39,8 +39,18 @@ a store keeps one entry per lane, so it resumes under any budget. The B
 resamples stay resident across chunks while they fit 2 GiB; beyond it they
 are drawn anew per chunk from the same seed.
 
-Not ported: meshes (mesh= raises NotImplementedError, ROADMAP item 18)
-and the JAX package's accelerator-specific chunk and runner choices.
+Under a (restarts, samples) mesh (parallel/mesh.py; every rank calls)
+each rank fits a contiguous block of the rank-sorted lanes, as the JAX
+package's P(RESTART_AXIS) cuts them: on a restart-only mesh they run
+grouped by rank, each group through the kernel with a per-lane X as
+without a mesh; a sample axis above 1 also splits every lane's counts and
+exposures over the samples, whose sums the plain updates complete with
+reduce_samples. Each lane's resample and start are the meshless ones (the
+keyed draws). The lanes are gathered, the clustering runs on every rank,
+and the consensus refit and ``fit_final`` shard the samples.
+
+Not ported: the JAX package's accelerator-specific chunk and runner
+choices.
 """
 
 from __future__ import annotations
@@ -57,7 +67,6 @@ from . import containers
 from .engine import FitConfig
 from .ops.assign import resample_counts
 from .ops.klnmf import EPSILON
-from .utils import MESH_NOT_PORTED
 
 __all__ = ["ExtractionResult", "extract_signatures"]
 
@@ -158,19 +167,21 @@ def _prepare_lanes(X_boot, seed: int, lane_ranks, lane_replicates,
 
 def _discovery_fit(params0, data, config: FitConfig, model: str,
                    lam: float, delta: float, n_given: int, use_runner: bool,
-                   masked: bool = True):
+                   masked: bool = True, reduce_samples=None):
     """One lockstep batch of lanes, each fitting its own data["X"] lane.
     Returns (W (L, V, K), losses (L,), n_iterations (L,)) on the device.
 
     masked=False runs unpadded KLNMF lanes (params without "mask"), whose
     blocks take the CUDA kernel with a per-lane X where
     cuda_klnmf.mu_block_supported holds. Without the runner the same steps
-    run as one monolithic lockstep loop."""
+    run as one monolithic lockstep loop. reduce_samples: the lanes hold
+    this rank's block of the samples (plain updates)."""
     from .parallel.compaction import extraction_compacting_runner, lockstep_fit
 
     runner = extraction_compacting_runner(
         config, params0["W"].dtype != torch.float64, 8, family=model,
-        lam=lam, delta=delta, n_given=n_given, masked=masked)
+        lam=lam, delta=delta, n_given=n_given, masked=masked,
+        reduce_samples=reduce_samples)
     if use_runner:
         result, losses = runner.run(params0, data)
     else:
@@ -180,7 +191,7 @@ def _discovery_fit(params0, data, config: FitConfig, model: str,
 
 
 def _grouped_fit(params0, data, lane_ranks, config: FitConfig,
-                 use_runner: bool):
+                 use_runner: bool, reduce_samples=None):
     """The grouped layout of a chunk of KLNMF lanes without given
     signatures: each rank's lanes run as one unpadded batch (the kernel's
     route on a card), from the first k columns of the padded inits.
@@ -202,7 +213,7 @@ def _grouped_fit(params0, data, lane_ranks, config: FitConfig,
         group_data = {"X": data["X"].index_select(0, rows)}
         W_k, loss_k, iter_k = _discovery_fit(
             group0, group_data, config, "klnmf", 1.0, 1.0, 0, use_runner,
-            masked=False)
+            masked=False, reduce_samples=reduce_samples)
         W[rows, :, :k] = W_k
         losses[rows] = loss_k.to(torch.float64)
         n_iterations[rows] = iter_k.to(torch.int32)
@@ -476,15 +487,31 @@ def extract_signatures(
     and per-rank consensus refits (checkpoint.ChunkStore). Its identity
     holds the data, the arguments, the compute dtype and the lane layout,
     not the chunk size; a store of a different run is warned about and
-    discarded. mesh= waits for ROADMAP item 18.
+    discarded.
+
+    mesh: a (restarts, samples) DeviceMesh (parallel.make_mesh) that every
+    rank passes (module docstring). Its restart ways must divide the
+    ``len(ranks) * n_bootstraps`` lanes and its sample ways the samples;
+    ``max_lane_gb`` is ignored under it (the lanes are already spread over
+    the ranks). Every rank returns the whole result; the mesh's first rank
+    writes the store.
     """
     from .assign import _align_catalog, _extract_counts
     from .models.signature_nmf import resolve_device, resolve_dtype
     from .ops.assign import refit_exposures
     from .ops.precision import require_ieee_float32
+    from .parallel.mesh import (
+        SAMPLE_AXIS,
+        axis_size,
+        check_divides,
+        gather_samples,
+        lane_range,
+        open_store,
+        restart_sum,
+        sample_range,
+        samples_reducer,
+    )
 
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
     ranks = sorted({int(k) for k in ranks})
     if not ranks or ranks[0] < 1:
         raise ValueError(f"ranks must be positive integers, got {ranks!r}")
@@ -521,6 +548,15 @@ def extract_signatures(
     lane_ranks = np.repeat(ranks, n_bootstraps)
     lane_replicates = np.tile(np.arange(n_bootstraps), len(ranks))
     n_lanes = len(lane_ranks)
+    lane_lo, lane_hi = 0, n_lanes
+    sample_lo, sample_hi = 0, n_samples
+    reduce_samples = None
+    if mesh is not None:
+        check_divides(mesh, n_lanes, n_samples)
+        lane_lo, lane_hi = lane_range(n_lanes, mesh)
+        if axis_size(mesh, SAMPLE_AXIS) > 1:
+            sample_lo, sample_hi = sample_range(n_samples, mesh)
+            reduce_samples = samples_reducer(mesh)
 
     X = torch.as_tensor(np.maximum(X_host, EPSILON), dtype=dtype,
                         device=device)
@@ -530,8 +566,8 @@ def extract_signatures(
     )
     layout = _choose_layout(model, dtype, n_given, ranks, n_features,
                             n_samples, device)
-    chunk_size = _lane_chunk_size(n_lanes, max_lane_gb, dtype, n_features,
-                                  n_samples, n_padded, device)
+    chunk_size = n_lanes if mesh is not None else _lane_chunk_size(
+        n_lanes, max_lane_gb, dtype, n_features, n_samples, n_padded, device)
     use_runner = (
         device.type == "cuda" and config.min_iterations
         < config.max_iterations
@@ -548,9 +584,9 @@ def extract_signatures(
 
     ckpt = None
     if checkpoint_dir is not None:
-        from .checkpoint import ChunkStore, data_fingerprint
+        from .checkpoint import data_fingerprint
 
-        ckpt = ChunkStore(checkpoint_dir, {
+        identity = {
             "pipeline": "extract_signatures",
             "format": 2,
             "data": data_fingerprint(X_host),
@@ -571,7 +607,10 @@ def extract_signatures(
             "n_lanes": int(n_lanes),
             "compact": bool(use_runner),
             "layout": layout,
-        })
+        }
+        if mesh is not None:
+            identity["mesh"] = True
+        ckpt = open_store(checkpoint_dir, identity, mesh)
 
     lane_results: list = [None] * n_lanes  # (W (V, Kp), loss, iterations)
     if ckpt is not None:
@@ -586,28 +625,51 @@ def extract_signatures(
                        if lane_results[lane] is None], dtype=int)
         if sl.size == 0:
             continue
-        X_boot = X_boot_shared if X_boot_shared is not None else resample()
-        params0, lane_data = _prepare_lanes(
-            X_boot, seed, lane_ranks[sl], lane_replicates[sl], n_padded,
-            with_gamma=(model == "mvnmf"), W_given=W_given_host,
-            n_given=n_given,
-        )
-        if layout == "grouped":
-            W_c, loss_c, iter_c = _grouped_fit(params0, lane_data,
-                                               lane_ranks[sl], config,
-                                               use_runner)
-        else:
-            W_c, loss_c, iter_c = _discovery_fit(
-                params0, lane_data, config, model, lam, delta, n_given,
-                use_runner)
+        # this rank's lanes (all of them without a mesh)
+        mine = np.flatnonzero((sl >= lane_lo) & (sl < lane_hi))
+        W_c = torch.zeros((sl.size, n_features, n_padded), dtype=dtype,
+                          device=device)
+        loss_c = torch.zeros(sl.size, dtype=torch.float64, device=device)
+        iter_c = torch.zeros(sl.size, dtype=torch.float64, device=device)
+        if mine.size:
+            X_boot = (X_boot_shared if X_boot_shared is not None
+                      else resample())
+            params0, lane_data = _prepare_lanes(
+                X_boot, seed, lane_ranks[sl[mine]],
+                lane_replicates[sl[mine]], n_padded,
+                with_gamma=(model == "mvnmf"), W_given=W_given_host,
+                n_given=n_given,
+            )
+            if reduce_samples is not None:
+                width = sample_hi - sample_lo
+                params0["H"] = params0["H"].narrow(
+                    -1, sample_lo, width).contiguous()
+                lane_data["X"] = lane_data["X"].narrow(
+                    -1, sample_lo, width).contiguous()
+            if layout == "grouped":
+                W_m, loss_m, iter_m = _grouped_fit(
+                    params0, lane_data, lane_ranks[sl[mine]], config,
+                    use_runner, reduce_samples)
+            else:
+                W_m, loss_m, iter_m = _discovery_fit(
+                    params0, lane_data, config, model, lam, delta, n_given,
+                    use_runner, reduce_samples=reduce_samples)
+            rows = torch.as_tensor(mine, device=device)
+            W_c[rows] = W_m
+            loss_c[rows] = loss_m.to(torch.float64)
+            iter_c[rows] = iter_m.to(torch.float64)
+            del params0, lane_data, X_boot
+        if mesh is not None:  # every lane is one restart rank's
+            W_c, loss_c, iter_c = (restart_sum(W_c, mesh),
+                                   restart_sum(loss_c, mesh),
+                                   restart_sum(iter_c, mesh))
         W_c, loss_c, iter_c = (W_c.cpu().numpy(), loss_c.cpu().numpy(),
-                               iter_c.cpu().numpy())
+                               iter_c.cpu().numpy().astype(np.int32))
         for j, lane in enumerate(sl):
             lane_results[lane] = (W_c[j], loss_c[j], iter_c[j])
             if ckpt is not None:
                 ckpt.save(f"lane_{lane:06d}", W=W_c[j], loss=loss_c[j],
                           iterations=iter_c[j])
-        del params0, lane_data, X_boot
 
     X_boot_shared = None  # free the resamples before the consensus refit
     W_lanes = np.stack([lane[0] for lane in lane_results])  # (L, V, Kp)
@@ -651,12 +713,15 @@ def extract_signatures(
             W_pad[:, n_given:total] = consensus.T
             mask2d = torch.as_tensor(
                 np.arange(n_padded)[:, None]
-                < np.full((1, n_samples), total), device=device)
+                < np.full((1, sample_hi - sample_lo), total), device=device)
             H_pad, _ = refit_exposures(
-                X, torch.as_tensor(W_pad, dtype=dtype, device=device),
+                X[:, sample_lo:sample_hi],
+                torch.as_tensor(W_pad, dtype=dtype, device=device),
                 mask2d, max_iterations=max_iterations, tol=tol,
-                conv_test_freq=conv_test_freq,
+                conv_test_freq=conv_test_freq, reduce_samples=reduce_samples,
             )
+            if reduce_samples is not None:
+                H_pad = gather_samples(H_pad, mesh, n_samples)
             H = H_pad.cpu().numpy().astype(np.float64)[:total]  # (G + k, D)
             if ckpt is not None:
                 ckpt.save(
@@ -744,6 +809,7 @@ def extract_signatures(
             adata,
             given_parameters={"asignatures": asignatures},
             init_kwargs={"seed": seed},
+            mesh=mesh,
         )
 
     return ExtractionResult(

@@ -18,6 +18,7 @@ relevance; ``prune(normalize=True)`` renormalizes the survivors and pushes
 the scale into the exposures (WH-invariant). No kernel: the updates carry
 prior terms the fused KLNMF kernel does not have, so they run as plain
 PyTorch ops. ``model.plot_relevance()`` draws the relevance spectrum.
+fit(mesh=) shards the sample axis (ops/ardnmf.py's reduce_samples).
 """
 
 from __future__ import annotations
@@ -176,9 +177,10 @@ class ARDNMF(StandardNMF):
                 "fit once without warm_start first."
             )
 
-    def _build_step(self, given_parameters=None):
+    def _build_step(self, given_parameters=None, reduce_samples=None):
         return ops.make_step_functions(
-            self.prior, self._n_given_signatures(given_parameters)
+            self.prior, self._n_given_signatures(given_parameters),
+            reduce_samples,
         )
 
     # ------------------------------------------------------------------ #

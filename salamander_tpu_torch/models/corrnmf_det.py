@@ -20,6 +20,11 @@ whole fit loop host-side. No kernel: the cycle runs as plain PyTorch ops
 fused KLNMF kernel carries). fit_minibatch is the stochastic (minibatch)
 variational EM of ops/svi.py, with the counts on the device or streamed
 from the host.
+
+Under a sample-sharded mesh (fit(mesh=), fit_minibatch(mesh=)) each rank
+holds a block of the samples; a cycle's sums over them take one collective
+for the signature scalings and the signature update together, two per
+signature-side Newton step and one for the variance (ops/corrnmf.py).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch
 from ..engine.transfer import params_to_numpy
 from ..ops import corrnmf as ops
 from ..ops import klnmf as klnmf_ops
+from ..ops.klnmf import sum_samples
 from ..ops.precision import require_ieee_float32
 from .corrnmf import CorrNMF, _host
 from .signature_nmf import (
@@ -39,6 +45,7 @@ from .signature_nmf import (
     check_minibatch_placement,
     host_rows,
     record_minibatch_history,
+    run_resident_minibatch,
 )
 
 SIGNATURE_NEWTON_ITERS = 100  # effectively to convergence (quadratic)
@@ -112,7 +119,14 @@ class CorrNMFDet(CorrNMF):
             "fix_variance": "variance" in given,
         }
 
-    def _build_step(self, given_parameters=None):
+    def _sample_axes(self):
+        # samples as rows: the per-sample leaves and X split on axis 0
+        return (
+            {"sample_scalings": 0, "sample_embeddings": 0, "exposures": 0},
+            {"X": 0},
+        )
+
+    def _build_step(self, given_parameters=None, reduce_samples=None):
         flags = self._given_flags(given_parameters)
         n_given = flags["n_given"]
 
@@ -132,14 +146,25 @@ class CorrNMFDet(CorrNMF):
             exposures = ops.compute_exposures(sig_scal, smp_scal, sig_emb,
                                               smp_emb)
             aux = ops.compute_aux(X, signatures, exposures)
+            # the sums over samples of the signature scalings and of the
+            # signature update (step 7 reads the step-2 exposures and the
+            # old signatures): one reduce_samples call under a mesh
+            partials = []
             if not flags["fix_signature_scalings"]:
-                sig_scal = ops.update_signature_scalings(
-                    aux, smp_scal, sig_emb, smp_emb
-                )
+                partials += ops.signature_scaling_sums(aux, smp_scal,
+                                                       sig_emb, smp_emb)
+            if not flags["fix_signatures"]:
+                partials.append(klnmf_ops.w_numerator(
+                    X.mT, signatures.mT, exposures.mT))
+            sums = list(sum_samples(reduce_samples, *partials))
+            if not flags["fix_signature_scalings"]:
+                observed, predicted = sums.pop(0), sums.pop(0)
+                sig_scal = torch.log(observed) - torch.log(predicted)
             if not flags["fix_signature_embeddings"]:
                 sig_emb = ops.update_embeddings(
                     sig_emb, smp_emb, sig_scal, smp_scal, variance, aux,
                     max_iter=SIGNATURE_NEWTON_ITERS,
+                    reduce_samples=reduce_samples,
                 )
             if not flags["fix_sample_embeddings"]:
                 smp_emb = ops.update_embeddings(
@@ -147,12 +172,11 @@ class CorrNMFDet(CorrNMF):
                     max_iter=SAMPLE_NEWTON_ITERS,
                 )
             if not flags["fix_variance"]:
-                variance = ops.update_variance(sig_emb, smp_emb)
+                variance = ops.update_variance(sig_emb, smp_emb,
+                                               reduce_samples)
             if not flags["fix_signatures"]:
-                signatures = klnmf_ops.update_W(
-                    X.mT, signatures.mT, exposures.mT,
-                    n_given_signatures=n_given,
-                ).mT
+                signatures = klnmf_ops.update_W_from_numerator(
+                    signatures.mT, sums.pop(0), n_given).mT
             return {
                 "signatures": signatures,
                 "signature_scalings": sig_scal,
@@ -171,6 +195,7 @@ class CorrNMFDet(CorrNMF):
                 params["signature_embeddings"],
                 params["sample_embeddings"],
                 params["variance"],
+                reduce_samples=reduce_samples,
             )
 
         return update_fn, objective_fn
@@ -235,9 +260,12 @@ class CorrNMFDet(CorrNMF):
         (20-100) tempers the early noisy steps and preserves more of the
         initialization basin.
 
-        Sharding the sample axis over devices (mesh=) waits for ROADMAP
-        item 18; with streaming=True it is refused, as the streaming path
-        is host-driven and single-device.
+        mesh (a DeviceMesh with a 'samples' axis that every rank passes)
+        shards the resident cohort's samples: every rank draws the same
+        batches, refreshes the locals of its batch samples and all-reduces
+        the batch sums and the recorded ELBO (ops/svi.py); with
+        streaming=True it is refused, as the streaming path is host-driven
+        and single-device.
         """
         from ..ops import svi
 
@@ -296,13 +324,14 @@ class CorrNMFDet(CorrNMF):
                 n_steps, eval_freq, objective_fn,
                 refresh_fn=svi.refresh_sample_usq,
             )
+            final = dict(state.params)
         else:
             params, data = self._device_state()
-            state, elbo_trace = svi.run_svi(
-                svi.make_svi_step(**step_kwargs), svi.svi_init(params),
-                data["X"], generator, n_steps, eval_freq,
-            )
-        final = dict(state.params)
+            params, elbo_trace = run_resident_minibatch(
+                svi.make_svi_step, svi.svi_init, svi.full_elbo, params,
+                data, lambda d: d["X"], self._sample_axes(), mesh,
+                generator, n_steps, eval_freq, **step_kwargs)
+            final = dict(params)
         final["exposures"] = ops.compute_exposures(
             final["signature_scalings"],
             final["sample_scalings"],

@@ -9,8 +9,8 @@ one launch of the fused CUDA kernel (ops/cuda_klnmf.py); every other fit
 runs the plain PyTorch update. fit_minibatch is online NMF over the sample
 axis (ops/svi.py), with the counts on the device or streamed from the host;
 it runs plain PyTorch ops (its step is not the joint block the kernel
-carries). fit(mesh=) shards the sample axis over a mesh's ranks
-(models/signature_nmf.py); fit_minibatch(mesh=) waits for ROADMAP item 18.
+carries). fit(mesh=) and fit_minibatch(mesh=) shard the sample axis over
+a mesh's ranks (models/signature_nmf.py, ops/svi.py).
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from .signature_nmf import (
     check_minibatch_placement,
     host_rows,
     record_minibatch_history,
+    run_resident_minibatch,
 )
 from .standard_nmf import StandardNMF
 
@@ -88,8 +89,6 @@ class KLNMF(StandardNMF):
         if self.weights_lhalf is not None:
             data["weights_lhalf"] = self._to_device(self.weights_lhalf)
         return params, data
-
-    _shards_samples = True
 
     def _build_step(self, given_parameters=None, reduce_samples=None):
         return ops.make_step_functions(
@@ -162,9 +161,12 @@ class KLNMF(StandardNMF):
         slowly, so fast statistic decay (e.g. the CorrNMF default 0.7)
         freezes the signatures far from the optimum.
 
-        Sharding the sample axis over devices (mesh=) waits for ROADMAP
-        item 18; with streaming=True it is refused, as the streaming path
-        is host-driven and single-device.
+        mesh (a DeviceMesh with a 'samples' axis that every rank passes)
+        shards the resident cohort's samples: every rank draws the same
+        batches, refreshes the exposures of its batch samples and
+        all-reduces the W statistic and the recorded objective (ops/svi.py);
+        with streaming=True it is refused, as the streaming path is
+        host-driven and single-device.
         """
         from ..ops import svi
 
@@ -221,14 +223,15 @@ class KLNMF(StandardNMF):
                 get_batch, n_samples, config.batch_size, generator,
                 n_steps, eval_freq, objective_fn,
             )
+            params = state.params
         else:
             params, data = self._device_state()
-            state, trace = svi.run_svi(
-                svi.make_klnmf_svi_step(**step_kwargs),
-                svi.klnmf_svi_init(params), data, generator,
-                n_steps, eval_freq, elbo_fn=svi.klnmf_full_objective,
-            )
-        self._absorb_params(params_to_numpy(state.params))
+            params, trace = run_resident_minibatch(
+                svi.make_klnmf_svi_step, svi.klnmf_svi_init,
+                svi.klnmf_full_objective, params, data, lambda d: d,
+                self._sample_axes(), mesh, generator, n_steps,
+                eval_freq, **step_kwargs)
+        self._absorb_params(params_to_numpy(params))
         if history:
             record_minibatch_history(self.history, trace, n_steps, eval_freq)
         self._is_fitted = True

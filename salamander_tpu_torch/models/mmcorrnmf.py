@@ -27,8 +27,14 @@ No kernel: step 7 is update_W at fixed exposures, not the joint W/H step
 that the fused KLNMF kernel carries, so the cycle runs as plain PyTorch
 ops, like CorrNMFDet's. fit_minibatch is the stochastic (minibatch)
 variational EM of ops/svi.py with one shared minibatch across the
-modalities. The plot_* methods draw through plot.py; mesh= waits for ROADMAP
-item 18.
+modalities. The plot_* methods draw through plot.py.
+
+fit(mesh=) and fit_minibatch(mesh=) shard the shared sample axis: every
+modality's counts and the per-sample leaves split once for all modalities,
+the joint sample-embedding solve stays rank-local, and a cycle's sums over
+the samples take one collective for every modality's signature scalings,
+two per signature-side Newton step of each modality, and one for the
+variance and every modality's signature update.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from ..engine.transfer import params_to_numpy
 from ..initialization.initialize import EPSILON, initialize_mmcorrnmf
 from ..ops import corrnmf as ops
 from ..ops import klnmf as klnmf_ops
+from ..ops.klnmf import sum_samples
 from ..ops.precision import require_ieee_float32
 from ..utils import (
     compute_exposures_numpy,
@@ -57,16 +64,26 @@ from .corrnmf import _host
 from .corrnmf_det import SAMPLE_NEWTON_ITERS, SIGNATURE_NEWTON_ITERS
 from .signature_nmf import (
     _DTYPES,
-    MESH_NOT_PORTED,
     NEWTON_CG_COMPAT_MINIBATCH,
     SignatureNMF,
+    check_fit_mesh,
     check_minibatch_placement,
+    gather_sample_leaves,
     host_rows,
     is_integer_counts,
     promote_objective,
     record_minibatch_history,
     resolve_device,
     resolve_dtype,
+    run_resident_minibatch,
+    sample_blocks,
+)
+
+# where the shared sample axis D sits in the fit state, by leaf name (data
+# ["X"] holds every modality's (D, V) counts); the rest replicates
+_SAMPLE_AXES = (
+    {"sample_scalings": 0, "sample_embeddings": 0, "exposures": 0},
+    {"X": 0},
 )
 
 
@@ -402,10 +419,16 @@ class MultimodalCorrNMF:
                 "warm_start - or load a saved model - first."
             ) from None
 
-    def _build_step(self, given_parameters=None):
+    def _sample_axes(self):
+        """Which axis of each leaf of the fit state is the shared sample
+        axis, by leaf name (params, data); absent = replicated."""
+        return _SAMPLE_AXES
+
+    def _build_step(self, given_parameters=None, reduce_samples=None):
         """The batched-native (update_fn, objective_fn) pair over (params,
         data): every leaf may carry leading lane axes (the variance is then
-        (R,)), and data["X"][name] is (D, V) or, per lane, (R, D, V)."""
+        (R,)), and data["X"][name] is (D, V) or, per lane, (R, D, V).
+        reduce_samples completes the sums over a sample-sharded D."""
         given = given_parameters or {}
         mod_names = self.mod_names
         ns_signatures = self.ns_signatures
@@ -443,14 +466,18 @@ class MultimodalCorrNMF:
                 for name in mod_names
             }
 
-            # 4: signature scalings
-            for name in mod_names:
-                m, f = mods[name], flags[name]
-                if not f["fix_sig_scalings"]:
-                    m["signature_scalings"] = ops.update_signature_scalings(
-                        auxs[name], m["sample_scalings"],
-                        m["signature_embeddings"], U,
-                    )
+            # 4: signature scalings (every modality's sums in one call)
+            scaled = [name for name in mod_names
+                      if not flags[name]["fix_sig_scalings"]]
+            sums = list(sum_samples(reduce_samples, *(
+                part for name in scaled
+                for part in ops.signature_scaling_sums(
+                    auxs[name], mods[name]["sample_scalings"],
+                    mods[name]["signature_embeddings"], U))))
+            for name in scaled:
+                observed, predicted = sums.pop(0), sums.pop(0)
+                mods[name]["signature_scalings"] = (
+                    torch.log(observed) - torch.log(predicted))
 
             # 5a: per-modality signature embeddings (vs shared samples)
             for name in mod_names:
@@ -461,6 +488,7 @@ class MultimodalCorrNMF:
                         m["signature_scalings"], m["sample_scalings"],
                         variance, auxs[name],
                         max_iter=SIGNATURE_NEWTON_ITERS,
+                        reduce_samples=reduce_samples,
                     )
 
             # 5b: joint sample embeddings across modalities; everything is
@@ -492,25 +520,29 @@ class MultimodalCorrNMF:
                     aux_all.mT, max_iter=SAMPLE_NEWTON_ITERS,
                 )
 
-            # 6: shared variance over all embeddings
+            # 6: shared variance over all embeddings, and 7: signatures via
+            # the KL multiplicative update (step-2 exposures, old
+            # signatures): their sums over D in one call
+            updated = [name for name in mod_names
+                       if not flags[name]["fix_signatures"]]
+            partials = [klnmf_ops.w_numerator(
+                data["X"][name].mT, mods[name]["signatures"].mT,
+                mods[name]["exposures"].mT) for name in updated]
+            if not fix_variance:
+                partials += ops.variance_sums(U)
+            sums = list(sum_samples(reduce_samples, *partials))
             if not fix_variance:
                 all_sig_embs = torch.cat(
                     [mods[n]["signature_embeddings"] for n in mod_names],
                     dim=-2,
                 )
-                variance = ops.update_variance(all_sig_embs, U)
-
-            # 7: signatures via KL multiplicative update (step-2 exposures,
-            # old signatures)
-            for name in mod_names:
-                m, f = mods[name], flags[name]
-                if not f["fix_signatures"]:
-                    m["signatures"] = klnmf_ops.update_W(
-                        data["X"][name].mT,
-                        m["signatures"].mT,
-                        m["exposures"].mT,
-                        n_given_signatures=f["n_given"],
-                    ).mT
+                variance = ops.variance_from(all_sig_embs, sums[-2],
+                                             sums[-1], U.shape[-1])
+            for index, name in enumerate(updated):
+                m = mods[name]
+                m["signatures"] = klnmf_ops.update_W_from_numerator(
+                    m["signatures"].mT, sums[index],
+                    flags[name]["n_given"]).mT
 
             return {
                 "mods": mods,
@@ -528,11 +560,13 @@ class MultimodalCorrNMF:
                     data["X"][name], m["signatures"], m["exposures"],
                     m["signature_embeddings"], U, variance,
                     penalize_sample_embeddings=False,
+                    reduce_samples=reduce_samples,
                 )
-            n_obs = U.shape[-2]
+            sample_sq, n_obs = sum_samples(reduce_samples,
+                                           *ops.variance_sums(U))
             elbo = elbo - 0.5 * dim * n_obs * torch.log(
                 2 * torch.pi * variance)
-            elbo = elbo - (U**2).sum((-2, -1)) / (2 * variance)
+            elbo = elbo - sample_sq / (2 * variance)
             return elbo
 
         return update_fn, objective_fn
@@ -760,11 +794,16 @@ class MultimodalCorrNMF:
         warm_start=True skips initialization and CONTINUES from the state
         already in the model/containers; the convergence rule restarts
         fresh. The convergence objective is evaluated in float64
-        (promote_objective). Sharding one fit over devices (mesh=) waits
-        for ROADMAP item 18.
+        (promote_objective).
+
+        mesh (optional): a DeviceMesh with a 'samples' axis
+        (parallel.make_mesh) that every rank passes: each rank fits its
+        block of the shared samples (every modality's counts and the
+        per-sample parameters), the sums over them all-reduced, and the
+        per-sample parameters are gathered, so every rank's model equals
+        the unsharded fit. Its sample ways must divide the samples.
         """
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
+        sample_ways = 1 if mesh is None else check_fit_mesh(mesh, "fit")
         self._setup_mdata(mdata)
         if warm_start:
             self._check_warm_start(given_parameters)
@@ -772,12 +811,29 @@ class MultimodalCorrNMF:
             self._initialize(given_parameters, init_kwargs)
 
         if self.newton_cg_compat:
+            if mesh is not None:
+                raise ValueError(
+                    "mesh= is not available under newton_cg_compat=True: "
+                    "the scipy-exact fit loop runs host-side."
+                )
             return self._fit_host(given_parameters, history, verbose,
                                   verbosity_freq)
         if self.device.type == "cuda":
             require_ieee_float32()
         params0, data = self._device_state()
-        update_fn, objective_fn = self._build_step(given_parameters)
+        if mesh is not None:
+            from ..parallel.mesh import first_rank_copy, samples_reducer
+
+            params0 = first_rank_copy(params0, mesh)
+        n_samples = int(self.mdata.n_obs)
+        reduce_samples = None
+        if sample_ways > 1:
+            params0 = sample_blocks(params0, _SAMPLE_AXES[0], mesh,
+                                    n_samples)
+            data = sample_blocks(data, _SAMPLE_AXES[1], mesh, n_samples)
+            reduce_samples = samples_reducer(mesh)
+        update_fn, objective_fn = self._build_step(given_parameters,
+                                                   reduce_samples)
         objective_fn = promote_objective(objective_fn, params0)
         config = self._fit_config()
         if stop_on_nonfinite:
@@ -790,7 +846,11 @@ class MultimodalCorrNMF:
             verbosity_freq=verbosity_freq,
         )
         result = run(params0, data)
-        self._absorb_params(params_to_numpy(result.params))
+        params = result.params
+        if sample_ways > 1:
+            params = gather_sample_leaves(params, _SAMPLE_AXES[0], mesh,
+                                          n_samples)
+        self._absorb_params(params_to_numpy(params))
         if history:
             n_evals = int(result.n_evals)
             self.history["objective_function"] = list(
@@ -859,9 +919,10 @@ class MultimodalCorrNMF:
         skips the full-data ELBO evaluations). streaming=True keeps every
         modality's count matrix HOST-resident with per-step minibatch
         uploads, bit-equal to the resident path at the same seed (see
-        CorrNMFDet.fit_minibatch / ops/svi.py run_svi_streaming). Sharding
-        the sample axis over devices (mesh=) waits for ROADMAP item 18;
-        with streaming=True it is refused."""
+        CorrNMFDet.fit_minibatch / ops/svi.py run_svi_streaming). mesh=
+        shards the resident cohort's shared samples, as
+        CorrNMFDet.fit_minibatch does; with streaming=True it is
+        refused."""
         from ..ops import svi
 
         check_minibatch_placement(mesh, streaming)
@@ -917,20 +978,21 @@ class MultimodalCorrNMF:
                 n_steps, eval_freq, objective_fn,
                 refresh_fn=svi.refresh_sample_usq,
             )
+            params = state.params
         else:
             params, data = self._device_state()
-            state, elbo_trace = svi.run_svi(
-                svi.make_mm_svi_step(**step_kwargs),
-                svi.mm_svi_init(params), data["X"], generator,
-                n_steps, eval_freq, elbo_fn=svi.mm_full_elbo,
-            )
+            params, elbo_trace = run_resident_minibatch(
+                svi.make_mm_svi_step, svi.mm_svi_init, svi.mm_full_elbo,
+                params, data, lambda d: d["X"], _SAMPLE_AXES, mesh,
+                generator, n_steps, eval_freq, who="fit",
+                **step_kwargs)
         final = {
             "mods": {},
-            "sample_embeddings": state.params["sample_embeddings"],
-            "variance": state.params["variance"],
+            "sample_embeddings": params["sample_embeddings"],
+            "variance": params["variance"],
         }
         for name in mod_names:
-            mod = dict(state.params["mods"][name])
+            mod = dict(params["mods"][name])
             mod["exposures"] = ops.compute_exposures(
                 mod["signature_scalings"], mod["sample_scalings"],
                 mod["signature_embeddings"], final["sample_embeddings"],

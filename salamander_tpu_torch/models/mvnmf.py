@@ -5,7 +5,8 @@ Hyperparameters lam/delta; each iteration is the H update, then the W
 update with a backtracking line search whose step scale gamma persists
 across iterations (reset to 1.0 per fit, carried through the engine as
 params["gamma"]). No kernel: the iteration runs as plain PyTorch ops, with
-one host sync per line-search trial (ops/mvnmf.py).
+one host sync per line-search trial (ops/mvnmf.py). fit(mesh=) shards the
+sample axis (the sums over D through ops/mvnmf.py's reduce_samples).
 """
 
 from __future__ import annotations
@@ -93,7 +94,7 @@ class MvNMF(StandardNMF):
             return max(1, int(self._line_search_trial_batch))
         return 1
 
-    def _build_step(self, given_parameters=None):
+    def _build_step(self, given_parameters=None, reduce_samples=None):
         n_given = self._n_given_signatures(given_parameters)
         lam, delta = self.lam, self.delta
         freeze_W = n_given == self.n_signatures
@@ -104,18 +105,20 @@ class MvNMF(StandardNMF):
             H = klnmf_ops.update_H(X, params["W"], params["H"])
             if freeze_W:
                 return {"W": params["W"], "H": H, "gamma": params["gamma"]}
-            W_unconstrained = ops.update_W_unconstrained(
-                X, params["W"], H, lam, delta, n_given
+            W_unconstrained, objective = ops.w_step_and_objective(
+                X, params["W"], H, lam, delta, n_given, reduce_samples
             )
             W, H, gamma = ops.line_search(
                 X, params["W"], H, lam, delta, params["gamma"],
                 W_unconstrained, trial_batch=trial_batch,
+                reduce_samples=reduce_samples, prev_objective=objective,
             )
             return {"W": W, "H": H, "gamma": gamma}
 
         def objective_fn(params, data):
             return ops.kl_divergence_penalized(
-                data["X"], params["W"], params["H"], lam, delta
+                data["X"], params["W"], params["H"], lam, delta,
+                reduce_samples
             )
 
         return update_fn, objective_fn

@@ -15,8 +15,8 @@ Concrete models implement the engine hooks:
                                   plain update loop
   _absorb_params(params)       -> write fitted arrays back into the containers
 
-A family whose step functions take `reduce_samples` (KLNMF) sets
-`_shards_samples`: its fit then shards the sample axis over a mesh.
+Every family's step functions take `reduce_samples`, so every fit shards
+the sample axis over a mesh (`_sample_axes` names the sharded leaves).
 """
 
 from __future__ import annotations
@@ -31,15 +31,16 @@ import torch
 from .. import containers, tools as tl
 from ..engine import FitConfig, effective_tolerance, make_fit_function
 from ..engine.transfer import params_to_numpy
-from ..engine.tree import tree_leaves, tree_map
+from ..engine.tree import (
+    by_leaf_name,
+    tree_flatten,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 from ..initialization.methods import INIT_METHODS
 from ..ops.precision import require_ieee_float32
-from ..utils import (
-    MESH_NOT_PORTED,
-    match_signatures_pair,
-    type_checker,
-    value_checker,
-)
+from ..utils import match_signatures_pair, type_checker, value_checker
 
 EPSILON = float(np.finfo(np.float32).eps)
 
@@ -105,12 +106,98 @@ NEWTON_CG_COMPAT_MINIBATCH = (
 
 
 def check_minibatch_placement(mesh, streaming: bool) -> None:
-    """The mesh= rules shared by every fit_minibatch: with streaming, the
-    JAX package's refusal; alone, ROADMAP item 18."""
+    """The mesh= rule shared by every fit_minibatch: the JAX package's
+    refusal of a mesh with streaming (a mesh alone shards the resident
+    cohort's samples)."""
     if mesh is not None and streaming:
         raise ValueError(MESH_WITH_STREAMING)
+
+
+def check_fit_mesh(mesh, who: str = "model.fit") -> int:
+    """The sample ways of a fit's mesh=: a DeviceMesh with a 'samples'
+    axis (the JAX package's message otherwise)."""
+    from ..parallel.mesh import SAMPLE_AXIS, axis_size, check_mesh
+
+    check_mesh(mesh)
+    names = tuple(mesh.mesh_dim_names or ())
+    if SAMPLE_AXIS not in names:
+        raise ValueError(
+            f"mesh has axes {names}; {who} expects a "
+            f"'{SAMPLE_AXIS}' axis (parallel.make_mesh(sample_ways=...))."
+        )
+    return axis_size(mesh, SAMPLE_AXIS)
+
+
+def sample_blocks(tree: dict, axes: dict, mesh, n_samples: int) -> dict:
+    """This rank's block of the samples of every leaf of `tree` that `axes`
+    names (leaf name -> its sample axis); the other leaves as they are."""
+    from ..parallel.mesh import sample_range
+
+    lo, hi = sample_range(n_samples, mesh)
+
+    def block(path, leaf):
+        axis = by_leaf_name(path, axes)
+        if axis is None:
+            return leaf
+        return leaf.narrow(axis, lo, hi - lo).contiguous()
+
+    return tree_unflatten({path: block(path, leaf)
+                           for path, leaf in tree_flatten(tree).items()})
+
+
+def gather_sample_leaves(tree: dict, axes: dict, mesh,
+                         n_samples: int) -> dict:
+    """The whole samples of every leaf of `tree` that `axes` names, from
+    every rank's sample_blocks (parallel.mesh.gather_samples)."""
+    from ..parallel.mesh import gather_samples
+
+    def whole(path, leaf):
+        axis = by_leaf_name(path, axes)
+        if axis is None:
+            return leaf
+        return gather_samples(leaf, mesh, n_samples, axis)
+
+    return tree_unflatten({path: whole(path, leaf)
+                           for path, leaf in tree_flatten(tree).items()})
+
+
+def run_resident_minibatch(make_step, init, objective, params, data,
+                           data_of, sample_axes, mesh, generator,
+                           n_steps: int, eval_freq: int,
+                           who: str = "model.fit", **step_kwargs):
+    """ops.svi.run_svi over a device-resident cohort: the step of
+    make_step(**step_kwargs), the state init(params), the recorded
+    objective(params, data, reduce_samples), data_of(data) the step's data.
+    Under a mesh with more than one sample way each rank runs on its block
+    of the step_kwargs["n_samples"] samples (sample_axes, as _sample_axes
+    names them) and the per-sample parameters are gathered. Returns
+    (params, trace)."""
+    from ..ops import svi
+    from ..parallel.mesh import first_rank_copy, sample_range, samples_reducer
+
+    n_samples = step_kwargs["n_samples"]
+
+    sample_block = reduce_samples = None
     if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+        params = first_rank_copy(params, mesh)
+    if mesh is not None and check_fit_mesh(mesh, who) > 1:
+        params = sample_blocks(params, sample_axes[0], mesh, n_samples)
+        data = sample_blocks(data, sample_axes[1], mesh, n_samples)
+        sample_block = sample_range(n_samples, mesh)
+        reduce_samples = samples_reducer(mesh)
+    state = init(params)
+    if reduce_samples is not None:
+        state = svi.shard_state(state, n_samples, reduce_samples)
+    state, trace = svi.run_svi(
+        make_step(sample_block=sample_block, reduce_samples=reduce_samples,
+                  **step_kwargs),
+        state, data_of(data), generator, n_steps, eval_freq,
+        elbo_fn=lambda p, x: objective(p, x, reduce_samples))
+    params = state.params
+    if reduce_samples is not None:
+        params = gather_sample_leaves(params, sample_axes[0], mesh,
+                                      n_samples)
+    return params, trace
 
 
 def record_minibatch_history(history: dict, trace, n_steps: int,
@@ -177,10 +264,6 @@ def segment_progress_printer():
 
 class SignatureNMF(ABC):
     """Shared structure of all NMF models used for signature analysis."""
-
-    # whether fit(mesh=) may shard the sample axis (_build_step takes
-    # reduce_samples); the other families wait for ROADMAP item 18
-    _shards_samples = False
 
     def __init__(
         self,
@@ -301,8 +384,9 @@ class SignatureNMF(ABC):
         """Return (params dict, data dict) of tensors for the engine."""
 
     @abstractmethod
-    def _build_step(self, given_parameters=None):
-        """Return (update_fn, objective_fn) over (params, data)."""
+    def _build_step(self, given_parameters=None, reduce_samples=None):
+        """Return (update_fn, objective_fn) over (params, data); under a
+        sample-sharded mesh reduce_samples completes every sum over D."""
 
     def _block_update_fn(self, params, data, given_parameters=None,
                          sample_sharded: bool = False):
@@ -383,37 +467,13 @@ class SignatureNMF(ABC):
             {"X": 1, "weights_kl": 0, "weights_lhalf": 0},   # data
         )
 
-    def _check_fit_mesh(self, mesh) -> int:
-        """The sample ways of fit(mesh=): a DeviceMesh with a 'samples'
-        axis (the JAX package's message otherwise); above 1 only for a
-        family that shards samples."""
-        from ..parallel.mesh import SAMPLE_AXIS, axis_size, check_mesh
-
-        check_mesh(mesh)
-        names = tuple(mesh.mesh_dim_names or ())
-        if SAMPLE_AXIS not in names:
-            raise ValueError(
-                f"mesh has axes {names}; model.fit expects a "
-                f"'{SAMPLE_AXIS}' axis (parallel.make_mesh(sample_ways=...))."
-            )
-        sample_ways = axis_size(mesh, SAMPLE_AXIS)
-        if sample_ways > 1 and not self._shards_samples:
-            raise NotImplementedError(MESH_NOT_PORTED)
-        return sample_ways
-
     def _local_state(self, params, data, mesh):
         """This rank's block of the samples of every leaf _sample_axes
         names (the counterpart of the JAX package's _shard_state)."""
-        from ..parallel.mesh import sample_range
-
-        lo, hi = sample_range(int(self.adata.n_obs), mesh)
-
-        def block(tree, axes):
-            return {name: leaf.narrow(axes[name], lo, hi - lo).contiguous()
-                    if name in axes else leaf for name, leaf in tree.items()}
-
         param_axes, data_axes = self._sample_axes()
-        return block(params, param_axes), block(data, data_axes)
+        n_samples = int(self.adata.n_obs)
+        return (sample_blocks(params, param_axes, mesh, n_samples),
+                sample_blocks(data, data_axes, mesh, n_samples))
 
     def _check_warm_start(self, given_parameters) -> None:
         """Validate that the model/container pair carries a previous fit's
@@ -471,17 +531,14 @@ class SignatureNMF(ABC):
         newton_cg_compat) run the reference's host loop (`_fit_host`).
 
         mesh (optional): a DeviceMesh with a 'samples' axis
-        (parallel.make_mesh) that every rank passes. A family that shards
-        samples (KLNMF) then fits each rank's block of the samples, the
-        sums over D all-reduced over the axis (plain updates: the kernel
-        sums over all of D), and the fitted exposures are gathered, so
-        every rank's model equals the unsharded fit. The mesh's sample
-        ways must divide the samples. With one sample way every rank does
-        the whole fit; the other families raise above one (item 18).
+        (parallel.make_mesh) that every rank passes. Each rank then fits
+        its block of the samples, the sums over D all-reduced over the
+        axis (plain updates: the kernel sums over all of D), and the
+        fitted per-sample parameters are gathered, so every rank's model
+        equals the unsharded fit. The mesh's sample ways must divide the
+        samples. With one sample way every rank does the whole fit.
         """
-        from ..parallel.mesh import gather_samples, sample_sum
-
-        sample_ways = 1 if mesh is None else self._check_fit_mesh(mesh)
+        sample_ways = 1 if mesh is None else check_fit_mesh(mesh)
         self._setup_adata(adata)
         if warm_start:
             self._check_warm_start(given_parameters)
@@ -501,11 +558,14 @@ class SignatureNMF(ABC):
         if self.device.type == "cuda":
             require_ieee_float32()
         params0, data = self._device_state()
+        if mesh is not None:
+            from ..parallel.mesh import first_rank_copy, samples_reducer
+
+            params0 = first_rank_copy(params0, mesh)
         step_kwargs = {}
         if sample_ways > 1:
             params0, data = self._local_state(params0, data, mesh)
-            step_kwargs["reduce_samples"] = lambda partial: sample_sum(
-                partial, mesh)
+            step_kwargs["reduce_samples"] = samples_reducer(mesh)
         update_fn, objective_fn = self._build_step(given_parameters,
                                                    **step_kwargs)
         block_update_fn = self._block_update_fn(
@@ -527,12 +587,8 @@ class SignatureNMF(ABC):
         result = run(params0, data)
         params = result.params
         if sample_ways > 1:
-            param_axes, _ = self._sample_axes()
-            params = {name: gather_samples(leaf, mesh,
-                                           int(self.adata.n_obs),
-                                           param_axes[name])
-                      if name in param_axes else leaf
-                      for name, leaf in params.items()}
+            params = gather_sample_leaves(params, self._sample_axes()[0],
+                                          mesh, int(self.adata.n_obs))
         self._absorb_params(params_to_numpy(params))
         if history:
             n_evals = int(result.n_evals)

@@ -25,6 +25,12 @@ Conventions as ops/klnmf.py: X (V, D), W (..., V, K), H (..., K, D), lam
 (..., K); every function is batched-native over leading restart axes. The
 hyperparameters ride in the data dict as ``ard_ab = [a, b]``. The host
 numpy helpers (default_b, relevance_excess, active_components) are copied.
+
+reduce_samples (ops/klnmf.py): under a sample-sharded mesh each rank holds
+a block of the samples, and every sum over D - the W numerator and H row
+sums, f(h_k), the KL term, and the sample count D inside the constant c -
+is completed by this hook, one call per iteration (update_whl) and one
+per objective.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .klnmf import EPSILON, kl_divergence
+from .klnmf import EPSILON, kl_divergence, sum_samples
 from .precision import mm
 
 PRIORS = ("L1", "L2")
@@ -76,32 +82,45 @@ def default_b(prior: str, mean_x: float, n_signatures: int, a: float) -> float:
     raise ValueError(f"Unknown ARD prior {prior!r}: use one of {PRIORS}.")
 
 
-def _f_norms(W, H, prior: str):
-    """f(w_k) + f(h_k) per component, shape (..., K)."""
-    if prior == "L1":
-        return W.sum(-2) + H.sum(-1)
-    return 0.5 * ((W**2).sum(-2) + (H**2).sum(-1))
+def _f_w(W, prior: str):
+    """f(w_k) per component, shape (..., K)."""
+    return W.sum(-2) if prior == "L1" else 0.5 * (W**2).sum(-2)
 
 
-def _hyperparameters(W, H, ard_ab, prior: str):
+def _f_h(H, prior: str):
+    """f(h_k) per component, shape (..., K): a sum over D."""
+    return H.sum(-1) if prior == "L1" else 0.5 * (H**2).sum(-1)
+
+
+def _local_count(H):
+    """This rank's sample count, (..., 1): sum_samples completes it to D."""
+    return torch.full_like(H[..., :1, 0], float(H.shape[-1]))
+
+
+def _hyperparameters(n_features: int, n_samples, ard_ab, prior: str):
     """(b, c) shaped to broadcast against a (..., K) component vector."""
     a, b = ard_ab[..., 0:1], ard_ab[..., 1:2]
-    return b, prior_constant(prior, W.shape[-2], H.shape[-1], a)
+    return b, prior_constant(prior, n_features, n_samples, a)
+
+
+def _lambda_from(W, f_h, n_samples, ard_ab, prior: str):
+    b, c = _hyperparameters(W.shape[-2], n_samples, ard_ab, prior)
+    return (_f_w(W, prior) + f_h + b) / c
 
 
 def update_lambda(W, H, ard_ab, prior: str):
     """Closed-form exact minimizer of C in lam: (f(w)+f(h)+b) / c."""
-    b, c = _hyperparameters(W, H, ard_ab, prior)
-    return (_f_norms(W, H, prior) + b) / c
+    return _lambda_from(W, _f_h(H, prior), H.shape[-1], ard_ab, prior)
 
 
-def ard_objective(X, W, H, lam, ard_ab, prior: str):
+def ard_objective(X, W, H, lam, ard_ab, prior: str, reduce_samples=None):
     """The MAP objective C(W, H, lam) to minimize (module docstring); the
     KL term is ops/klnmf.kl_divergence (X==0 terms contribute only +WH)."""
-    b, c = _hyperparameters(W, H, ard_ab, prior)
-    penalty = ((_f_norms(W, H, prior) + b) / lam).sum(-1)
-    return (kl_divergence(X, W, H) + penalty
-            + c.squeeze(-1) * torch.log(lam).sum(-1))
+    kl, f_h, n_samples = sum_samples(reduce_samples, kl_divergence(X, W, H),
+                                     _f_h(H, prior), _local_count(H))
+    b, c = _hyperparameters(W.shape[-2], n_samples, ard_ab, prior)
+    penalty = ((_f_w(W, prior) + f_h + b) / lam).sum(-1)
+    return kl + penalty + c.squeeze(-1) * torch.log(lam).sum(-1)
 
 
 def update_H(X, W, H, lam, prior: str):
@@ -123,11 +142,18 @@ def update_W(X, W, H, lam, prior: str, n_given_signatures: int = 0):
     """MM update of W at fixed H, lam; leading given columns frozen exactly
     (no renormalization: ARD signatures carry their scale, which is what
     lambda measures)."""
-    n_signatures = W.shape[-1]
-    if n_given_signatures == n_signatures:
+    if n_given_signatures == W.shape[-1]:
         return W
-    numerator = mm(X / mm(W, H), H.mT)
-    row_h = H.sum(-1).unsqueeze(-2)
+    return _update_W_from(W, mm(X / mm(W, H), H.mT), H.sum(-1), lam, prior,
+                          n_given_signatures)
+
+
+def _update_W_from(W, numerator, row_h, lam, prior: str,
+                   n_given_signatures: int):
+    """update_W from its sums over D: the numerator (..., V, K) and the H
+    row sums (..., K)."""
+    n_signatures = W.shape[-1]
+    row_h = row_h.unsqueeze(-2)
     if prior == "L1":
         W_new = W * numerator / (row_h + (1.0 / lam).unsqueeze(-2))
     else:
@@ -140,12 +166,19 @@ def update_W(X, W, H, lam, prior: str, n_given_signatures: int = 0):
     return W_new
 
 
-def update_whl(X, W, H, lam, ard_ab, prior: str, n_given_signatures: int = 0):
-    """One full ARD iteration: H, then W (fresh ratio), then lambda."""
+def update_whl(X, W, H, lam, ard_ab, prior: str, n_given_signatures: int = 0,
+               reduce_samples=None):
+    """One full ARD iteration: H, then W (fresh ratio), then lambda. Under
+    a sample-sharded mesh the W step's and lambda's sums over D (H is not
+    touched in between) share one reduce_samples call."""
     H = update_H(X, W, H, lam, prior)
-    W = update_W(X, W, H, lam, prior, n_given_signatures)
-    lam = update_lambda(W, H, ard_ab, prior)
-    return W, H, lam
+    numerator, row_h, f_h, n_samples = sum_samples(
+        reduce_samples, mm(X / mm(W, H), H.mT), H.sum(-1), _f_h(H, prior),
+        _local_count(H))
+    if n_given_signatures != W.shape[-1]:
+        W = _update_W_from(W, numerator, row_h, lam, prior,
+                           n_given_signatures)
+    return W, H, _lambda_from(W, f_h, n_samples, ard_ab, prior)
 
 
 def init_params(W, H, ard_ab, prior: str, n_given_signatures: int = 0):
@@ -155,13 +188,10 @@ def init_params(W, H, ard_ab, prior: str, n_given_signatures: int = 0):
     h_k /= s_k with s_k chosen so f(w_k) = f(h_k)); given (frozen) leading
     columns pass through unscaled. Returns {"W", "H", "lam"} with the
     closed-form lambda at the rebalanced point; batched-native, so one call
-    initializes every restart lane."""
-    if prior == "L1":
-        fw, fh = W.sum(-2), H.sum(-1)
-        power = 0.5
-    else:
-        fw, fh = 0.5 * (W**2).sum(-2), 0.5 * (H**2).sum(-1)
-        power = 0.25
+    initializes every restart lane. A mesh's ranks initialize the whole
+    cohort before it is sharded, so this needs no reduce_samples."""
+    fw, fh = _f_w(W, prior), _f_h(H, prior)
+    power = 0.5 if prior == "L1" else 0.25
     scale = (fh / torch.clamp_min(fw, EPSILON)) ** power
     if n_given_signatures > 0:
         given = torch.arange(scale.shape[-1], device=W.device) \
@@ -169,14 +199,17 @@ def init_params(W, H, ard_ab, prior: str, n_given_signatures: int = 0):
         scale = torch.where(given, 1.0, scale)
     W = torch.clamp_min(W * scale.unsqueeze(-2), EPSILON)
     H = torch.clamp_min(H / scale.unsqueeze(-1), EPSILON)
-    return {"W": W, "H": H, "lam": update_lambda(W, H, ard_ab, prior)}
+    return {"W": W, "H": H,
+            "lam": update_lambda(W, H, ard_ab, prior)}
 
 
-def make_step_functions(prior: str, n_given_signatures: int = 0):
+def make_step_functions(prior: str, n_given_signatures: int = 0,
+                        reduce_samples=None):
     """Engine step functions of the ARDNMF family.
 
     params = {"W": (..., V, K), "H": (..., K, D), "lam": (..., K)};
-    data = {"X": (V, D), "ard_ab": (2,) tensor [a, b]}.
+    data = {"X": (V, D), "ard_ab": (2,) tensor [a, b]}. reduce_samples
+    completes the sums over D of a sample-sharded fit (module docstring).
     """
     if prior not in PRIORS:
         raise ValueError(f"Unknown ARD prior {prior!r}: use one of {PRIORS}.")
@@ -184,14 +217,14 @@ def make_step_functions(prior: str, n_given_signatures: int = 0):
     def update_fn(params, data):
         W, H, lam = update_whl(
             data["X"], params["W"], params["H"], params["lam"],
-            data["ard_ab"], prior, n_given_signatures,
+            data["ard_ab"], prior, n_given_signatures, reduce_samples,
         )
         return {"W": W, "H": H, "lam": lam}
 
     def objective_fn(params, data):
         return ard_objective(
             data["X"], params["W"], params["H"], params["lam"],
-            data["ard_ab"], prior,
+            data["ard_ab"], prior, reduce_samples,
         )
 
     return update_fn, objective_fn

@@ -21,6 +21,13 @@ The convergence loop and the elimination rounds are driven from the host
 with one sync per block or round, where the JAX package runs
 ``lax.while_loop``.
 
+Under a sample-sharded mesh (reduce_samples, ops/klnmf.py) each rank holds
+a block of the samples. The work is per sample, so the only sums over
+them are the convergence objectives (one call a block) and the
+elimination's stopping count (one a round): every rank then runs the
+cohort's number of blocks and rounds, and a frozen sample gets the polish
+steps of every round, as in one process.
+
 Masking convention (ops.klnmf.make_masked_step_functions): inactive (k, d)
 entries of H are held at EXACT zero, so W @ H, the KL and every ratio equal
 the subset computation; active entries are clipped at EPSILON.
@@ -38,7 +45,7 @@ from __future__ import annotations
 
 import torch
 
-from .klnmf import EPSILON, samplewise_kl_divergence
+from .klnmf import EPSILON, samplewise_kl_divergence, sum_samples
 from .precision import mm
 
 __all__ = [
@@ -99,7 +106,8 @@ def refit_exposures_fixed(X, W, mask, H0, n_iterations: int):
 
 
 def refit_exposures(X, W, mask, H0=None, max_iterations: int = 10_000,
-                    tol: float = 1e-7, conv_test_freq: int = 10):
+                    tol: float = 1e-7, conv_test_freq: int = 10,
+                    reduce_samples=None):
     """Masked exposure-only refit to convergence.
 
     Runs blocks of ``conv_test_freq`` MU steps and stops when the relative
@@ -107,7 +115,9 @@ def refit_exposures(X, W, mask, H0=None, max_iterations: int = 10_000,
     EPSILON), drops below ``tol`` or ``max_iterations`` (rounded up to a
     whole block) is reached. The first block always runs. One host sync
     per block. Returns (H, n_iterations) with n_iterations = blocks *
-    conv_test_freq.
+    conv_test_freq. Under a sample-sharded mesh X, mask and H0 are this
+    rank's samples and reduce_samples completes the summed KL (one call a
+    block), so every rank stops at the block of the whole cohort.
     """
     X, W = _common(X, W)
     if H0 is None:
@@ -115,7 +125,7 @@ def refit_exposures(X, W, mask, H0=None, max_iterations: int = 10_000,
     max_blocks = -(-int(max_iterations) // int(conv_test_freq))
 
     def objective(H):
-        return _kl(X, W, H).sum()
+        return sum_samples(reduce_samples, _kl(X, W, H).sum())[0]
 
     H, prev, cur = H0, None, objective(H0)
     blocks = 0
@@ -132,12 +142,15 @@ def refit_exposures(X, W, mask, H0=None, max_iterations: int = 10_000,
 
 
 def refit_exposures_lanes(X, W, mask, max_iterations: int = 10_000,
-                          tol: float = 1e-7, conv_test_freq: int = 10):
+                          tol: float = 1e-7, conv_test_freq: int = 10,
+                          reduce_samples=None):
     """refit_exposures for a stack of cohorts X (B, V, D) that share W and
     mask (K, D): every lane runs the rule of refit_exposures on its OWN
     summed KL and is frozen (``torch.where``) once it stops, so a lane's
     result is that of refit_exposures on its counts alone, whichever lanes
-    share its batch. One host sync per block. Returns H (B, K, D)."""
+    share its batch. One host sync per block. Returns H (B, K, D).
+    reduce_samples completes each lane's summed KL over a sample-sharded
+    D."""
     X, W = _common(X, W)
     counts = torch.clamp_min(mask.sum(0), 1)
     H = torch.where(mask, torch.clamp_min(
@@ -145,7 +158,7 @@ def refit_exposures_lanes(X, W, mask, max_iterations: int = 10_000,
     max_blocks = -(-int(max_iterations) // int(conv_test_freq))
 
     def objective(H):
-        return _kl(X, W, H).sum(-1)
+        return sum_samples(reduce_samples, _kl(X, W, H).sum(-1))[0]
 
     prev = cur = objective(H)
     running = torch.ones_like(cur, dtype=torch.bool)
@@ -230,6 +243,7 @@ def eliminate_signatures(
     conv_test_freq: int = 10,
     polish_tol=1e-7,
     candidate_chunk: int | None = None,
+    reduce_samples=None,
 ):
     """Greedy backward elimination of catalog signatures, per sample.
 
@@ -253,6 +267,8 @@ def eliminate_signatures(
         all). It bounds the (K, K, D) and (K, V, D) candidate tensors and
         nothing else: candidates run a fixed step count per sample, so the
         result does not depend on it.
+      reduce_samples: X is this rank's block of a sample-sharded cohort
+        (module docstring).
 
     Returns dict with: mask (K, D) int32 final supports; H (K, D)
     exposures; kl_dense / kl_sparse (D,); n_rounds (int); n_active (D,).
@@ -265,7 +281,7 @@ def eliminate_signatures(
     mask0 = torch.ones((K, D), dtype=torch.bool, device=device)
     H_dense, _ = refit_exposures(
         X, W, mask0, max_iterations=max_polish_iterations, tol=polish_tol,
-        conv_test_freq=conv_test_freq,
+        conv_test_freq=conv_test_freq, reduce_samples=reduce_samples,
     )
     kl_dense = _kl(X, W, H_dense)
     budget = (1.0 + rel_tol) * kl_dense + abs_tol
@@ -275,8 +291,15 @@ def eliminate_signatures(
     mask, H = mask0, H_dense
     frozen = torch.zeros(D, dtype=torch.bool, device=device)
     step = D if candidate_chunk is None else max(1, int(candidate_chunk))
+
+    def searching():  # one host sync (and one reduce_samples) per round
+        # the cohort's count, exact in float64
+        (running,) = sum_samples(reduce_samples,
+                                 (~frozen).sum(dtype=torch.float64))
+        return bool(running > 0)
+
     n_rounds = 0
-    while n_rounds < K and not bool(frozen.all()):  # one sync per round
+    while n_rounds < K and searching():
         k_star, kl_star, H_star = _cat_columns([
             _best_removal(X[:, lo:lo + step], W, mask[:, lo:lo + step],
                           H[:, lo:lo + step], removes, candidate_iters)
@@ -294,6 +317,7 @@ def eliminate_signatures(
     H_final, _ = refit_exposures(
         X, W, mask, H0=H, max_iterations=max_polish_iterations,
         tol=polish_tol, conv_test_freq=conv_test_freq,
+        reduce_samples=reduce_samples,
     )
     mask_out, H_out, kl_dense_out, kl_sparse, n_active = _finalize_contract(
         X, W, mask, H_final, H, H_dense, rel_tol, abs_tol
@@ -369,6 +393,8 @@ def bootstrap_refit(
     max_iterations: int = 10_000,
     tol: float = 1e-7,
     conv_test_freq: int = 10,
+    samples: tuple[int, int] | None = None,
+    reduce_samples=None,
 ):
     """Resample the cohort's counts and refit exposures, every replicate a
     lane of ONE batched masked refit that converges on its own
@@ -381,12 +407,21 @@ def bootstrap_refit(
     its generator alone and not on the replicates that share its batch;
     None makes the lane the ORIGINAL X (the point estimate). Returns H
     (B, K, D).
+
+    Under a sample-sharded mesh every rank draws the whole cohort's
+    resamples and refits its block [lo, hi) = `samples` of them (mask is
+    then that block's), reduce_samples completing the convergence sums:
+    H is (B, K, hi - lo).
     """
     X, W = _common(X, W)
-    lanes = [X.unsqueeze(0) if generator is None
-             else resample_counts(X, generator, 1, method)
-             for generator in generators]
+    lanes = torch.cat([X.unsqueeze(0) if generator is None
+                       else resample_counts(X, generator, 1, method)
+                       for generator in generators], 0)
+    if samples is not None:
+        lo, hi = samples
+        lanes = lanes[..., lo:hi].contiguous()
     return refit_exposures_lanes(
-        torch.cat(lanes, 0), W, mask, max_iterations=max_iterations,
+        lanes, W, mask, max_iterations=max_iterations,
         tol=tol, conv_test_freq=conv_test_freq,
+        reduce_samples=reduce_samples,
     )

@@ -27,6 +27,16 @@ early-exit loop does, when every row is done: the host checks once per
 step, and done rows are frozen with ``torch.where``, so extra masked steps
 give the early-exit result. The sample side (3 steps, the reference's
 scipy maxiter) runs its steps unconditionally.
+
+reduce_samples (ops/klnmf.py): under a sample-sharded mesh each rank holds
+a block of the samples (rows of X, the sample scalings and embeddings),
+and every sum over them is completed by this hook: the ELBO's likelihood,
+sample penalty and sample count, the signature scalings' two sums, the
+variance's sample sum and count, and, in the signature-side Newton solve
+(whose "other" rows are the samples), the linear term, the gradient,
+Hessian and objective sums of each step (one call) and the Armijo
+candidates' sums (a second). Every branch then reads reduced values, so
+every rank takes it. The sample-side solve is rank-local and calls nothing.
 """
 
 from __future__ import annotations
@@ -36,7 +46,7 @@ import math
 import numpy as np
 import torch
 
-from .klnmf import EPSILON, poisson_llh
+from .klnmf import EPSILON, poisson_llh, sum_samples
 from .mvnmf import _cholesky
 from .precision import mm, omm
 
@@ -79,30 +89,41 @@ def compute_aux(data_mat, signatures_mat, exposures_mat):
 
 def elbo_corrnmf(data_mat, signatures_mat, exposures_mat,
                  signature_embeddings, sample_embeddings, variance,
-                 penalize_sample_embeddings: bool = True):
+                 penalize_sample_embeddings: bool = True,
+                 reduce_samples=None):
     """Evidence lower bound: Poisson likelihood minus the Gaussian embedding
     penalties (the sample penalty is optional for multimodal CorrNMF)."""
     n_signatures, dim_embeddings = signature_embeddings.shape[-2:]
-    n_samples = sample_embeddings.shape[-2]
     variance = _as_tensor(variance, signature_embeddings)
     log_norm = torch.log(2.0 * math.pi * variance)
-    elbo = poisson_llh(data_mat.mT, signatures_mat.mT, exposures_mat.mT)
-    elbo = elbo - 0.5 * dim_embeddings * n_signatures * log_norm
+    llh = poisson_llh(data_mat.mT, signatures_mat.mT, exposures_mat.mT)
+    llh, sample_sq, n_samples = sum_samples(
+        reduce_samples, llh, *variance_sums(sample_embeddings))
+    elbo = llh - 0.5 * dim_embeddings * n_signatures * log_norm
     elbo = elbo - (signature_embeddings**2).sum((-2, -1)) / (2.0 * variance)
     if penalize_sample_embeddings:
         elbo = elbo - 0.5 * dim_embeddings * n_samples * log_norm
-        elbo = elbo - (sample_embeddings**2).sum((-2, -1)) / (2.0 * variance)
+        elbo = elbo - sample_sq / (2.0 * variance)
     return elbo
 
 
-def update_signature_scalings(aux, sample_scalings,
-                              signature_embeddings, sample_embeddings):
-    """Closed-form M-step for the signature scalings sigma (..., K)."""
+def signature_scaling_sums(aux, sample_scalings, signature_embeddings,
+                           sample_embeddings):
+    """The two sums over samples of the signature-scaling M-step:
+    (observed, predicted), each (..., K)."""
     observed = aux.sum(-1)
     predicted = torch.exp(
         sample_scalings.unsqueeze(-2)
         + mm(signature_embeddings, sample_embeddings.mT)
     ).sum(-1)
+    return observed, predicted
+
+
+def update_signature_scalings(aux, sample_scalings,
+                              signature_embeddings, sample_embeddings):
+    """Closed-form M-step for the signature scalings sigma (..., K)."""
+    observed, predicted = signature_scaling_sums(
+        aux, sample_scalings, signature_embeddings, sample_embeddings)
     return torch.log(observed) - torch.log(predicted)
 
 
@@ -118,14 +139,30 @@ def update_sample_scalings(data_mat, signature_scalings,
     return torch.log(observed) - torch.log(predicted)
 
 
-def update_variance(signature_embeddings, sample_embeddings):
+def variance_sums(sample_embeddings):
+    """The sums over samples of the variance M-step: (sum of squared
+    sample embeddings, the sample count), each of the leading shape."""
+    sample_sq = (sample_embeddings**2).sum((-2, -1))
+    return sample_sq, torch.full_like(sample_sq,
+                                      float(sample_embeddings.shape[-2]))
+
+
+def variance_from(signature_embeddings, sample_sq, n_samples, dim: int):
+    """The variance M-step from its reduced sums (variance_sums)."""
+    total = (signature_embeddings**2).sum((-2, -1)) + sample_sq
+    count = (signature_embeddings.shape[-2] * signature_embeddings.shape[-1]
+             + n_samples * dim)
+    return torch.clamp_min(total / count, EPSILON)
+
+
+def update_variance(signature_embeddings, sample_embeddings,
+                    reduce_samples=None):
     """M-step of the shared embedding variance: mean of all squared
     entries, floored at EPSILON."""
-    total = (signature_embeddings**2).sum((-2, -1)) \
-        + (sample_embeddings**2).sum((-2, -1))
-    count = (signature_embeddings.shape[-2] * signature_embeddings.shape[-1]
-             + sample_embeddings.shape[-2] * sample_embeddings.shape[-1])
-    return torch.clamp_min(total / count, EPSILON)
+    sample_sq, n_samples = sum_samples(reduce_samples,
+                                       *variance_sums(sample_embeddings))
+    return variance_from(signature_embeddings, sample_sq, n_samples,
+                         sample_embeddings.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -211,31 +248,44 @@ def _solve_spd(hess, grad):
 
 
 def _newton_step(b, done, embeddings_other, offsets, linear_term, variance,
-                 ts, xtol_total):
+                 ts, xtol_total, reduce_samples=None,
+                 complete_linear: bool = False):
     """One damped Newton step of every row, done rows frozen.
 
     b: (..., N, m) rows; embeddings_other: (..., M, m); offsets: (..., N,
     M) exponent constants; linear_term: (..., N, m) = aux @ embeddings_other;
     variance: (..., 1) (broadcast over rows); xtol_total: scalar or (...,
     1). The Armijo search evaluates all 41 halvings at once and takes the
-    first that passes - the step the serial loop would accept."""
+    first that passes - the step the serial loop would accept.
+
+    With reduce_samples the M rows are this rank's block: the step's sums
+    over M are completed in two calls (gradient, Hessian and f0 sums, with
+    the linear term's when `complete_linear`, as on the first step; then
+    the candidates'). Returns (b, done, linear_term)."""
     var_rows = variance.unsqueeze(-1)                   # (..., 1, 1)
     rates = torch.exp(offsets + omm(b, embeddings_other.mT))  # (..., N, M)
-    grad = -linear_term + omm(rates, embeddings_other) + b / var_rows
+    rate_grad = omm(rates, embeddings_other)
     weighted = rates.unsqueeze(-1) * embeddings_other.unsqueeze(-3)
+    rate_hess = omm(weighted.mT, embeddings_other.unsqueeze(-3))
+    rate_grad, rate_hess, rate_sum, *linear = sum_samples(
+        reduce_samples, rate_grad, rate_hess, rates.sum(-1),
+        *((linear_term,) if complete_linear else ()))
+    linear_term = linear[0] if linear else linear_term
+    grad = -linear_term + rate_grad + b / var_rows
     eye = torch.eye(b.shape[-1], dtype=b.dtype, device=b.device)
-    hess = (omm(weighted.mT, embeddings_other.unsqueeze(-3))
-            + eye / var_rows.unsqueeze(-1))               # (..., N, m, m)
+    hess = rate_hess + eye / var_rows.unsqueeze(-1)       # (..., N, m, m)
     direction = -_solve_spd(hess, grad)
-    f0 = (-(linear_term * b).sum(-1) + rates.sum(-1)
+    f0 = (-(linear_term * b).sum(-1) + rate_sum
           + (b * b).sum(-1) / (2.0 * variance))           # (..., N)
     slope = (grad * direction).sum(-1)
 
     candidates = b.unsqueeze(-2) + ts.unsqueeze(-1) * direction.unsqueeze(-2)
+    (cand_rates,) = sum_samples(reduce_samples, torch.exp(
+        omm(candidates, embeddings_other.mT.unsqueeze(-3))
+        + offsets.unsqueeze(-2)).sum(-1))
     f_cand = (
         -omm(candidates, linear_term.unsqueeze(-1)).squeeze(-1)
-        + torch.exp(omm(candidates, embeddings_other.mT.unsqueeze(-3))
-                    + offsets.unsqueeze(-2)).sum(-1)
+        + cand_rates
         + (candidates * candidates).sum(-1) / (2.0 * var_rows)
     )                                                     # (..., N, 41)
     ok = f_cand <= f0.unsqueeze(-1) + 1e-4 * ts * slope.unsqueeze(-1)
@@ -244,7 +294,7 @@ def _newton_step(b, done, embeddings_other, offsets, linear_term, variance,
     update = t.unsqueeze(-1) * direction
     b_new = torch.where(done.unsqueeze(-1), b, b + update)
     done_new = done | (update.abs().sum(-1) < xtol_total)
-    return b_new, done_new
+    return b_new, done_new, linear_term
 
 
 def _clamp_away_from_zero(embeddings):
@@ -258,7 +308,7 @@ def _clamp_away_from_zero(embeddings):
 
 def update_embeddings(embeddings0, embeddings_other, scalings, scalings_other,
                       variance, aux_mat, max_iter: int = 100,
-                      xtol_total=None):
+                      xtol_total=None, reduce_samples=None):
     """Batched Newton update of N embedding rows at once.
 
     embeddings0:      (..., N, m) initial values (rows optimized
@@ -274,6 +324,10 @@ def update_embeddings(embeddings0, embeddings_other, scalings, scalings_other,
     xtol_total:       stopping threshold (sum|update| below it stops a
                       row); defaults to m * XTOL. The m-padded scan passes
                       the ACTIVE dimension's threshold per lane, (...,).
+    reduce_samples:   the M rows of embeddings_other (and the columns of
+                      aux_mat and offsets) are this rank's block of the
+                      samples: the signature side under a sample-sharded
+                      mesh (module docstring).
     """
     dim = embeddings0.shape[-1]
     if xtol_total is None:
@@ -281,6 +335,7 @@ def update_embeddings(embeddings0, embeddings_other, scalings, scalings_other,
     elif isinstance(xtol_total, torch.Tensor):
         xtol_total = xtol_total.unsqueeze(-1)
     variance = _as_tensor(variance, embeddings0).unsqueeze(-1)  # (..., 1)
+    # under a mesh a partial sum, completed in the first step's call
     linear_term = omm(aux_mat, embeddings_other)                # (..., N, m)
     if scalings.dim() == embeddings0.dim() - 1:
         offsets = scalings.unsqueeze(-1) + scalings_other.unsqueeze(-2)
@@ -292,9 +347,10 @@ def update_embeddings(embeddings0, embeddings_other, scalings, scalings_other,
     b = embeddings0
     done = torch.zeros(b.shape[:-1], dtype=torch.bool, device=b.device)
     early_exit = max_iter > _UNROLL_NEWTON_LIMIT
-    for _ in range(int(max_iter)):
-        b, done = _newton_step(b, done, embeddings_other, offsets,
-                               linear_term, variance, ts, xtol_total)
+    for step in range(int(max_iter)):
+        b, done, linear_term = _newton_step(
+            b, done, embeddings_other, offsets, linear_term, variance, ts,
+            xtol_total, reduce_samples, step == 0)
         if early_exit and bool(done.all()):  # one host sync per step
             break
     return _clamp_away_from_zero(b)

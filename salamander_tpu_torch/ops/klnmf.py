@@ -102,29 +102,48 @@ def _clip(values):
     return torch.clamp_min(values, EPSILON)
 
 
-def _sum_samples(partial, reduce_samples):
-    return partial if reduce_samples is None else reduce_samples(partial)
+def sum_samples(reduce_samples, *partials):
+    """Complete several partial sums over D with ONE reduce_samples call:
+    the partials (one dtype) are flattened into one buffer, reduced and
+    split back. Returns them as a tuple, unchanged when reduce_samples is
+    None."""
+    if reduce_samples is None or not partials:
+        return partials
+    flat = reduce_samples(torch.cat([p.reshape(-1) for p in partials]))
+    out, at = [], 0
+    for p in partials:
+        out.append(flat[at:at + p.numel()].reshape(p.shape))
+        at += p.numel()
+    return tuple(out)
 
 
-def update_W(X, W, H, weights_kl=None, n_given_signatures: int = 0,
-             reduce_samples=None):
+def update_W(X, W, H, weights_kl=None, n_given_signatures: int = 0):
     """Multiplicative W update under column-normalization.
 
     Only the free (non-given) columns are clipped to EPSILON, so given
     signatures pass through bit-exactly.
     """
-    n_signatures = W.shape[-1]
-    if n_given_signatures == n_signatures:
+    if n_given_signatures == W.shape[-1]:
         return W
+    return update_W_from_numerator(
+        W, w_numerator(X, W, H, weights_kl), n_given_signatures)
 
+
+def w_numerator(X, W, H, weights_kl=None):
+    """update_W's sum over D, (..., V, K): (X / WH) @ H^T."""
     aux = X / mm(W, H)
     if weights_kl is not None:
         aux = aux * _columns(weights_kl)
-    W_new = W * _sum_samples(mm(aux, H.mT), reduce_samples)
+    return mm(aux, H.mT)
+
+
+def update_W_from_numerator(W, numerator, n_given_signatures: int = 0):
+    """update_W from its (reduced) w_numerator."""
+    W_new = W * numerator
     W_new = W_new / W_new.sum(-2, keepdim=True)
     clipped = _clip(W_new)
     if n_given_signatures > 0:
-        given = _given_columns(n_signatures, n_given_signatures, W.device)
+        given = _given_columns(W.shape[-1], n_given_signatures, W.device)
         return torch.where(given, W, clipped)
     return clipped
 
@@ -173,7 +192,7 @@ def update_WH(
         W_new = W
     else:
         scaled_aux = aux if weights_kl is None else _columns(weights_kl) * aux
-        W_new = W * _sum_samples(mm(scaled_aux, H.mT), reduce_samples)
+        W_new = W * sum_samples(reduce_samples, mm(scaled_aux, H.mT))[0]
         W_new = W_new / W_new.sum(-2, keepdim=True)
         W_new = _freeze_given_columns(W_new, W, n_given_signatures)
         W_new = _clip(W_new)
@@ -202,7 +221,7 @@ def klnmf_objective(X, W, H, weights_kl=None, weights_lhalf=None,
     value = kl_divergence(X, W, H, weights_kl)
     if weights_lhalf is not None:
         value = value + lhalf_penalty(H, weights_lhalf)
-    return _sum_samples(value, reduce_samples)
+    return sum_samples(reduce_samples, value)[0]
 
 
 def make_step_functions(n_given_signatures: int = 0, reduce_samples=None):
@@ -264,7 +283,7 @@ def make_masked_step_functions(n_given_signatures: int = 0,
         else:
             scaled_aux = aux if weights_kl is None else \
                 _columns(weights_kl) * aux
-            W_new = W * _sum_samples(mm(scaled_aux, H.mT), reduce_samples)
+            W_new = W * sum_samples(reduce_samples, mm(scaled_aux, H.mT))[0]
             # padded columns have all-zero numerators; keep their sum at 1
             column_sums = W_new.sum(-2, keepdim=True)
             W_new = W_new / torch.where(column_mask, column_sums, 1.0)

@@ -20,13 +20,20 @@ The backtracking search is a per-lane, data-dependent loop (a
 from the host: it loops while any lane still searches, freezes the lanes
 that have accepted, and so gives each lane the result of its own serial
 search; each round costs one host sync.
+
+reduce_samples (ops/klnmf.py): under a sample-sharded mesh every sum over
+D is completed by this hook - the W step's numerator and H row sums with
+the KL term of the objective the line search starts from (one call,
+w_step_and_objective), and the KL term of every trial, so each trial's
+accept test, and so every rank's loop, sees the same values. The volume
+term does not sum over D.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .klnmf import EPSILON, kl_divergence, normalize_wh, update_H
+from .klnmf import EPSILON, kl_divergence, normalize_wh, sum_samples, update_H
 from .precision import mm, omm
 
 GAMMA_FLOOR = 1e-16  # the line search stops shrinking below this
@@ -72,22 +79,29 @@ def volume_logdet(W, delta: float):
     return _gram_logdet(_gram(W, delta))
 
 
-def kl_divergence_penalized(X, W, H, lam: float, delta: float):
+def kl_divergence_penalized(X, W, H, lam: float, delta: float,
+                            reduce_samples=None):
     """The MvNMF objective: generalized KL plus lam * volume."""
-    return kl_divergence(X, W, H) + lam * volume_logdet(W, delta)
+    return (sum_samples(reduce_samples, kl_divergence(X, W, H))[0]
+            + lam * volume_logdet(W, delta))
 
 
-def _min_volume_step(X, W, H, lam, Y):
+def _w_sums(X, W, H):
+    """The W step's sums over D: (X / WH) @ H^T (..., V, K) and the H row
+    sums (..., K)."""
+    return mm(X / mm(W, H), H.mT), H.sum(-1)
+
+
+def _min_volume_step(W, lam, Y, ratio_H, rowsums_H):
     """The closed-form minimum-volume multiplicative W step, given the Gram
-    inverse Y (before clipping)."""
+    inverse Y and the step's (reduced) _w_sums (before clipping)."""
     Y_minus = torch.clamp_min(-Y, 0.0)
     Y_abs = torch.abs(Y)
     WY_minus = mm(W, Y_minus)
     WY_abs = mm(W, Y_abs)
 
-    rowsums_H = H.sum(-1).unsqueeze(-2)  # (..., 1, K)
-    linear = rowsums_H - 4.0 * lam * WY_minus
-    disc_ratio = 8.0 * lam * WY_abs * mm(X / mm(W, H), H.mT)
+    linear = rowsums_H.unsqueeze(-2) - 4.0 * lam * WY_minus  # (..., V, K)
+    disc_ratio = 8.0 * lam * WY_abs * ratio_H
     root = torch.sqrt(linear**2 + disc_ratio)
     # numerator = sqrt(linear^2 + d) - linear. Evaluated literally it
     # cancels catastrophically in float32 when d << linear^2 (the fit then
@@ -114,17 +128,35 @@ def update_W_unconstrained(X, W, H, lam: float, delta: float,
     """Closed-form minimum-volume multiplicative W step (before the
     normalization line search). Given columns are frozen and left unclipped.
     """
-    Y = _gram_inverse(_gram(W, delta))
-    clipped = torch.clamp_min(_min_volume_step(X, W, H, lam, Y), EPSILON)
-    return _freeze_given(clipped, W, n_given_signatures)
+    return w_step_and_objective(X, W, H, lam, delta, n_given_signatures)[0]
 
 
-def _renormalized_objective(X, W_trial, H, lam, delta):
+def w_step_and_objective(X, W, H, lam: float, delta: float,
+                         n_given_signatures: int = 0, reduce_samples=None,
+                         mask=None):
+    """update_W_unconstrained and the objective at (W, H) that the line
+    search starts from: under a sample-sharded mesh their sums over D share
+    one reduce_samples call. With a rank `mask` the Gram inverse is the
+    identity-padded one and padded W columns are restored unchanged.
+    Returns (W_unconstrained, objective)."""
+    gram = _gram(W, delta) if mask is None else _masked_gram(W, delta, mask)
+    ratio_H, rowsums_H, kl = sum_samples(
+        reduce_samples, *_w_sums(X, W, H), kl_divergence(X, W, H))
+    step = _min_volume_step(W, lam, _gram_inverse(gram), ratio_H, rowsums_H)
+    W_new = _freeze_given(torch.clamp_min(step, EPSILON), W,
+                          n_given_signatures)
+    if mask is not None:
+        W_new = torch.where(mask.unsqueeze(-2), W_new, W)
+    return W_new, kl + lam * _gram_logdet(gram)
+
+
+def _renormalized_objective(X, W_trial, H, lam, delta, reduce_samples=None):
     """Normalize the trial W (pushing scale into H), clip, and evaluate."""
     W_new, H_new = normalize_wh(W_trial, H)
     W_new = torch.clamp_min(W_new, EPSILON)
     H_new = torch.clamp_min(H_new, EPSILON)
-    return W_new, H_new, kl_divergence_penalized(X, W_new, H_new, lam, delta)
+    return W_new, H_new, kl_divergence_penalized(X, W_new, H_new, lam, delta,
+                                                 reduce_samples)
 
 
 def _lanes(flag, like):
@@ -203,7 +235,8 @@ def _as_gamma(gamma, W):
 
 
 def line_search(X, W, H, lam: float, delta: float, gamma, W_unconstrained,
-                trial_batch: int = 1):
+                trial_batch: int = 1, reduce_samples=None,
+                prev_objective=None):
     """Backtracking line search on the interpolation parameter gamma.
 
     Carries gamma across outer iterations (the caller persists it; one
@@ -215,13 +248,17 @@ def line_search(X, W, H, lam: float, delta: float, gamma, W_unconstrained,
     serial loop's exit rule; the gamma chain is bitwise the serial one, so
     away from accept-boundary ties the result is the serial result (the
     JAX package's batched mode, which its model layer leaves off by
-    default).
+    default). prev_objective: the objective at (W, H) where the caller has
+    it (w_step_and_objective).
     """
     gamma = _as_gamma(gamma, W)
-    prev_objective = kl_divergence_penalized(X, W, H, lam, delta)
+    if prev_objective is None:
+        prev_objective = kl_divergence_penalized(X, W, H, lam, delta,
+                                                 reduce_samples)
 
     def renormalize(W_trial):
-        return _renormalized_objective(X, W_trial, H, lam, delta)
+        return _renormalized_objective(X, W_trial, H, lam, delta,
+                                       reduce_samples)
 
     if trial_batch <= 1:
         return _serial_search(W, W_unconstrained, gamma, prev_objective,
@@ -253,24 +290,17 @@ def volume_logdet_masked(W, delta, mask):
     return _gram_logdet(_masked_gram(W, delta, mask))
 
 
-def kl_divergence_penalized_masked(X, W, H, lam, delta, mask):
+def kl_divergence_penalized_masked(X, W, H, lam, delta, mask,
+                                   reduce_samples=None):
     """Rank-k MvNMF objective through the Kp-padded arrays: padded H rows
     are exact zeros (KL term exact), padded Gram rows are identity (volume
     term exact)."""
-    return kl_divergence(X, W, H) + lam * volume_logdet_masked(W, delta, mask)
+    return (sum_samples(reduce_samples, kl_divergence(X, W, H))[0]
+            + lam * volume_logdet_masked(W, delta, mask))
 
 
-def update_W_unconstrained_masked(X, W, H, lam, delta, mask,
-                                  n_given_signatures: int = 0):
-    """update_W_unconstrained through the identity-padded Gram inverse;
-    padded W columns are restored unchanged."""
-    Y = _gram_inverse(_masked_gram(W, delta, mask))
-    clipped = torch.clamp_min(_min_volume_step(X, W, H, lam, Y), EPSILON)
-    clipped = _freeze_given(clipped, W, n_given_signatures)
-    return torch.where(mask.unsqueeze(-2), clipped, W)
-
-
-def _renormalized_objective_masked(X, W_trial, H, lam, delta, mask):
+def _renormalized_objective_masked(X, W_trial, H, lam, delta, mask,
+                                   reduce_samples=None):
     """normalize + clip + evaluate, keeping padded lanes EXACTLY inert:
     padded H rows stay exact zeros and padded W columns bypass the
     normalization."""
@@ -280,50 +310,55 @@ def _renormalized_objective_masked(X, W_trial, H, lam, delta, mask):
     H_new = torch.where(mask.unsqueeze(-1), torch.clamp_min(H_new, EPSILON),
                         0.0)
     return W_new, H_new, kl_divergence_penalized_masked(
-        X, W_new, H_new, lam, delta, mask
+        X, W_new, H_new, lam, delta, mask, reduce_samples
     )
 
 
-def line_search_masked(X, W, H, lam, delta, gamma, W_unconstrained, mask):
+def line_search_masked(X, W, H, lam, delta, gamma, W_unconstrained, mask,
+                       reduce_samples=None, prev_objective=None):
     """line_search (serial) through the masked objective and
     renormalization."""
     gamma = _as_gamma(gamma, W)
-    prev_objective = kl_divergence_penalized_masked(X, W, H, lam, delta,
-                                                    mask)
+    if prev_objective is None:
+        prev_objective = kl_divergence_penalized_masked(
+            X, W, H, lam, delta, mask, reduce_samples)
 
     def renormalize(W_trial):
         return _renormalized_objective_masked(X, W_trial, H, lam, delta,
-                                              mask)
+                                              mask, reduce_samples)
 
     return _serial_search(W, W_unconstrained, gamma, prev_objective,
                           renormalize)
 
 
 def make_masked_step_functions(lam: float, delta: float,
-                               n_given_signatures: int = 0):
+                               n_given_signatures: int = 0,
+                               reduce_samples=None):
     """Rank-masked MvNMF engine step for K-padded rank scans.
 
     params = {"W": (..., V, Kp), "H": (..., Kp, D), "gamma": (...,),
     "mask": (..., Kp)}; data = {"X": (V, D)}. Each active lane computes
     the rank-k MvNMF iteration (H multiplicative update, then the min-vol
     W update with backtracking line search and per-lane persistent
-    gamma); padded lanes are inert."""
+    gamma); padded lanes are inert. reduce_samples completes the sums
+    over D of a sample-sharded fit (module docstring)."""
 
     def update_fn(params, data):
         X = data["X"]
         W, mask = params["W"], params["mask"]
         H = torch.where(mask.unsqueeze(-1), update_H(X, W, params["H"]), 0.0)
-        W_unconstrained = update_W_unconstrained_masked(
-            X, W, H, lam, delta, mask, n_given_signatures
-        )
+        W_unconstrained, objective = w_step_and_objective(
+            X, W, H, lam, delta, n_given_signatures, reduce_samples, mask)
         W, H, gamma = line_search_masked(
-            X, W, H, lam, delta, params["gamma"], W_unconstrained, mask
+            X, W, H, lam, delta, params["gamma"], W_unconstrained, mask,
+            reduce_samples, objective
         )
         return {"W": W, "H": H, "gamma": gamma, "mask": mask}
 
     def objective_fn(params, data):
         return kl_divergence_penalized_masked(
-            data["X"], params["W"], params["H"], lam, delta, params["mask"]
+            data["X"], params["W"], params["H"], lam, delta, params["mask"],
+            reduce_samples
         )
 
     return update_fn, objective_fn

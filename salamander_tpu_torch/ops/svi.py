@@ -44,6 +44,17 @@ What differs from the JAX package, and why:
   compute stream, so the two placements feed the same core the same
   tensors and give bit-equal parameters.
 
+A resident cohort may be sample-sharded over a mesh (parallel/mesh.py):
+each rank holds a block of the samples, every rank draws the same epoch
+order from the same CPU generator and keeps it on the host, where it cuts
+out the batch samples of its block (local_batch: no device sync), so a
+step's batch is the meshless one. Each rank refreshes the locals of its
+batch samples, and the sums over the batch - the running statistics of the
+signature scalings and signatures (one reduce_samples call), the
+signature-side Newton solve's (ops/corrnmf.py) and the sample embeddings'
+sum of squares (one) - and the recorded objectives are completed by the
+caller's reduce_samples hook (ops/klnmf.py).
+
 Precision: the update path runs in the fit dtype through ops/precision.py
 (IEEE float32 on a card). The recorded objectives (full_elbo,
 klnmf_full_objective, mm_full_elbo and their streamed forms) are evaluated
@@ -63,7 +74,7 @@ import torch
 from ..engine.tree import tree_leaves
 from . import corrnmf as ops
 from . import klnmf as klops
-from .klnmf import EPSILON
+from .klnmf import EPSILON, sum_samples
 from .precision import mm
 
 
@@ -205,6 +216,45 @@ def _draw_epoch_batch(generator, perm, cursor: int, batch_size: int):
     return indices, perm, cursor + batch_size, reshuffled
 
 
+def shard_state(state, n_samples: int, reduce_samples):
+    """A fresh SVI state around a rank's block of the samples: the epoch
+    order of the whole cohort on the HOST (local_batch cuts it), and the
+    running sum of squared sample embeddings, where the state has one,
+    over every rank's samples."""
+    state = state._replace(perm=torch.arange(n_samples), cursor=n_samples)
+    if hasattr(state, "stat_usq"):
+        (usq,) = sum_samples(reduce_samples, state.stat_usq)
+        state = state._replace(stat_usq=usq)
+    return state
+
+
+def local_batch(state, generator, batch_size: int, block, reduce_samples,
+                device, refresh: bool):
+    """The sharded twin of _draw_into_state: the next minibatch of the
+    cohort (every rank draws the same), of which this rank keeps the
+    samples of its block [lo, hi) as local row indices on `device`. The
+    epoch order is a host tensor, so the cut costs no device sync.
+    `refresh` exact-refreshes stat_usq, over every rank, at a reshuffle."""
+    indices, perm, cursor, reshuffled = _draw_epoch_batch(
+        generator, state.perm, state.cursor, batch_size)
+    state = state._replace(perm=perm, cursor=cursor)
+    if reshuffled and refresh:
+        (usq,) = sum_samples(
+            reduce_samples, (state.params["sample_embeddings"] ** 2).sum())
+        state = state._replace(stat_usq=usq)
+    lo, hi = block
+    local = indices[(indices >= lo) & (indices < hi)] - lo
+    return state, _to_device(local, device)
+
+
+def _usq_update(stat_usq, usq_old, u_batch, reduce_samples):
+    """The running sum of squared sample embeddings after a batch's
+    refresh: incremental, the batch's old and new sums over every rank."""
+    usq_old, usq_new = sum_samples(reduce_samples, usq_old,
+                                   (u_batch**2).sum())
+    return stat_usq - usq_old + usq_new
+
+
 def _signatures_from_counts(stat_counts, signatures, n_given: int):
     """Column-normalized running expected counts, clipped: the KL
     multiplicative W update in statistic form. signatures is (K, V); the
@@ -225,6 +275,7 @@ def make_svi_batch_step(
     fix_signature_embeddings: bool = False,
     fix_sample_embeddings: bool = False,
     fix_variance: bool = False,
+    reduce_samples=None,
 ):
     """Build the minibatch CORE (state, X_batch, indices) -> state.
 
@@ -240,7 +291,8 @@ def make_svi_batch_step(
     state.perm/state.cursor pass through untouched (the wrapper or the host
     loop owns them); state.stat_usq must already be epoch-refreshed when
     needed (refresh_sample_usq) - the core only applies the incremental
-    update.
+    update. reduce_samples: the batch is this rank's part of a sample-
+    sharded cohort's (module docstring).
     """
     batch_size = _validate_config(config, n_samples)
     scale = n_samples / batch_size
@@ -274,12 +326,17 @@ def make_svi_batch_step(
         )                                                # (B, K)
         ratios = X_batch / mm(exposures_batch, signatures)  # (B, V)
         aux_batch = exposures_batch.mT * mm(signatures, ratios.mT)  # (K, B)
+        # the batch sums of steps 4 and 7 (the signatures are untouched in
+        # between): one reduce_samples call
+        observed, predicted, counts = sum_samples(
+            reduce_samples,
+            *ops.signature_scaling_sums(aux_batch, tau_batch, sig_emb,
+                                        u_batch),
+            mm(ratios.mT, exposures_batch))
 
         # 4. signature scalings from running-averaged statistics
-        observed_hat = scale * aux_batch.sum(-1)
-        predicted_hat = scale * torch.exp(
-            tau_batch.unsqueeze(-2) + mm(sig_emb, u_batch.mT)
-        ).sum(-1)
+        observed_hat = scale * observed
+        predicted_hat = scale * predicted
         stat_observed = (1.0 - rho) * state.stat_observed + rho * observed_hat
         stat_predicted = (
             (1.0 - rho) * state.stat_predicted + rho * predicted_hat
@@ -296,6 +353,7 @@ def make_svi_batch_step(
                 sig_emb, u_batch, sig_scal, tau_batch + log_scale,
                 variance, scale * aux_batch,
                 max_iter=config.signature_newton_iters,
+                reduce_samples=reduce_samples,
             )
             sig_emb = (1.0 - rho) * sig_emb + rho * sig_emb_star
 
@@ -312,20 +370,19 @@ def make_svi_batch_step(
             smp_scal = smp_scal.index_copy(0, indices, tau_batch)
         if not fix_sample_embeddings:
             smp_emb = smp_emb.index_copy(0, indices, u_batch)
-            stat_usq = stat_usq - usq_batch_old + (u_batch**2).sum()
+            stat_usq = _usq_update(stat_usq, usq_batch_old, u_batch,
+                                   reduce_samples)
 
         # 6. variance over all embeddings, with the O(D m) sample term
         # carried incrementally (exact-refreshed at each epoch boundary)
         if not fix_variance:
             total = (sig_emb**2).sum() + stat_usq
-            count = sig_emb.numel() + smp_emb.numel()
+            count = sig_emb.numel() + n_samples * smp_emb.shape[-1]
             variance = torch.clamp_min(total / count, EPSILON)
 
         # 7. signatures: column-normalized running average of the expected
         # signature counts (the KL multiplicative W update in statistic form)
-        counts_hat = (
-            signatures.mT * mm(ratios.mT, exposures_batch) * scale
-        )                                                # (V, K)
+        counts_hat = signatures.mT * counts * scale      # (V, K)
         stat_counts = (1.0 - rho) * state.stat_counts + rho * counts_hat
         signatures = _signatures_from_counts(stat_counts, signatures, n_given)
 
@@ -373,6 +430,8 @@ def make_svi_step(
     fix_signature_embeddings: bool = False,
     fix_sample_embeddings: bool = False,
     fix_variance: bool = False,
+    sample_block: tuple[int, int] | None = None,
+    reduce_samples=None,
 ):
     """Build the resident minibatch step (state, X, generator) -> state.
 
@@ -383,22 +442,33 @@ def make_svi_step(
     (sample scalings -> exposures/aux -> signature scalings -> signature
     embeddings -> sample embeddings -> variance -> signatures), which is
     what makes the full-batch/rho=1 case collapse to CorrNMFDet's update.
+
+    Under a sample-sharded mesh X is this rank's block [lo, hi) =
+    sample_block of the cohort and the state comes from shard_state
+    (module docstring).
     """
     batch_size = _validate_config(config, n_samples)
     batch_step = make_svi_batch_step(
         n_samples, config, n_given_signatures,
         fix_signature_scalings, fix_sample_scalings,
         fix_signature_embeddings, fix_sample_embeddings, fix_variance,
+        reduce_samples,
     )
 
     def step(state: SVIState, X, generator) -> SVIState:
-        state, indices = _draw_into_state(state, generator, batch_size, True)
+        if sample_block is None:
+            state, indices = _draw_into_state(state, generator, batch_size,
+                                              True)
+        else:
+            state, indices = local_batch(state, generator, batch_size,
+                                         sample_block, reduce_samples,
+                                         X.device, True)
         return batch_step(state, X.index_select(0, indices), indices)
 
     return step
 
 
-def full_elbo(params, X):
+def full_elbo(params, X, reduce_samples=None):
     """Full-data ELBO at the current SVI state (exposures recomputed), in
     the dtype of the parameters."""
     exposures = ops.compute_exposures(
@@ -414,6 +484,7 @@ def full_elbo(params, X):
         params["signature_embeddings"],
         params["sample_embeddings"],
         params["variance"],
+        reduce_samples=reduce_samples,
     )
 
 
@@ -493,6 +564,7 @@ def make_klnmf_svi_batch_step(
     config: SVIConfig,
     n_given_signatures: int = 0,
     h_inner_iters: int = 1,
+    reduce_samples=None,
 ):
     """Online-NMF minibatch CORE for KLNMF:
     (KLSVIState, batch, indices) -> state, with batch = {"X": (V, B)} plus
@@ -528,7 +600,8 @@ def make_klnmf_svi_batch_step(
         # W statistic from the refreshed exposures (update_W semantics)
         aux = X_batch / mm(W, H_batch)
         scaled_aux = aux if w_kl_batch is None else w_kl_batch * aux
-        counts_hat = W * mm(scaled_aux, H_batch.mT) * scale  # (V, K)
+        (counts,) = sum_samples(reduce_samples, mm(scaled_aux, H_batch.mT))
+        counts_hat = W * counts * scale                # (V, K)
         stat_counts = (1.0 - rho) * state.stat_counts + rho * counts_hat
 
         if n_given == W.shape[1]:
@@ -552,6 +625,8 @@ def make_klnmf_svi_step(
     config: SVIConfig,
     n_given_signatures: int = 0,
     h_inner_iters: int = 1,
+    sample_block: tuple[int, int] | None = None,
+    reduce_samples=None,
 ):
     """Resident online NMF step for KLNMF: (KLSVIState, data, generator)
     -> state.
@@ -571,14 +646,23 @@ def make_klnmf_svi_step(
     reduces to update_H followed by update_W - the serial Lee-Seung cycle
     (the full-batch engine's update_WH instead shares one aux from the OLD
     W,H; both are valid majorize-minimize cycles for the same objective).
+    sample_block/reduce_samples: a sample-sharded cohort, as in
+    make_svi_step.
     """
     batch_size = _validate_config(config, n_samples)
     batch_step = make_klnmf_svi_batch_step(
-        n_samples, config, n_given_signatures, h_inner_iters
+        n_samples, config, n_given_signatures, h_inner_iters,
+        reduce_samples,
     )
 
     def step(state: KLSVIState, data, generator) -> KLSVIState:
-        state, indices = _draw_into_state(state, generator, batch_size, False)
+        if sample_block is None:
+            state, indices = _draw_into_state(state, generator, batch_size,
+                                              False)
+        else:
+            state, indices = local_batch(state, generator, batch_size,
+                                         sample_block, reduce_samples,
+                                         data["X"].device, False)
         batch = {"X": data["X"].index_select(1, indices)}
         for name in ("weights_kl", "weights_lhalf"):
             if data.get(name) is not None:
@@ -588,7 +672,7 @@ def make_klnmf_svi_step(
     return step
 
 
-def klnmf_full_objective(params, data):
+def klnmf_full_objective(params, data, reduce_samples=None):
     """Full-data KLNMF objective (weighted KL + optional l1/2 penalty) at
     the current online-NMF state, in the dtype of the parameters - the
     run_svi eval hook for KLNMF. This objective is MINIMIZED (the trace
@@ -599,6 +683,7 @@ def klnmf_full_objective(params, data):
         params["H"],
         data.get("weights_kl"),
         data.get("weights_lhalf"),
+        reduce_samples,
     )
 
 
@@ -649,15 +734,17 @@ def mm_svi_init(params, streaming: bool = False) -> MMSVIState:
     )
 
 
-def _gaussian_penalty(embeddings, variance):
+def _gaussian_penalty(embeddings, variance, reduce_samples=None):
     """The Gaussian log-density terms of one embedding matrix (count, m)
-    under the shared variance."""
-    count, dim = embeddings.shape
+    under the shared variance (its rows over every rank's samples with
+    reduce_samples)."""
+    dim = embeddings.shape[-1]
+    square, count = sum_samples(reduce_samples, *ops.variance_sums(embeddings))
     return (-0.5 * dim * count * torch.log(2.0 * math.pi * variance)
-            - (embeddings**2).sum() / (2.0 * variance))
+            - square / (2.0 * variance))
 
 
-def mm_full_elbo(params, X):
+def mm_full_elbo(params, X, reduce_samples=None):
     """Full-data multimodal ELBO in the dtype of the parameters (exposures
     recomputed; shared sample penalty added exactly once, as in
     MultimodalCorrNMF._build_step)."""
@@ -673,8 +760,9 @@ def mm_full_elbo(params, X):
             X[name], mod["signatures"], exposures,
             mod["signature_embeddings"], U, variance,
             penalize_sample_embeddings=False,
+            reduce_samples=reduce_samples,
         )
-    return elbo + _gaussian_penalty(U, variance)
+    return elbo + _gaussian_penalty(U, variance, reduce_samples)
 
 
 _MOD_FLAG_DEFAULTS = dict(
@@ -691,6 +779,7 @@ def make_mm_svi_batch_step(
     mod_flags: dict | None = None,
     fix_sample_embeddings: bool = False,
     fix_variance: bool = False,
+    reduce_samples=None,
 ):
     """Multimodal minibatch CORE: (MMSVIState, X_batch, indices) -> state,
     with X_batch = {mod: (B, V_i) count rows} supplied by the caller - the
@@ -751,14 +840,24 @@ def make_mm_svi_batch_step(
                 ratios=ratios, aux=aux_batch,
             )
 
+        # the batch sums of steps 4 and 7 of every modality (the signatures
+        # are untouched in between): one reduce_samples call
+        sums = list(sum_samples(reduce_samples, *(
+            part for name in mod_names for part in (
+                *ops.signature_scaling_sums(
+                    batch[name]["aux"], batch[name]["tau"],
+                    mods[name]["signature_embeddings"], U_batch),
+                mm(batch[name]["ratios"].mT, batch[name]["exposures"])))))
+        for name in mod_names:
+            b = batch[name]
+            b["observed"], b["predicted"], b["counts"] = sums[:3]
+            del sums[:3]
+
         # 4: per-modality signature scalings from running averages
         for name in mod_names:
             m, f, b, s = mods[name], flags[name], batch[name], stats[name]
-            observed_hat = scale * b["aux"].sum(-1)
-            predicted_hat = scale * torch.exp(
-                b["tau"].unsqueeze(-2)
-                + mm(m["signature_embeddings"], U_batch.mT)
-            ).sum(-1)
+            observed_hat = scale * b["observed"]
+            predicted_hat = scale * b["predicted"]
             s["observed"] = (1.0 - rho) * s["observed"] + rho * observed_hat
             s["predicted"] = (
                 (1.0 - rho) * s["predicted"] + rho * predicted_hat
@@ -778,6 +877,7 @@ def make_mm_svi_batch_step(
                 m["signature_scalings"], b["tau"] + log_scale,
                 variance, scale * b["aux"],
                 max_iter=config.signature_newton_iters,
+                reduce_samples=reduce_samples,
             )
             m["signature_embeddings"] = (
                 (1.0 - rho) * m["signature_embeddings"] + rho * sig_emb_star
@@ -807,7 +907,8 @@ def make_mm_svi_batch_step(
                 aux_all.mT, max_iter=config.sample_newton_iters,
             )
             U = U.index_copy(0, indices, U_batch)
-            stat_usq = stat_usq - usq_batch_old + (U_batch**2).sum()
+            stat_usq = _usq_update(stat_usq, usq_batch_old, U_batch,
+                                   reduce_samples)
 
         # scatter the per-modality locals
         for name in mod_names:
@@ -825,16 +926,13 @@ def make_mm_svi_batch_step(
                 [mods[n]["signature_embeddings"] for n in mod_names], dim=-2
             )
             total = (all_sig_embs**2).sum() + stat_usq
-            count = all_sig_embs.numel() + U.numel()
+            count = all_sig_embs.numel() + n_samples * U.shape[-1]
             variance = torch.clamp_min(total / count, EPSILON)
 
         # 7: per-modality signatures from running expected counts
         for name in mod_names:
             m, f, b, s = mods[name], flags[name], batch[name], stats[name]
-            counts_hat = (
-                m["signatures"].mT * mm(b["ratios"].mT, b["exposures"])
-                * scale
-            )                                              # (V_i, K_i)
+            counts_hat = m["signatures"].mT * b["counts"] * scale  # (V, K)
             s["counts"] = (1.0 - rho) * s["counts"] + rho * counts_hat
             if not f["fix_signatures"]:
                 m["signatures"] = _signatures_from_counts(
@@ -864,18 +962,28 @@ def make_mm_svi_step(
     mod_flags: dict | None = None,
     fix_sample_embeddings: bool = False,
     fix_variance: bool = False,
+    sample_block: tuple[int, int] | None = None,
+    reduce_samples=None,
 ):
     """Multimodal twin of make_svi_step: (MMSVIState, X_dict, generator)
-    -> state, with X_dict = {mod: (D, V_i)} on the device."""
+    -> state, with X_dict = {mod: (D, V_i)} on the device (the rank's
+    block of a sample-sharded cohort with sample_block, as in
+    make_svi_step)."""
     batch_size = _validate_config(config, n_samples)
     batch_step = make_mm_svi_batch_step(
         n_samples, mod_names, ns_signatures, config, mod_flags,
-        fix_sample_embeddings, fix_variance,
+        fix_sample_embeddings, fix_variance, reduce_samples,
     )
     mod_names = list(mod_names)
 
     def step(state: MMSVIState, X, generator) -> MMSVIState:
-        state, indices = _draw_into_state(state, generator, batch_size, True)
+        if sample_block is None:
+            state, indices = _draw_into_state(state, generator, batch_size,
+                                              True)
+        else:
+            state, indices = local_batch(
+                state, generator, batch_size, sample_block, reduce_samples,
+                next(iter(X.values())).device, True)
         X_batch = {
             name: X[name].index_select(0, indices) for name in mod_names
         }

@@ -40,7 +40,7 @@ from ..engine.fit import (
     run_lockstep_segment,
 )
 from ..engine.tree import (
-    SEPARATOR,
+    by_leaf_name,
     tree_flatten,
     tree_leaves,
     tree_map,
@@ -55,7 +55,7 @@ from .mesh import (
     KLNMF_LAYOUT,
     gather_block,
     local_block,
-    sample_sum,
+    samples_reducer,
 )
 
 
@@ -270,13 +270,16 @@ def compacting_runner(config: FitConfig, masked: bool, min_bucket: int,
 
 
 def mvnmf_compacting_runner(config: FitConfig, lam: float, delta: float,
-                            min_bucket: int) -> CompactingRunner:
+                            min_bucket: int,
+                            reduce_samples=None) -> CompactingRunner:
     """The runner of rank-masked MvNMF scan calls (params carry the
     per-lane line-search gamma and the rank mask; JAX:
-    ``_cached_mvnmf_compacting_runner``)."""
+    ``_cached_mvnmf_compacting_runner``). reduce_samples completes the
+    sums over D of a sample-sharded scan (ops.mvnmf)."""
     from ..ops import mvnmf as mv_ops
 
-    update_fn, objective_fn = mv_ops.make_masked_step_functions(lam, delta)
+    update_fn, objective_fn = mv_ops.make_masked_step_functions(
+        lam, delta, reduce_samples=reduce_samples)
     return CompactingRunner(config, objective_fn,
                             plain_block_builder(update_fn),
                             min_bucket=min_bucket)
@@ -305,7 +308,8 @@ def extraction_compacting_runner(config: FitConfig, promote: bool,
                                  min_bucket: int, family: str = "klnmf",
                                  lam: float = 1.0, delta: float = 1.0,
                                  n_given: int = 0,
-                                 masked: bool = True) -> CompactingRunner:
+                                 masked: bool = True,
+                                 reduce_samples=None) -> CompactingRunner:
     """The runner of de novo extraction's discovery fit (JAX:
     ``_cached_extraction_compacting_runner``): KLNMF (or MvNMF) lanes where
     every lane fits its OWN bootstrap resample (batched_data=True).
@@ -316,22 +320,26 @@ def extraction_compacting_runner(config: FitConfig, promote: bool,
     per-lane X where cuda_klnmf.mu_block_supported holds. `promote`
     evaluates the convergence objective in float64
     (models.signature_nmf.promote_objective), as the lockstep loop does.
-    lam/delta parameterize the MvNMF family only."""
+    lam/delta parameterize the MvNMF family only. reduce_samples completes
+    the sums over D of sample-sharded lanes (plain updates then)."""
     if family == "mvnmf":
         from ..ops import mvnmf as mv_ops
 
         update_fn, objective_fn = mv_ops.make_masked_step_functions(
-            lam, delta, n_given_signatures=n_given)
+            lam, delta, n_given_signatures=n_given,
+            reduce_samples=reduce_samples)
         make_block_update = plain_block_builder(update_fn)
     else:
         from ..ops import klnmf as ops
 
         if masked:
             update_fn, objective_fn = ops.make_masked_step_functions(
-                n_given_signatures=n_given)
+                n_given_signatures=n_given, reduce_samples=reduce_samples)
         else:
-            update_fn, objective_fn = ops.make_step_functions()
-        make_block_update = klnmf_block_builder(update_fn)
+            update_fn, objective_fn = ops.make_step_functions(
+                reduce_samples=reduce_samples)
+        make_block_update = klnmf_block_builder(
+            update_fn, reduce_samples is not None)
     if promote:
         from ..models.signature_nmf import promote_objective
 
@@ -374,6 +382,16 @@ def resolve_compact(compact, config: FitConfig, mesh, n_restarts: int,
     )
 
 
+def lane_shards(sample_axes) -> tuple[dict, dict]:
+    """on_mesh's `by_leaf` for lanes of a model whose unbatched state
+    splits its samples as `sample_axes` says (a model's _sample_axes():
+    leaf name -> axis, params and data): parameter leaves gain the leading
+    lane axis, the data is shared by the lanes."""
+    param_axes, data_axes = sample_axes
+    return ({name: (0, axis + 1) for name, axis in param_axes.items()},
+            {name: (None, axis) for name, axis in data_axes.items()})
+
+
 # where the KLNMF fit's leaves split on a mesh, by leaf name: (params,
 # data), each a KLNMF_LAYOUT entry (the per-sample weights split like X's
 # columns). Leaves not named are lanes-first (params: W, a rank mask) or
@@ -388,17 +406,18 @@ KLNMF_SHARDS = (
 def on_mesh(run, mesh, by_leaf: tuple[dict, dict] | None = None):
     """run(params0, data) -> (FitResult, losses) over this rank's block of
     the lanes (axis 0 of every parameter leaf) and, with `by_leaf`
-    (KLNMF_SHARDS), of the samples. The run is given the rank's
-    blocks; every field of its result is gathered back, so every rank
-    returns the whole (FitResult, losses) of the meshless run. Every rank
-    of the mesh calls it. Without a mesh it is `run` itself."""
+    (KLNMF_SHARDS, lane_shards), of the samples. The run is given the
+    rank's blocks; every field of its result is gathered back, so every
+    rank returns the whole (FitResult, losses) of the meshless run. Every
+    rank of the mesh calls it. Without a mesh it is `run` itself."""
     if mesh is None:
         return run
     param_dims, data_dims = by_leaf or ({}, {})
     lanes_first = KLNMF_LAYOUT["per_restart"]
+    replicated = KLNMF_LAYOUT["replicated"]
 
     def dims(path):
-        return param_dims.get(path.split(SEPARATOR)[0], lanes_first)
+        return by_leaf_name(path, param_dims, lanes_first)
 
     def sharded(params0, data):
         shapes = {path: leaf.shape
@@ -407,9 +426,10 @@ def on_mesh(run, mesh, by_leaf: tuple[dict, dict] | None = None):
         result, losses = run(
             tree_unflatten({path: local_block(leaf, mesh, dims(path))
                             for path, leaf in tree_flatten(params0).items()}),
-            {name: local_block(leaf, mesh, data_dims[name])
-             if name in data_dims else leaf
-             for name, leaf in data.items()},
+            tree_unflatten({
+                path: local_block(leaf, mesh,
+                                  by_leaf_name(path, data_dims, replicated))
+                for path, leaf in tree_flatten(data).items()}),
         )
 
         def lanes(leaf):
@@ -427,18 +447,17 @@ def on_mesh(run, mesh, by_leaf: tuple[dict, dict] | None = None):
 
 
 def klnmf_mesh_run(make_run, mesh, n_lanes: int, n_samples: int):
-    """The KLNMF run of make_run(reduce_samples) -> run on `mesh`: the
-    mesh must divide the lanes and samples (the JAX package's refusal),
-    and a sample axis above 1 shards the samples, whose sums over D
-    make_run's step functions complete with parallel.mesh.sample_sum.
-    Without a mesh, make_run(None)."""
+    """The run of make_run(reduce_samples) -> run on `mesh`, for lanes in
+    the KLNMF layout (W, H, X; MvNMF's too): the mesh must divide the
+    lanes and samples (the JAX package's refusal), and a sample axis above
+    1 shards the samples, whose sums over D make_run's step functions
+    complete with parallel.mesh.sample_sum. Without a mesh,
+    make_run(None)."""
     if mesh is None:
         return make_run(None)
     check_divides(mesh, n_lanes, n_samples)
-    reduce = None
-    if axis_size(mesh, SAMPLE_AXIS) > 1:
-        def reduce(partial):
-            return sample_sum(partial, mesh)
+    reduce = (samples_reducer(mesh) if axis_size(mesh, SAMPLE_AXIS) > 1
+              else None)
     return on_mesh(make_run(reduce), mesh, KLNMF_SHARDS)
 
 

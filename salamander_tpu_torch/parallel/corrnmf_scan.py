@@ -20,6 +20,11 @@ float sums of other widths.
 Each scan point comes back as a CorrScanResult carrying a FITTED model
 (the winning restart absorbed into the model class) plus the per-restart
 loss table and objective traces.
+
+Under a (restarts, samples) mesh (parallel/mesh.py; every rank calls) each
+call's lanes split over the restart axis with the counts replicated, as
+the JAX package shards them, and are gathered: the ranks of a sample row
+run the same lanes.
 """
 
 from __future__ import annotations
@@ -33,10 +38,11 @@ from ..engine import FitConfig
 from ..ops import corrnmf as corr_ops
 from .compaction import (
     corrnmf_compacting_runner,
+    on_mesh,
     plain_block_builder,
     resolve_compact,
 )
-from ..utils import MESH_NOT_PORTED
+from .mesh import mesh_meta, open_store
 from .restarts import _fit_with, _resolve_pack
 
 # the batched aux/ratio intermediates cost ~3 (D, V) + 2 (D, Kp) buffers
@@ -94,17 +100,19 @@ def _fitted_model(model_factory, X, k, m, seed, best_params, history,
 def _checkpointed_corrnmf_scan(checkpoint_dir, X, points, grid_mode,
                                n_restarts, base_seed, config, pad_ranks,
                                rank_bucket, dim_bucket, init_method, dtype,
-                               model_factory, build_models, scan_kwargs):
+                               model_factory, build_models, scan_kwargs,
+                               mesh=None):
     """Per-point resumable twin of rank_scan_corrnmf: every completed
     (k[, m]) point is one atomic ChunkStore entry (host arrays and the
     stripped winner); missing points run through rank_scan_corrnmf as
     singleton scans with their ORIGINAL offset-keyed seeds, and loaded
     points rebuild their fitted model as the scan does. The identity
     includes the compute dtype (the JAX package's leaves it out, so a
-    float32 rerun would load a float64 store)."""
-    from ..checkpoint import ChunkStore, data_fingerprint
+    float32 rerun would load a float64 store). Under a mesh the mesh's
+    first rank writes it."""
+    from ..checkpoint import data_fingerprint
 
-    store = ChunkStore(checkpoint_dir, {
+    identity = {
         "task": "rank_scan_corrnmf",
         "points": [[int(k), int(m)] for k, m in points],
         "n_restarts": int(n_restarts),
@@ -117,7 +125,10 @@ def _checkpointed_corrnmf_scan(checkpoint_dir, X, points, grid_mode,
         "init_method": str(init_method),
         "dtype": dtype,
         "data": data_fingerprint(np.asarray(X)),
-    })
+    }
+    if mesh is not None:
+        identity["mesh"] = mesh_meta(mesh)
+    store = open_store(checkpoint_dir, identity, mesh)
     rng_state = np.random.get_state()
     results: dict = {}
     try:
@@ -135,7 +146,7 @@ def _checkpointed_corrnmf_scan(checkpoint_dir, X, points, grid_mode,
                     rank_bucket=rank_bucket, init_method=init_method,
                     dim_embeddings_range=[m] if grid_mode else None,
                     dim_bucket=dim_bucket, model_factory=model_factory,
-                    build_models=build_models, **scan_kwargs,
+                    build_models=build_models, mesh=mesh, **scan_kwargs,
                 )[result_key]
                 payload = {
                     "losses": sub.losses,
@@ -231,15 +242,16 @@ def rank_scan_corrnmf(
     checkpoint_dir: per-point preemption-safe resume (checkpoint.ChunkStore)
     - each completed (k[, m]) point is one atomic entry. The store cannot
     fingerprint a custom `model_factory`; keep one directory per factory.
-    mesh= waits for ROADMAP item 18 (utils.MESH_NOT_PORTED).
+
+    mesh: a (restarts, samples) DeviceMesh (parallel.make_mesh) that every
+    rank passes: each call's lanes split over its restart ways, which must
+    divide them (module docstring).
     """
     from ..containers import AnnData
     from ..models import CorrNMFDet
     from ..models.signature_nmf import promote_objective
     from ..ops.precision import require_ieee_float32
 
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
     config = config or FitConfig()
     ranks = [int(k) for k in n_signatures_range]
     grid_mode = dim_embeddings_range is not None
@@ -274,6 +286,7 @@ def rank_scan_corrnmf(
             probe.dtype, model_factory, build_models,
             dict(pack_points=pack_points, compact=compact,
                  compact_min_bucket=compact_min_bucket),
+            mesh,
         )
     if scan_device.type == "cuda":
         require_ieee_float32()
@@ -298,6 +311,7 @@ def rank_scan_corrnmf(
             promote_objective(
                 objective_fn, {"probe": torch.zeros((), dtype=torch.float32)}),
             config, plain_block_builder(update_fn))
+    run = on_mesh(run, mesh)
 
     def run_group(padded_k, padded_m, group):
         """One lockstep call for `group` (list of (offset, k, m))."""

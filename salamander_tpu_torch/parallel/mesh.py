@@ -298,14 +298,17 @@ def require_axes(mesh: DeviceMesh) -> tuple[int, int]:
     return axis_size(mesh, RESTART_AXIS), axis_size(mesh, SAMPLE_AXIS)
 
 
-def check_divides(mesh: DeviceMesh, n_lanes: int, n_samples: int) -> None:
+def check_divides(mesh: DeviceMesh, n_lanes: int,
+                  n_samples: int | None) -> None:
     """The JAX package's refusal of lanes or samples that the mesh's ways
-    do not divide."""
+    do not divide (n_samples None: the samples are not split)."""
     restart_ways, sample_ways = require_axes(mesh)
-    if n_lanes % restart_ways or n_samples % sample_ways:
+    if n_lanes % restart_ways or (n_samples is not None
+                                  and n_samples % sample_ways):
+        samples = "" if n_samples is None else f" and {n_samples} samples"
         raise ValueError(
             f"mesh ({restart_ways} restart x {sample_ways} sample ways) "
-            f"must divide the {n_lanes} lanes and {n_samples} samples"
+            f"must divide the {n_lanes} lanes{samples}"
         )
 
 
@@ -337,9 +340,35 @@ def _all_reduce(tensor: torch.Tensor, mesh: DeviceMesh, name: str):
 
 
 def sample_sum(tensor: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
-    """The sum over the sample axis of each rank's partial sums (in
-    place; nothing is called on an axis of size 1)."""
-    return _all_reduce(tensor, mesh, SAMPLE_AXIS)
+    """The sum over the sample axis of each rank's partial sums, the SAME
+    bits on every rank (nothing is called on an axis of size 1).
+
+    A plain all_reduce SUM may add the partials in another order on each
+    rank (gloo does), so the ranks of a sample row could read values a bit
+    apart and take different branches of a data-dependent loop (a line
+    search, a Newton early exit, the convergence test), one of them then
+    calling a collective that the others never join. Instead each rank
+    writes its partial into its row of a zero-filled (ways, ...) buffer,
+    the all_reduce fills every row exactly (one nonzero addend an
+    element), and every rank adds the rows in the same order."""
+    ways = axis_size(mesh, SAMPLE_AXIS)
+    if ways == 1:
+        return tensor
+    rows = tensor.new_zeros((ways,) + tuple(tensor.shape))
+    rows[axis_index(mesh, SAMPLE_AXIS)] = tensor
+    return _all_reduce(rows, mesh, SAMPLE_AXIS).sum(0)
+
+
+def samples_reducer(mesh: DeviceMesh):
+    """The reduce_samples hook of the ops (ops/klnmf.py) over the mesh's
+    sample axis."""
+    return lambda partial: sample_sum(partial, mesh)
+
+
+def restart_sum(tensor: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    """The sum over the restart axis (in place): the gather of rows that
+    each rank of a sample row wrote into a zero-filled buffer."""
+    return _all_reduce(tensor, mesh, RESTART_AXIS)
 
 
 def _gather(local: torch.Tensor, mesh: DeviceMesh, name: str, axis: int,
@@ -408,6 +437,32 @@ def is_writer(mesh: DeviceMesh | None) -> bool:
     if mesh is None:
         return True
     return all(c == 0 for c in (mesh.get_coordinate() or (1,)))
+
+
+def first_rank_copy(tree: dict, mesh: DeviceMesh) -> dict:
+    """Every leaf of a (nested) dict of tensors as the mesh's first rank
+    holds it. Each rank draws the whole init, and a draw without a seed
+    (sklearn's nndsvd takes numpy's global generator, which every process
+    seeds on its own) would differ by rank: the first rank's is taken. One
+    all_reduce an axis of a float64 buffer that the first rank alone fills
+    (exact: one nonzero addend an element)."""
+    from ..engine.tree import tree_flatten, tree_unflatten
+
+    if mesh.size() == 1:
+        return tree
+    flat = tree_flatten(tree)
+    buffer = torch.cat([leaf.reshape(-1).to(torch.float64)
+                        for leaf in flat.values()])
+    if not is_writer(mesh):
+        buffer.zero_()
+    for name in (RESTART_AXIS, SAMPLE_AXIS):
+        _all_reduce(buffer, mesh, name)
+    out, at = {}, 0
+    for path, leaf in flat.items():
+        out[path] = buffer[at:at + leaf.numel()].reshape(leaf.shape).to(
+            leaf.dtype)
+        at += leaf.numel()
+    return tree_unflatten(out)
 
 
 def mesh_meta(mesh: DeviceMesh | None):

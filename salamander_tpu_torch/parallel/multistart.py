@@ -15,9 +15,9 @@ whose data container is a MuData. The JAX package's runner cache exists to
 avoid recompiles; nothing is compiled here, so there is none.
 
 Under a (restarts, samples) mesh (parallel/mesh.py) every rank draws the
-whole params0, runs its block of the lanes and gathers the rest, so every
-rank absorbs the same best restart. The sample axis is KLNMF's alone; the
-other families take restart-only meshes (ROADMAP item 18).
+whole params0, runs its block of the lanes (and of the samples, whose sums
+the family's step functions complete with reduce_samples) and gathers the
+rest, so every rank absorbs the same best restart.
 """
 
 from __future__ import annotations
@@ -31,10 +31,9 @@ import torch
 from ..engine import FitResult, effective_tolerance
 from ..engine.transfer import params_to_numpy
 from ..engine.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
-from ..utils import MESH_NOT_PORTED
 from .compaction import (
     CompactingRunner,
-    KLNMF_SHARDS,
+    lane_shards,
     lockstep_fit,
     on_mesh,
     plain_block_builder,
@@ -46,7 +45,7 @@ from .mesh import (
     check_divides,
     mesh_meta,
     open_store,
-    sample_sum,
+    samples_reducer,
 )
 
 # the families fit_best_of batches; each has a device-side batched
@@ -296,9 +295,10 @@ def fit_best_of(
     mesh: a (restarts, samples) DeviceMesh (parallel.make_mesh) that every
     rank passes. Each rank runs its block of every chunk's lanes (the
     mesh's restart ways must divide each chunk) and the results are
-    gathered, so every rank's model holds the best restart. KLNMF also
-    shards the samples (the ways must divide them); another family on a
-    mesh with more than one sample way raises (ROADMAP item 18).
+    gathered, so every rank's model holds the best restart. A sample axis
+    above 1 also shards the samples where its ways divide them; otherwise
+    every rank of a sample row fits its lanes on all of them, as the JAX
+    package replicates the samples.
     """
     from ..models.signature_nmf import (
         promote_objective,
@@ -308,9 +308,6 @@ def fit_best_of(
 
     _check_family(model)
     is_multimodal = _is_multimodal(model)
-    sample_sharded = axis_size(mesh, SAMPLE_AXIS) > 1
-    if sample_sharded and not getattr(model, "_shards_samples", False):
-        raise NotImplementedError(MESH_NOT_PORTED)
     if checkpoint_dir is not None and given_parameters:
         raise ValueError(
             "checkpoint_dir= does not support given_parameters: their "
@@ -323,6 +320,14 @@ def fit_best_of(
     else:
         model._setup_adata(data_container)
         model._setup_fitting_parameters(fitting_kwargs)
+    # the samples of the data's sample axis (counts are (V, D) for the W/H
+    # families, (D, V) for CorrNMF and each modality of MultimodalCorrNMF);
+    # a sample axis that does not divide them replicates them, as the JAX
+    # package's restart-only sharding of fit_best_of does
+    n_samples = (model.mdata.n_obs if is_multimodal
+                 else int(model.adata.n_obs))
+    sample_ways = axis_size(mesh, SAMPLE_AXIS)
+    sample_sharded = sample_ways > 1 and n_samples % sample_ways == 0
 
     init_kwargs = {} if init_kwargs is None else dict(init_kwargs)
     device_init_supported = (
@@ -372,8 +377,7 @@ def fit_best_of(
 
     step_kwargs = {}
     if sample_sharded:
-        step_kwargs["reduce_samples"] = lambda partial: sample_sum(partial,
-                                                                   mesh)
+        step_kwargs["reduce_samples"] = samples_reducer(mesh)
     update_fn, objective_fn = model._build_step(given_parameters,
                                                 **step_kwargs)
     objective_fn = promote_objective(objective_fn, params0)
@@ -410,14 +414,11 @@ def fit_best_of(
                                 local0, local_data)
 
         if mesh is not None:
-            check_divides(mesh, n_lanes, n_samples)
-        return on_mesh(run, mesh, KLNMF_SHARDS if sample_sharded
-                       else None)(part0, data)
+            check_divides(mesh, n_lanes,
+                          n_samples if sample_sharded else None)
+        return on_mesh(run, mesh, lane_shards(model._sample_axes())
+                       if sample_sharded else None)(part0, data)
 
-    # the samples of the data's sample axis (counts are (V, D) for the W/H
-    # families, (D, V) for CorrNMF and each modality of MultimodalCorrNMF)
-    n_samples = (model.mdata.n_obs if is_multimodal
-                 else int(model.adata.n_obs))
     store = None
     if checkpoint_dir is not None:
         store = _best_of_store(checkpoint_dir, model, n_restarts, base_seed,

@@ -32,7 +32,6 @@ from ..models.signature_nmf import resolve_device
 from ..ops import klnmf as ops
 from ..ops import mvnmf as mv_ops
 from ..ops.precision import require_ieee_float32
-from ..utils import MESH_NOT_PORTED
 from .compaction import (
     compacting_runner,
     fit_klnmf_restarts_compacting,
@@ -40,11 +39,10 @@ from .compaction import (
     klnmf_mesh_run,
     lockstep_fit,
     mvnmf_compacting_runner,
-    on_mesh,
     plain_block_builder,
     resolve_compact,
 )
-from .mesh import SAMPLE_AXIS, axis_size, check_divides, mesh_meta, open_store
+from .mesh import check_divides, mesh_meta, open_store
 
 
 class RestartResult(NamedTuple):
@@ -544,16 +542,15 @@ def rank_scan_mvnmf(
     line-search gamma persists per lane, exactly as the model's _gamma.
     pad_ranks=False runs the same masked step one rank per call (all-true
     masks). Seeding, pack_points, compact and checkpoint_dir as in
-    rank_scan_klnmf. Losses MINIMIZE (KL + lam * volume). A `mesh` shards
-    the restart axis only (every rank calls; its ways must divide
-    n_restarts): the sample axis of MvNMF waits for ROADMAP item 18.
+    rank_scan_klnmf. Losses MINIMIZE (KL + lam * volume). Under a `mesh`
+    (every rank calls) each call's lanes and samples are sharded as in
+    rank_scan_klnmf (the JAX package's restart_sharding): the mesh's ways
+    must divide n_restarts and the samples.
     """
     config = config or FitConfig()
     device = resolve_device(device)
     ranks = [int(k) for k in n_signatures_range]
     if mesh is not None:
-        if axis_size(mesh, SAMPLE_AXIS) > 1:
-            raise NotImplementedError(MESH_NOT_PORTED)
         check_divides(mesh, n_restarts, np.shape(X)[-1])
     if checkpoint_dir is not None:
         return _rank_scan_with_checkpoint(
@@ -580,14 +577,19 @@ def rank_scan_mvnmf(
     X = _to_device(X, dtype, device)
     if device.type == "cuda":
         require_ieee_float32()
-    if compact:
-        run = mvnmf_compacting_runner(config, float(lam), float(delta),
-                                      compact_min_bucket).run
-    else:
+    def make_run(reduce_samples):
+        if compact:
+            return mvnmf_compacting_runner(config, float(lam), float(delta),
+                                           compact_min_bucket,
+                                           reduce_samples).run
         update_fn, objective_fn = mv_ops.make_masked_step_functions(
-            float(lam), float(delta))
-        run = _fit_with(objective_fn, config, plain_block_builder(update_fn))
+            float(lam), float(delta), reduce_samples=reduce_samples)
+        return _fit_with(objective_fn, config, plain_block_builder(update_fn))
+
+    def run(params0, data):
+        return klnmf_mesh_run(make_run, mesh, params0["W"].shape[0],
+                              data["X"].shape[-1])(params0, data)
+
     return _padded_scan(X, ranks, n_restarts, seed, rank_bucket, pad_ranks,
                         _resolve_pack(pack_points, config, device),
-                        _lanes_cap(X, n_restarts, 4), on_mesh(run, mesh),
-                        gamma=True)
+                        _lanes_cap(X, n_restarts, 4), run, gamma=True)

@@ -20,14 +20,6 @@ from scipy.optimize import linear_sum_assignment
 
 EPSILON = float(np.finfo(np.float32).eps)
 
-MESH_NOT_PORTED = (
-    "mesh= on this path waits for ROADMAP Queue 1 item 18: the sample axis "
-    "of MvNMF, ARDNMF, CorrNMFDet and MultimodalCorrNMF, fit_minibatch, "
-    "rank_scan_corrnmf, assignment and extraction under a mesh (the KLNMF "
-    "fits and the restart axis of every multi-start fit are ported)"
-)
-
-
 def type_checker(arg_name: str, arg: Any, allowed_types: type | Iterable[type]) -> None:
     """Raise TypeError unless type(arg) is one of 'allowed_types' (exact match)."""
     if isinstance(allowed_types, type):

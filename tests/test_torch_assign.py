@@ -181,11 +181,42 @@ def test_input_validation_and_mesh(small):
         port.assign_signatures(data, catalog.to_numpy(), **CPU)
     with pytest.raises(ValueError, match="do not match"):
         port.assign_signatures(data, catalog.iloc[:, :-1], **CPU)
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         port.assign_exposures(data, catalog, mesh=object(), **CPU)
     before = data.copy()
     port.assign_exposures(data, catalog, max_iterations=20, **CPU)
     pd.testing.assert_frame_equal(data, before)
+
+
+def test_assignment_on_a_mesh_matches_the_jax_mesh_run():
+    """mesh= (ROADMAP item 18): on a world of one the assignment is the
+    meshless one, bit for bit, and the JAX package's run on 4 sample ways
+    of its virtual devices agrees at 1e-8 with equal supports. The spawned
+    world of test_torch_mesh_paths.py shards the samples over ranks."""
+    import jax
+    import torch.distributed as dist
+
+    from salamander_tpu.parallel import make_mesh as jax_make_mesh
+
+    data, catalog, _ = noisy_synthetic()
+    plain = port.assign_signatures(data, catalog, **CPU)
+    dense_plain = port.assign_exposures(data, catalog, **CPU)
+    try:
+        mesh = port.make_mesh(device="cpu")
+        sharded = port.assign_signatures(data, catalog, mesh=mesh, **CPU)
+        dense = port.assign_exposures(data, catalog, mesh=mesh, **CPU)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(sharded.exposures.to_numpy(),
+                                  plain.exposures.to_numpy())
+    np.testing.assert_array_equal(dense.to_numpy(), dense_plain.to_numpy())
+    jax_mesh = jax_make_mesh(jax.devices()[:4], sample_ways=4)
+    assert_same_assignment(sharded, jax_assign.assign_signatures(
+        data, catalog, mesh=jax_mesh))
+    np.testing.assert_allclose(
+        dense.to_numpy(),
+        jax_assign.assign_exposures(data, catalog, mesh=jax_mesh).to_numpy(),
+        rtol=RTOL)
 
 
 def test_checkpoint_full_and_partial_resume(small, tmp_path, monkeypatch):

@@ -11,11 +11,12 @@ test_torch_corrnmf_model.py holds the signatures at 1e-5). `assign`, dense and s
 `scan`, `extract` and `bootstrap` draw with jax.random in the JAX package,
 which torch cannot reproduce: for these the files, columns and index are
 checked. Without --cpu and without a card every command exits non-zero;
-fit --mesh runs in a world of one and equals the plain fit, while the
-paths whose mesh is still to port exit naming ROADMAP item 18; and fit
---resume refuses counts that are not the checkpoint's own cohort (the JAX
-CLI checks only the first modality's shape). The spawned worlds of
-test_torch_sharding.py run the mesh commands across ranks."""
+fit and assign --mesh run in a world of one and equal the plain commands,
+a mesh the ranks do not fill exits saying so, and --mesh with
+--streaming exits as in the JAX CLI; and fit --resume refuses counts that
+are not the checkpoint's own cohort (the JAX CLI checks only the first
+modality's shape). The spawned worlds of test_torch_sharding.py and
+test_torch_mesh_paths.py run the mesh commands across ranks."""
 
 import json
 import subprocess
@@ -436,8 +437,9 @@ def test_cli_fit_resume_continues(cohort, tmp_path, capsys):
 # must exit with a clean SystemExit message, never a raw traceback.
 # Placeholders: C = counts CSV, CAT = catalog CSV (substituted per-test).
 # match=None marks argparse-level failures (SystemExit code 2, message on
-# stderr); a string matches our explicit SystemExit message. A valid
-# --mesh spec on a path still to port exits naming item 18.
+# stderr); a string matches our explicit SystemExit message. In this
+# process (a world of one) a --mesh of more than one sample way exits
+# naming the ranks it lacks.
 NEGATIVE_CASES = [
     # fit
     (["fit", "C", "-k", "abc"], "invalid -k"),
@@ -455,8 +457,8 @@ NEGATIVE_CASES = [
     (["fit", "C", "-k", "3", "--mesh", "bogus"], "invalid mesh spec"),
     (["fit", "C", "-k", "3", "--mesh", "samples=x"], "integer"),
     (["fit", "C", "-k", "3", "--mesh", "samples=0"], ">= 1"),
-    (["fit", "C", "-k", "3", "--model", "corrnmf", "--mesh", "auto"],
-     "item 18"),
+    (["fit", "C", "-k", "3", "--model", "corrnmf", "--batch-size", "8",
+      "--streaming", "--mesh", "auto"], "mutually exclusive"),
     (["fit", "/nonexistent/counts.csv", "-k", "3"], "file not found"),
     (["fit", "C"], None),                       # missing -k
     (["fit", "C", "-k", "3", "--model", "nope"], None),
@@ -468,7 +470,7 @@ NEGATIVE_CASES = [
     (["scan", "C", "--ranks", "2", "--min-iterations", "10",
       "--max-iterations", "5"], "exceeds"),
     (["scan", "C", "--ranks", "2", "--model", "corrnmf",
-      "--dim-embeddings", "2", "--mesh", "auto"], "item 18"),
+      "--dim-embeddings", "2", "--mesh", "samples=4"], "not divisible"),
     (["scan", "C"], None),                      # missing --ranks
     # extract
     (["extract", "C", "--ranks", "x"], "invalid rank spec"),
@@ -476,7 +478,8 @@ NEGATIVE_CASES = [
      "--n-bootstraps"),
     (["extract", "C", "--ranks", "2", "--min-stability", "1.5"],
      "[0, 1]"),
-    (["extract", "C", "--ranks", "2", "--mesh", "samples=2"], "item 18"),
+    (["extract", "C", "--ranks", "2", "--mesh", "samples=2"],
+     "not divisible"),
     (["extract", "C"], None),                   # missing --ranks
     # assign
     (["assign", "C", "CAT", "--rel-tol", "-0.1"], ">= 0"),
@@ -492,7 +495,7 @@ NEGATIVE_CASES = [
     (["bootstrap", "C", "CAT", "--min-fraction", "2"], "[0, 1]"),
     (["bootstrap", "C", "CAT", "--replicate-batch", "0"],
      "--replicate-batch"),
-    (["bootstrap", "C", "CAT", "--mesh", "auto"], "item 18"),
+    (["bootstrap", "C", "CAT", "--mesh", "samples=3"], "not divisible"),
     # top level
     (["frobnicate"], None),                     # unknown subcommand
 ]
@@ -518,13 +521,22 @@ def test_cli_negative_paths(cohort, tmp_path, argv, match):
 
 
 def test_cli_assign_under_mesh(cohort, tmp_path):
-    """assign --mesh waits for ROADMAP item 18."""
-    with pytest.raises(SystemExit, match="item 18"):
-        run([
-            "assign", str(cohort["root"] / "counts.csv"),
-            str(cohort["root"] / "catalog.csv"), "--max-iterations", "300",
-            "--mesh", "samples=4", "-o", str(tmp_path / "mesh"),
-        ])
+    """assign --mesh auto in a plain process is a world of one: the
+    supports and exposures of the plain command, as the JAX CLI test holds
+    its mesh run, and no process group left behind; a mesh of 4 sample
+    ways on one rank exits and writes nothing."""
+    import torch.distributed as dist
+
+    base = ["assign", str(cohort["root"] / "counts.csv"),
+            str(cohort["root"] / "catalog.csv"), "--max-iterations", "300"]
+    assert run(base + ["-o", str(tmp_path / "plain")]) == 0
+    assert run(base + ["--mesh", "auto", "-o", str(tmp_path / "auto")]) == 0
+    assert not dist.is_initialized()
+    for name in ("active.csv", "exposures.csv"):
+        pd.testing.assert_frame_equal(read(tmp_path / "auto" / name),
+                                      read(tmp_path / "plain" / name))
+    with pytest.raises(SystemExit, match="not divisible"):
+        run(base + ["--mesh", "samples=4", "-o", str(tmp_path / "mesh")])
     assert not (tmp_path / "mesh" / "active.csv").exists()
 
 

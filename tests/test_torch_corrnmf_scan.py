@@ -167,6 +167,36 @@ def test_defect_e_scan_identity_has_dtype(X, tmp_path):
 def test_arguments_are_checked(X):
     with pytest.raises(ValueError, match="dim_embeddings"):
         port.rank_scan_corrnmf(X, [2], **KWARGS)
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         port.rank_scan_corrnmf(X, [2], dim_embeddings=2, mesh=object(),
                                **KWARGS)
+
+
+def test_scan_under_a_mesh_matches_jax(X, unpadded):
+    """mesh= (ROADMAP item 18) splits each call's lanes over the restart
+    axis with the counts replicated: on a world of one the scan is the
+    meshless one, bit for bit, and the JAX package's scan with its lanes
+    on 2 restart ways agrees as the meshless scans do. The spawned world
+    of test_torch_mesh_paths.py shards the lanes over ranks."""
+    import jax
+    import torch.distributed as dist
+
+    from salamander_tpu.parallel import make_mesh as jax_make_mesh
+
+    try:
+        sharded = port.rank_scan_corrnmf(
+            X, [2, 3, 5], dim_embeddings=2, pad_ranks=False,
+            mesh=port.make_mesh(device="cpu"), **KWARGS)
+    finally:
+        dist.destroy_process_group()
+    expected = jax_scan(X, [2, 3, 5], dim_embeddings=2, n_restarts=2,
+                        base_seed=4, config=JaxFitConfig(*CONFIG),
+                        pad_ranks=False, build_models=False,
+                        mesh=jax_make_mesh(jax.devices()[:2], sample_ways=1))
+    for k in (2, 3, 5):
+        np.testing.assert_array_equal(sharded[k].losses, unpadded[k].losses)
+        np.testing.assert_array_equal(sharded[k].n_iterations,
+                                      expected[k].n_iterations)
+        np.testing.assert_allclose(sharded[k].losses, expected[k].losses,
+                                   rtol=1e-6)
+        assert sharded[k].best_index == expected[k].best_index

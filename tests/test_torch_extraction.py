@@ -438,5 +438,30 @@ def test_invalid_inputs(planted):
                        (dict(ranks=[61]), "exceeds")):
         with pytest.raises(ValueError, match=match):
             port.extract_signatures(data, **dict(dict(device="cpu"), **bad))
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         port.extract_signatures(data, ranks=[2], mesh=object(), device="cpu")
+
+
+def test_extraction_on_a_mesh_of_one(planted):
+    """mesh= (ROADMAP item 18) on a world of one is the meshless
+    extraction, bit for bit (a lane's resample and start are keyed). The
+    JAX package draws its resamples with jax.random, so its mesh run is
+    no reference; the spawned world of test_torch_mesh_paths.py shards
+    the lanes and samples over ranks."""
+    import torch.distributed as dist
+
+    data, _ = planted
+    kwargs = dict(ranks=[2, 3], n_bootstraps=3, **KWARGS)
+    plain = port.extract_signatures(data, **kwargs)
+    try:
+        sharded = port.extract_signatures(
+            data, mesh=port.make_mesh(device="cpu"), **kwargs)
+    finally:
+        dist.destroy_process_group()
+    pd.testing.assert_frame_equal(sharded.table, plain.table,
+                                  check_exact=True)
+    for k in (2, 3):
+        np.testing.assert_array_equal(sharded.replicate_losses[k],
+                                      plain.replicate_losses[k])
+        np.testing.assert_array_equal(sharded.consensus[k].to_numpy(),
+                                      plain.consensus[k].to_numpy())

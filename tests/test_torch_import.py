@@ -85,14 +85,16 @@ def test_the_mesh_module_loads_no_jax():
 
 @pytest.mark.parametrize("call, waits_for", [
     (lambda pkg, **kw: pkg.CorrNMFDet(2, **kw).fit_minibatch(
-        None, mesh=object()), "item 18"),
+        None, streaming=True, mesh=object()), None),
     (lambda pkg, **kw: pkg.CorrNMFDet(2, **kw).plot_embeddings(), None),
     (lambda pkg, **kw: pkg.ARDNMF(2, **kw).plot_relevance(), None),
 ], ids=["fit_minibatch", "plot_embeddings", "plot_relevance"])
 def test_unported_methods_name_the_slice_they_wait_for(call, waits_for):
     """An unported method raises NotImplementedError naming the module it
-    waits for. The plots came with plot.py: on an unfitted model they now
-    raise what the JAX package's raise."""
+    waits for. None is left: the plots came with plot.py, and on an
+    unfitted model they raise what the JAX package's raise; fit_minibatch's
+    mesh came with item 18, and with streaming=True it raises the JAX
+    package's refusal."""
     import salamander_tpu_torch as port
 
     if waits_for is not None:

@@ -561,14 +561,19 @@ def test_device_none_needs_a_card_and_dtype_follows_the_device():
 ], ids=["fit_minibatch-17", "plot_history-6", "plot_signatures-6",
         "plot_exposures-6", "plot_correlation-6", "plot_embeddings-6"])
 def test_unported_methods_name_their_roadmap_item(fitted, method, item):
-    """fit_minibatch itself is ported; sharding it (mesh=) is what still
-    waits. The plots (item 6) came with plot.py: each draws what the JAX
-    package's method draws, or raises what it raises."""
+    """Nothing waits any more. fit_minibatch's mesh came with item 18:
+    with streaming=True it raises the JAX package's refusal. The plots
+    (item 6) came with plot.py: each draws what the JAX package's method
+    draws, or raises what it raises."""
     model_j, model_t = fitted
     if item == 18:
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue 1 item {item}"):
-            getattr(model_t, method)(mdata=None, mesh=object())
+        with pytest.raises(ValueError) as expected:
+            getattr(model_j, method)(mdata=None, streaming=True,
+                                     mesh=object())
+        with pytest.raises(ValueError, match=re.escape(
+                str(expected.value))):
+            getattr(model_t, method)(mdata=None, streaming=True,
+                                     mesh=object())
         return
     import matplotlib
 
@@ -590,6 +595,37 @@ def test_unported_methods_name_their_roadmap_item(fitted, method, item):
 
 
 def test_mesh_names_its_roadmap_item():
-    model, mdata = build(port, port, {"device": "cpu"})
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 18"):
-        model.fit(mdata, mesh=object())
+    """fit(mesh=) was ROADMAP item 18, now done: on a world of one it is
+    the meshless fit, bit for bit, and agrees with the JAX package's fit on
+    4 sample ways of its virtual devices; with newton_cg_compat it raises
+    the JAX package's refusal. The spawned world of
+    test_torch_mesh_paths.py shards the samples over ranks."""
+    import jax
+    import torch.distributed as dist
+
+    from salamander_tpu.parallel import make_mesh as jax_make_mesh
+
+    model_t, mdata = build(port, port, {"device": "cpu"})
+    np.random.seed(0)
+    plain = model_t.fit(mdata).history["objective_function"]
+    model_t, mdata = build(port, port, {"device": "cpu"})
+    compat, compat_data = build(port, port, {"device": "cpu",
+                                             "newton_cg_compat": True})
+    try:
+        mesh = port.make_mesh(device="cpu")
+        np.random.seed(0)
+        model_t.fit(mdata, mesh=mesh)
+        with pytest.raises(ValueError, match="newton_cg_compat"):
+            compat.fit(compat_data, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(model_t.history["objective_function"],
+                                  plain)
+    model_j, mdata_j = build(jax_models, jax_containers, {})
+    np.random.seed(0)
+    model_j.fit(mdata_j, mesh=jax_make_mesh(jax.devices()[:4],
+                                            sample_ways=4))
+    assert model_t.history["n_iterations"] == model_j.history["n_iterations"]
+    np.testing.assert_allclose(model_t.history["objective_function"],
+                               model_j.history["objective_function"],
+                               rtol=RTOL)

@@ -1,8 +1,9 @@
 """salamander_tpu_torch's rank scans at float64 on the CPU: the padded
 (rank-masked) KLNMF scan against the unpadded one per lane identical, the
 masked runner against the JAX package's on the same padded numpy params0
-(rtol 1e-8), the MvNMF scan in both layouts, packing and compaction
-invariance, the generic rank_scan, and per-rank checkpoint resume."""
+(rtol 1e-8), the MvNMF scan in both layouts and against the JAX
+package's fed the same starts, packing and compaction invariance, the
+generic rank_scan, and per-rank checkpoint resume."""
 
 import numpy as np
 import pytest
@@ -129,6 +130,47 @@ def test_mvnmf_scan_compact_equals_plain(X):
     packed = port.rank_scan_mvnmf(X, [2, 3], 4, compact=True,
                                   compact_min_bucket=2, **KWARGS)
     assert_same_ranks(plain, packed)
+
+
+def test_mvnmf_scan_fed_shared_starts_matches_jax(X, monkeypatch):
+    """rank_scan_mvnmf against the JAX package's, both fed the same numpy
+    starts in place of their own draws: equal iterations, losses at 1e-9,
+    signatures at 1e-7."""
+    import jax.numpy as jnp
+
+    from salamander_tpu.ops import klnmf as jax_klnmf
+    from salamander_tpu.parallel import restarts as jax_restarts
+
+    def starts(X, k, n_restarts):
+        rng = np.random.default_rng(k)
+        W = rng.uniform(0.1, 1.0, (n_restarts, X.shape[0], k))
+        H = rng.uniform(0.5, 1.5, (n_restarts, k, X.shape[1]))
+        return W / W.sum(1, keepdims=True), H * X.sum(0) / k
+
+    def port_init(generator, X, k, n_restarts, padded):
+        W, H = (torch.as_tensor(a) for a in starts(X.numpy(), k, n_restarts))
+        W, H, mask = port_klnmf.pad_rank(W, H, padded)
+        return W, H, mask.expand(n_restarts, padded)
+
+    def jax_init(key, X, k, n_restarts, padded):
+        W, H = (jnp.asarray(a) for a in starts(np.asarray(X), k, n_restarts))
+        W, H, mask = jax_klnmf.pad_rank(W, H, padded)
+        return W, H, jnp.broadcast_to(mask, (n_restarts, padded))
+
+    monkeypatch.setattr(restarts, "_padded_random_init", port_init)
+    monkeypatch.setattr(jax_restarts, "_padded_random_init", jax_init)
+    got = port.rank_scan_mvnmf(X, [2, 3, 5], 3, **KWARGS)
+    expected = jax_restarts.rank_scan_mvnmf(
+        X, [2, 3, 5], 3, seed=11, config=JaxFitConfig(*CONFIG),
+        dtype=jnp.float64)
+    for k in (2, 3, 5):
+        np.testing.assert_array_equal(got[k].n_iterations,
+                                      np.asarray(expected[k].n_iterations))
+        np.testing.assert_allclose(got[k].losses,
+                                   np.asarray(expected[k].losses), rtol=1e-9)
+        np.testing.assert_allclose(np.asarray(got[k].W),
+                                   np.asarray(expected[k].W), rtol=1e-7,
+                                   atol=1e-12)
 
 
 def test_generic_rank_scan_is_fit_best_of_per_rank(X, tmp_path):

@@ -7,9 +7,11 @@ children) builds the meshes (4, 1), (1, 4) and (2, 2) in turn and runs
 every ported mesh path on them: the multi-start runners, fit_klnmf_restarts
 (monolithic and compacted), KLNMF.fit (plain, weights_kl, weights_lhalf,
 given signatures, warm start), fit_best_of (KLNMF on every mesh, CorrNMFDet
-and MultimodalCorrNMF on (4, 1)), rank_scan_klnmf padded and unpadded with
-compaction and a checkpoint store, rank_scan_mvnmf and MvNMF.fit on the
-restart axis, the CLI's fit, fit --resume and scan, and the refusals. Each rank writes
+and MultimodalCorrNMF on (4, 1) and (1, 4)), rank_scan_klnmf padded and
+unpadded with compaction and a checkpoint store, rank_scan_mvnmf and
+MvNMF.fit on both axes, the CLI's fit, fit --resume and scan, and the
+refusals (test_torch_mesh_paths.py runs the other item-18 paths in a world
+of its own). Each rank writes
 what it got; the tests hold it, at float64, against the port without a
 mesh and against the JAX package's mesh run on its 8-device virtual CPU
 mesh (tests/conftest.py): equal iteration counts, rtol 1e-8. The world
@@ -183,16 +185,16 @@ def best_of_summary(model, summary):
             "model_history": np.asarray(model.history["objective_function"])}
 
 
-def best_of_run(family, mesh=None, **kwargs):
+def best_of_run(family, mesh=None, n_samples=N_SAMPLES, **kwargs):
     if family == "KLNMF":
         model = port.KLNMF(init_method="random", device="cpu",
                            **BEST_OF_HYPER)
-        data = port.AnnData(counts().copy())
+        data = port.AnnData(counts(n_samples).copy())
     elif family == "CorrNMFDet":
         model = port.CorrNMFDet(n_signatures=2, dim_embeddings=2,
                                 init_method="random", min_iterations=10,
                                 max_iterations=40, device="cpu")
-        data = port.AnnData(counts().copy())
+        data = port.AnnData(counts(n_samples).copy())
     else:
         model = port.MultimodalCorrNMF(
             ns_signatures=[3, 2, 2], dim_embeddings=2, init_method="random",
@@ -291,6 +293,11 @@ def rank_main(rank, store_path, out_dir):
     got["4x1"]["scan_mvnmf"] = mvnmf_scan_run(mesh)
     got["4x1"]["fit_mvnmf"] = mvnmf_fit_run(mesh)
     sharded = port.make_mesh(sample_ways=4, device="cpu")
+    got["1x4"]["best_of_corrnmf"] = best_of_run("CorrNMFDet", sharded)
+    got["1x4"]["best_of_corrnmf_14"] = best_of_run("CorrNMFDet", sharded,
+                                                   n_samples=14)
+    got["1x4"]["scan_mvnmf"] = mvnmf_scan_run(sharded)
+    got["1x4"]["fit_mvnmf"] = mvnmf_fit_run(sharded)
     flat = DeviceMesh("cpu", torch.arange(WORLD), mesh_dim_names=("data",))
     got["refusals"] = {
         "no_samples_axis": refusal(lambda: fit_run("plain", flat)),
@@ -300,10 +307,13 @@ def rank_main(rank, store_path, out_dir):
             2, device="cpu").fit(port.AnnData(counts(14).copy()),
                                  mesh=sharded)),
         "mvnmf_samples": refusal(lambda: port.MvNMF(2, device="cpu").fit(
-            port.AnnData(counts().copy()), mesh=sharded)),
-        "best_of_corrnmf_samples": refusal(lambda: best_of_run(
-            "CorrNMFDet", sharded)),
-        "scan_mvnmf_samples": refusal(lambda: mvnmf_scan_run(sharded)),
+            port.AnnData(counts(14).copy()), mesh=sharded)),
+        "best_of_corrnmf_samples": refusal(lambda: port.fit_best_of(
+            port.CorrNMFDet(n_signatures=2, dim_embeddings=2,
+                            device="cpu"),
+            port.AnnData(counts().copy()), 3, mesh=mesh)),
+        "scan_mvnmf_samples": refusal(lambda: port.rank_scan_mvnmf(
+            counts(14).to_numpy().T, [2], 4, mesh=sharded, device="cpu")),
         "not_a_mesh": refusal(lambda: mesh_mod.sample_range(16, object())),
     }
     csv = str(out_dir / "counts.csv")
@@ -453,6 +463,7 @@ def plain_references(root: Path) -> dict:
         "fit": {case: fit_run(case) for case in FIT_CASES},
         "best_of": best_of_run("KLNMF"),
         "best_of_corrnmf": best_of_run("CorrNMFDet"),
+        "best_of_corrnmf_14": best_of_run("CorrNMFDet", n_samples=14),
         "best_of_mmcorrnmf": best_of_run("MultimodalCorrNMF"),
         "scan": scan_run(pad_ranks=False),
         "scan_mvnmf": mvnmf_scan_run(),
@@ -579,14 +590,53 @@ def test_mvnmf_fit_on_a_restart_only_mesh(ranks, refs):
         assert_bit_equal(got["4x1"]["fit_mvnmf"], refs["plain"]["fit_mvnmf"])
 
 
+def test_fit_best_of_replicates_samples_the_ways_do_not_divide(ranks,
+                                                              refs):
+    """The JAX package's fit_best_of shards only the lanes, so it takes a
+    sample axis whose ways do not divide the samples (14 on 4): the port
+    then fits every lane on all samples, the meshless lanes bit for
+    bit."""
+    for got in ranks:
+        assert_bit_equal(got["1x4"]["best_of_corrnmf_14"],
+                         refs["plain"]["best_of_corrnmf_14"])
+
+
+@pytest.mark.parametrize("key", ["fit_mvnmf", "best_of_corrnmf",
+                                 "scan_mvnmf"])
+def test_item_18_paths_on_the_sample_axis(ranks, refs, key):
+    """The sample axis of MvNMF.fit, of fit_best_of for the families
+    besides KLNMF and of rank_scan_mvnmf (ROADMAP item 18): the meshless
+    runs at the JAX package's mesh tolerances (traces 1e-9, signatures
+    1e-7, exposures 1e-6, lanes 1e-8; CorrNMF lanes 1e-7, whose sample
+    embeddings come out of Newton solves that the JAX package holds at
+    1e-6 under a mesh, tests/test_sharding.py:78-81), equal iteration
+    counts."""
+    plain = refs["plain"][key]
+    for got in ranks:
+        run = got["1x4"][key]
+        if key == "scan_mvnmf":
+            for k in (2, 3):
+                assert_same_run(run[k], plain[k])
+        elif key == "fit_mvnmf":
+            for name, rtol in (("history", 1e-9), ("signatures", 1e-7),
+                               ("exposures", 1e-6)):
+                np.testing.assert_allclose(run[name], plain[name],
+                                           rtol=rtol, err_msg=name)
+            assert run["n_iterations"] == plain["n_iterations"]
+        else:
+            assert_same_run(run, plain, rtol=1e-7)
+
+
 @pytest.mark.parametrize("case, error, match", [
     ("no_samples_axis", "ValueError", "expects a 'samples' axis"),
     ("lanes_do_not_divide", "ValueError", "must divide the 6 lanes"),
     ("samples_do_not_divide", "ValueError",
      "4 samples ways must divide the 14 samples"),
-    ("mvnmf_samples", "NotImplementedError", "item 18"),
-    ("best_of_corrnmf_samples", "NotImplementedError", "item 18"),
-    ("scan_mvnmf_samples", "NotImplementedError", "item 18"),
+    ("mvnmf_samples", "ValueError",
+     "4 samples ways must divide the 14 samples"),
+    ("best_of_corrnmf_samples", "ValueError", "must divide the 3 lanes"),
+    ("scan_mvnmf_samples", "ValueError",
+     "must divide the 4 lanes and 14 samples"),
     ("not_a_mesh", "TypeError", "DeviceMesh"),
 ])
 def test_refusals(ranks, case, error, match):

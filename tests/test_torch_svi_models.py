@@ -142,8 +142,45 @@ def test_mesh_with_streaming_is_refused_as_in_the_jax_package(family):
 
 @pytest.mark.parametrize("family", list(MODELS))
 def test_mesh_alone_names_the_item_it_waits_for(family):
-    with pytest.raises(NotImplementedError, match="item 18"):
-        MODELS[family]().fit_minibatch(None, mesh=object())
+    """The mesh of fit_minibatch was ROADMAP item 18, now done: on a world
+    of one (a (1, 1) mesh) it is the meshless fit, bit for bit, and it
+    agrees with the JAX package's fit on a mesh of 2 sample ways of its
+    virtual devices at batch_size = n_samples. The spawned world of
+    test_torch_mesh_paths.py shards it over ranks."""
+    import jax
+    import torch.distributed as dist
+
+    from salamander_tpu.parallel import make_mesh as jax_make_mesh
+
+    if family == "mmcorrnmf":
+        data = {"port": lambda: mm_data(port, mm_counts(3)),
+                "jax": lambda: mm_data(jax_containers, mm_counts(3))}
+        model_j = jax_models.MultimodalCorrNMF(ns_signatures=[2, 2],
+                                               dim_embeddings=2)
+    else:
+        X = make_synthetic(seed=8)
+        data = {"port": lambda: port.AnnData(X.copy()),
+                "jax": lambda: jax_containers.AnnData(X.copy())}
+        model_j = (jax_models.KLNMF(n_signatures=2) if family == "klnmf"
+                   else jax_models.CorrNMFDet(n_signatures=2,
+                                              dim_embeddings=2))
+    kwargs = dict(batch_size=60 if family != "mmcorrnmf" else 50,
+                  init_kwargs={"seed": 2}, **FULL)
+    np.random.seed(4)
+    plain = MODELS[family]().fit_minibatch(data["port"](), **kwargs)
+    assert not dist.is_initialized()
+    try:
+        np.random.seed(4)
+        sharded = MODELS[family]().fit_minibatch(
+            data["port"](), mesh=port.make_mesh(device="cpu"), **kwargs)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(sharded.history["objective_function"],
+                                  plain.history["objective_function"])
+    np.random.seed(4)
+    model_j.fit_minibatch(data["jax"](), mesh=jax_make_mesh(
+        jax.devices()[:4], sample_ways=2), **kwargs)
+    assert_same_minibatch_fit(model_j, sharded)
 
 
 @pytest.mark.parametrize("family", list(MODELS))
