@@ -9,18 +9,24 @@ check raises, so the script exits non-zero and prints no result):
 1. environment: torch, CUDA, nvcc, triton, pandas/sklearn, the card's name
    and power limit. Exits 1 at once without a CUDA device.
 2. build csrc/mu_block.cu with nvcc (timed; ptxas's registers and
-   spills of both kernels).
+   spills of every kernel instance).
 3. the fused MU block against its plain PyTorch version on the card, at
    rtol 2e-4: the planned kernel, the resident kernel at every cluster
-   size that holds a lane (1, 2, 4, 8 all held) and the streamed kernel,
-   at the shapes the main path gives it (PCAWG SBS 96x192, K=5, R=100,
-   R=1; the scan's R=20 up to K=10), at edge shapes and on the 96 x 10,000
-   catalog (streamed); then resident and streamed timed in turns (r, s, s,
-   r) per 10-step block at R=100, R=1 and R=20 K=10, beside the plain
-   version and the block's bound. Then a per-lane X (R=20 PCAWG SBS
-   resamples, K=5): every kernel against the plain version, lanes copying
-   one X bit-equal to the shared-X launch, and the block timed with a
-   per-lane and a shared X in turns.
+   size that holds a lane (1, 2, 4, 8 all held) and the streamed kernel
+   (at splits 1, 2, 8 and its plan's), at the shapes the main path gives
+   it (PCAWG SBS 96x192, K=5, R=100, R=1; the scan's R=20 up to K=10), at
+   edge shapes and on the 96 x 10,000 catalog (streamed); then resident
+   and streamed timed in turns (r, s, s, r) per 10-step block at R=100,
+   R=1 and R=20 K=10, beside the plain version and the block's bound.
+   Then a per-lane X (R=20 PCAWG SBS resamples, K=5): every kernel against
+   the plain version, lanes copying one X bit-equal to the shared-X
+   launch, and the block timed with a per-lane and a shared X in turns.
+   Then the cohort shapes: suite config5's 96 x 10,000 catalog at (K, R) =
+   (5, 100), (20, 100), (10, 20), (8, 1) and one rank group of cell 7b (10
+   lanes, one resample each of 96 x 200,000, K=5), every split against the
+   plain version, the planned streamed kernel and the plain block timed in
+   turns beside the bound (at R=1 also the plan's split against 8 CTAs a
+   lane); D = 9,999 (no 16-byte rows) for correctness.
 4. the main path: KLNMF(n_signatures=5).fit(adata) on PCAWG SBS, float32
    on the card, which must run through the kernel; the same fit again from
    the same init with the plain block must agree.
@@ -156,7 +162,21 @@ Phases 9-11 run plain PyTorch ops (neither family reaches the kernel).
    results. Each rank's launches and walls join the launch counts by
    path. Both ranks share one card: no number here is a scaling.
 
-Each of phases 4-18 runs with the kernel's launch counts (in all, by
+19. Cohort size, the streamed kernel (every launch of the phase checked
+   to be streamed): (a) KLNMF(8).fit on suite config5's 96 x 10,000
+   catalog (one lane split over S > 1 CTAs) against the same fit through
+   the plain block from the same init (KL rtol 1e-4, iterations within
+   5%), ms of wall a block against the kernel's; (b) cell 5 at six of its
+   19 ranks: rank_scan_klnmf(96 x 10,000, (2, 5, 8, 12, 16, 20), 100,
+   seed=0, FitConfig(200, 2000, 10, 1e-7)) in the card's default layout: wall,
+   lane iterations, launches by kernel; ranks 2, 8 and 20 hold their best
+   loss within 1e-4 of fit_klnmf_restarts through the plain block from the
+   same starts; (c) one rank group of cell 7b (rank 5, 10 lanes, one
+   resample each of synthetic_catalog(96, 200,000, 5, seed=0)) over a
+   fixed 200-iteration window, kernel against plain block from one init:
+   final losses within 1e-4.
+
+Each of phases 4-19 runs with the kernel's launch counts (in all, by
 kernel and by shared or per-lane X) set to 0 just before it and read just
 after. The last two lines are the per-kernel JSON
 record and
@@ -184,6 +204,7 @@ WINDOW = 5000               # iterations of every headline lane
 F32_NOISE = 64 * float(np.finfo(np.float32).eps)  # relative ELBO fall
 F32_PEAK = 67e12            # H100 SXM float32 FLOP/s outside tensor cores
 HBM_RATE = 3.35e12          # H100 SXM device memory bytes/s
+ON_CHIP_BYTES = 50e6 + 132 * 232448  # H100 L2 and every SM's shared memory
 
 
 def check(condition: bool, message: str) -> None:
@@ -243,8 +264,8 @@ def ptxas_report(log: str):
         if entry:
             name = entry.group(1)
             args = re.findall(r"Li(\d+)E", name)
-            kernel = ("mu_block_resident_kernel<" + ", ".join(args) + ">"
-                      if "resident" in name else "mu_block_streamed_kernel")
+            kernel = ("mu_block_resident_kernel<" if "resident" in name
+                      else "mu_block_streamed_kernel<") + ", ".join(args) + ">"
         sizes = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads", line)
         if sizes:
@@ -267,8 +288,8 @@ def phase_build(cuda_klnmf):
     for kernel, registers, stores, loads, stack in rows:
         print(f"[2] ptxas {kernel}: {registers} registers, {stores} B spill "
               f"stores, {loads} B spill loads, {stack} B stack frame")
-    expected = 1 + sum(len(cuda_klnmf.chunk_counts(rank))
-                       for rank in cuda_klnmf._RANK_PARTS)
+    expected = len(cuda_klnmf._STREAM_RANKS) + sum(
+        len(cuda_klnmf.chunk_counts(rank)) for rank in cuda_klnmf._RANK_PARTS)
     check(len(rows) == expected,
           f"ptxas reported {len(rows)} kernels, not {expected}")
     check(all(row[2] == row[3] == 0 for row in rows), "a kernel spills")
@@ -296,10 +317,16 @@ def block_bound(R: int, V: int, K: int, D: int, steps: int,
     the three depth-K contractions, V*D divisions, ~4*V*K (W') and 2*K*D
     (H') elementwise operations, at the 67 TFLOP/s float32 peak outside
     the tensor cores; bytes: X (one, or one per lane) read once, W and H
-    read and written once, at 3.35 TB/s."""
+    read and written once, at 3.35 TB/s. The lanes are independent fits,
+    so a schedule may run them one after another: only where one X with one
+    lane's W and H exceeds what the card holds on chip (L2 and every SM's
+    shared memory) does each step after the first reread X, and then only
+    the bytes above that capacity."""
     flops = steps * R * (6 * V * D * K + V * D + 4 * V * K + 2 * K * D)
-    n_x = R if per_lane_x else 1
-    n_bytes = 4 * (n_x * V * D + 2 * R * V * K + 2 * R * K * D)
+    x_one = 4 * V * D
+    over = min(x_one, max(0.0, x_one + 4 * (V * K + K * D) - ON_CHIP_BYTES))
+    x_bytes = (R if per_lane_x else 1) * (x_one + (steps - 1) * over)
+    n_bytes = x_bytes + 4 * (2 * R * V * K + 2 * R * K * D)
     ops_ms, bytes_ms = 1e3 * flops / F32_PEAK, 1e3 * n_bytes / HBM_RATE
     return (ops_ms, "operations") if ops_ms >= bytes_ms else \
         (bytes_ms, "bytes")
@@ -335,6 +362,7 @@ def phase_kernel(torch, cuda_klnmf, datasets, random_init_batch):
           "tensor (entries at the eps clip)")
     max_abs_err = 0.0
     clusters_held = set()
+    n_sms = cuda_klnmf._sm_count(0)
     for key, K, R, samples, step_counts in cases:
         X = counts[key] if samples is None else \
             counts[key][:, :samples].contiguous()
@@ -343,37 +371,14 @@ def phase_kernel(torch, cuda_klnmf, datasets, random_init_batch):
         W, H = random_init_batch(generator, X, K, R)
         plan = cuda_klnmf.launch_plan(X, W)
         names = [("planned", plan.cluster)] + cuda_klnmf._kernels_taking(
-            V, K, D)
+            R, V, K, D, n_sms)
+        clusters_held |= {c for v, c in names if v == "resident"}
         for steps in step_counts:
-            W_r, H_r = cuda_klnmf.fused_mu_block_reference(X, W, H, steps)
+            reference = cuda_klnmf.fused_mu_block_reference(X, W, H, steps)
             for variant, cluster in names:
-                if variant == "planned":
-                    W_k, H_k = cuda_klnmf.fused_mu_block(X, W, H, steps)
-                else:
-                    W_k, H_k = cuda_klnmf._fused_mu_block_variant(
-                        X, W, H, steps, variant, cluster)
-                    if variant == "resident":
-                        clusters_held.add(cluster)
-                torch.cuda.synchronize()
-                errors = []
-                for name, actual, expected in (("W", W_k, W_r),
-                                               ("H", H_k, H_r)):
-                    check(bool(torch.isfinite(actual).all()),
-                          f"non-finite kernel {name}")
-                    atol = 1e-6 * float(expected.abs().max())
-                    torch.testing.assert_close(actual, expected,
-                                               rtol=KERNEL_RTOL, atol=atol)
-                    error = float((actual - expected).abs().max())
-                    relative = float(((actual - expected).abs()
-                                      / expected.abs()).max())
-                    max_abs_err = max(max_abs_err, error)
-                    errors.append(f"{name} abs {error:.3e} rel "
-                                  f"{relative:.3e}")
-                label = (f"planned {plan.variant} C={plan.cluster}"
-                         if variant == "planned" else
-                         f"{variant} C={cluster}")
-                print(f"[3] {key} V={V} D={D} K={K} R={R} steps={steps} "
-                      f"{label}: max err {'; '.join(errors)}")
+                max_abs_err = max(max_abs_err, hold_kernel(
+                    torch, cuda_klnmf, X, W, H, steps, variant, cluster,
+                    reference, f"{key} V={V} D={D} K={K} R={R}"))
     check(clusters_held == {1, 2, 4, 8},
           f"the resident kernel was held at clusters {clusters_held}")
     check(cuda_klnmf.launch_plan(counts["sbs"], torch.empty(
@@ -413,7 +418,134 @@ def phase_kernel(torch, cuda_klnmf, datasets, random_init_batch):
               f"{100 * bound_ms / min(runs['resident']):.1f}% of the bound")
     per_lane_err, timings["per_lane"] = phase_kernel_per_lane_x(
         torch, cuda_klnmf, catalogs["sbs"])
-    return max(max_abs_err, per_lane_err), timings
+    cohort_err = phase_kernel_cohort(torch, cuda_klnmf, datasets,
+                                     counts["synthetic"], random_init_batch,
+                                     timings)
+    return max(max_abs_err, per_lane_err, cohort_err), timings
+
+
+def kernel_label(variant: str, cluster: int) -> str:
+    """A kernel and its CTAs a lane: the resident kernel's cluster C, the
+    streamed kernel's split S."""
+    return f"{variant} {'S' if variant == 'streamed' else 'C'}={cluster}"
+
+
+def hold_kernel(torch, cuda_klnmf, X, W, H, steps, variant, cluster,
+                reference, label):
+    """One kernel ("planned": the one fused_mu_block plans) against the
+    plain version's (W, H) `reference` at rtol 2e-4 (atol 1e-6 x
+    max|plain| per tensor): prints the errors, returns the largest
+    absolute one."""
+    if variant == "planned":
+        plan = cuda_klnmf.launch_plan(X, W)
+        which = f"planned {kernel_label(plan.variant, plan.cluster)}"
+        W_k, H_k = cuda_klnmf.fused_mu_block(X, W, H, steps)
+    else:
+        which = kernel_label(variant, cluster)
+        W_k, H_k = cuda_klnmf._fused_mu_block_variant(X, W, H, steps,
+                                                      variant, cluster)
+    torch.cuda.synchronize()
+    largest, errors = 0.0, []
+    for name, actual, expected in zip("WH", (W_k, H_k), reference):
+        check(bool(torch.isfinite(actual).all()),
+              f"{label}: non-finite kernel {name}")
+        torch.testing.assert_close(actual, expected, rtol=KERNEL_RTOL,
+                                   atol=1e-6 * float(expected.abs().max()))
+        error = float((actual - expected).abs().max())
+        relative = float(((actual - expected).abs() / expected.abs()).max())
+        largest = max(largest, error)
+        errors.append(f"{name} abs {error:.3e} rel {relative:.3e}")
+    print(f"[3] {label} steps={steps} {which}: max err {'; '.join(errors)}")
+    return largest
+
+
+COHORT_SHARED = ((5, 100), (20, 100), (10, 20), (8, 1))  # (K, R), 96 x 10,000
+COHORT_7B = (5, 10, 200_000)  # K, lanes, samples: one rank group of cell 7b
+
+
+def cohort_7b_lanes(torch, datasets):
+    """Cell 7b's rank group: 10 multinomial resamples (R, V, D) on the card
+    of synthetic_catalog(96, 200,000, 5, seed=0)."""
+    K, R, D = COHORT_7B
+    return resamples_on_card(torch, datasets.synthetic_catalog(96, D, K,
+                                                               seed=0),
+                             R, seed=0)
+
+
+def phase_kernel_cohort(torch, cuda_klnmf, datasets, synthetic,
+                        random_init_batch, timings):
+    """The streamed kernel at cohort size against the plain version: the
+    96 x 10,000 catalog (suite config5) at (K, R) = (5, 100), (20, 100),
+    (10, 20) and (8, 1), and cell 7b's rank group (10 lanes, one X each of
+    96 x 200,000, K = 5), at every split _kernels_taking names, then the
+    planned kernel and the plain block timed in turns (k, p, p, k) per
+    10-step block beside the bound (block_bound: X reread only where one
+    lane's X and its W and H exceed what the card holds on chip); at R = 1
+    also the plan's split against 8 CTAs a lane in turns. D = 9,999 (no
+    16-byte rows) at K = 5, R = 4 for correctness only. Adds to `timings`; returns the largest
+    absolute error."""
+    n_sms = cuda_klnmf._sm_count(0)
+    lanes_7b = cohort_7b_lanes(torch, datasets)
+    cases = [(synthetic, K, R) for K, R in COHORT_SHARED]
+    cases += [(lanes_7b, COHORT_7B[0], COHORT_7B[1]),
+              (synthetic[:, :9999].contiguous(), 5, 4)]
+    max_abs_err = 0.0
+    for X, K, R in cases:
+        V, D = X.shape[-2:]
+        per_lane = X.dim() == 3
+        generator = torch.Generator(device="cuda").manual_seed(K * 1000 + R)
+        W, H = random_init_batch(generator, X[0] if per_lane else X, K, R)
+        plan = cuda_klnmf.launch_plan(X, W)
+        check(plan.variant == "streamed" and (R > 20 or plan.cluster > 1),
+              f"cohort K={K} R={R} D={D}: planned {plan}")
+        label = (f"cohort {'per-lane ' if per_lane else ''}V={V} D={D} "
+                 f"K={K} R={R}")
+        reference = cuda_klnmf.fused_mu_block_reference(X, W, H, BLOCK)
+        for variant, cluster in [("planned", plan.cluster)] + \
+                cuda_klnmf._kernels_taking(R, V, K, D, n_sms):
+            max_abs_err = max(max_abs_err, hold_kernel(
+                torch, cuda_klnmf, X, W, H, BLOCK, variant, cluster,
+                reference, label))
+        del reference
+        if D == 9999:
+            continue
+        repeats = 3 if per_lane else 10
+        runs = {"kernel": [], "plain": []}
+        for which in ("kernel", "plain", "plain", "kernel"):
+            runs[which].append(time_ms(torch, (
+                lambda: cuda_klnmf.fused_mu_block(X, W, H, BLOCK))
+                if which == "kernel" else (
+                lambda: cuda_klnmf.fused_mu_block_reference(X, W, H, BLOCK)),
+                repeats))
+        bound_ms, bound_by = block_bound(R, V, K, D, BLOCK,
+                                         per_lane_x=per_lane)
+        entry = {"K": K, "R": R, "D": D,
+                 "x": "per_lane" if per_lane else "shared",
+                 "variant": "streamed", "split": plan.cluster,
+                 "streamed_ms": runs["kernel"], "plain_ms": runs["plain"],
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "share_of_bound": bound_ms / min(runs["kernel"])}
+        line = (f"[3] one block of {BLOCK} steps, {label}: streamed "
+                f"(S={plan.cluster}) "
+                f"{', '.join(f'{t:.4f}' for t in runs['kernel'])} ms, plain "
+                f"{', '.join(f'{t:.4f}' for t in runs['plain'])} ms (in "
+                f"turns k, p, p, k), bound {bound_ms:.5f} ms ({bound_by}), "
+                f"streamed at {100 * entry['share_of_bound']:.1f}% of it")
+        if R == 1 and plan.cluster > 8:
+            splits = {plan.cluster: [], 8: []}
+            for split in (plan.cluster, 8, 8, plan.cluster):
+                splits[split].append(time_ms(
+                    torch, lambda: cuda_klnmf._fused_mu_block_variant(
+                        X, W, H, BLOCK, "streamed", split), repeats))
+            entry["split_8_ms"] = splits[8]
+            entry["split_plan_ms"] = splits[plan.cluster]
+            line += (f"; S={plan.cluster} "
+                     f"{', '.join(f'{t:.4f}' for t in splits[plan.cluster])}"
+                     f" ms against S=8 "
+                     f"{', '.join(f'{t:.4f}' for t in splits[8])} ms in turns")
+        print(line)
+        timings[("cohort", K, R, D)] = entry
+    return max_abs_err
 
 
 def resamples(counts: np.ndarray, R: int, seed: int) -> np.ndarray:
@@ -426,6 +558,30 @@ def resamples(counts: np.ndarray, R: int, seed: int) -> np.ndarray:
                   for n, column in zip(totals, counts.T)], axis=1)
         for _ in range(R)])
     return np.clip(lanes, np.finfo(np.float32).eps, None)
+
+
+def resamples_on_card(torch, counts: np.ndarray, R: int, seed: int):
+    """R multinomial resamples (R, V, D) of a (V, D) count matrix on the
+    card, float32, each sample's total kept, EPSILON-clipped: the
+    distribution of `resamples`, drawn as a chain of binomials over the V
+    rows (row v takes Binomial(what is left, p_v / the mass left)), so a
+    cohort of 200,000 samples takes seconds, not minutes."""
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+    counts = torch.as_tensor(counts, dtype=torch.float64, device="cuda")
+    totals = counts.sum(0).floor()
+    p = counts / counts.sum(0)
+    V, D = counts.shape
+    lanes = torch.empty((R, V, D), dtype=torch.float32, device="cuda")
+    for lane in range(R):
+        left, mass = totals.clone(), torch.ones_like(totals)
+        for v in range(V - 1):
+            q = (p[v] / mass).clamp(0.0, 1.0)
+            draw = torch.binomial(left, q, generator=generator)
+            lanes[lane, v] = draw
+            left -= draw
+            mass -= p[v]
+        lanes[lane, V - 1] = left
+    return lanes.clamp_min_(float(np.finfo(np.float32).eps))
 
 
 def phase_kernel_per_lane_x(torch, cuda_klnmf, counts_host):
@@ -446,32 +602,17 @@ def phase_kernel_per_lane_x(torch, cuda_klnmf, counts_host):
     V, D = X.shape[1:]
     generator = torch.Generator(device="cuda").manual_seed(20)
     W, H = random_init_batch(generator, X[0], K, R)
-    names = cuda_klnmf._kernels_taking(V, K, D)
+    names = cuda_klnmf._kernels_taking(R, V, K, D, cuda_klnmf._sm_count(0))
     check({c for v, c in names if v == "resident"} == {1, 2, 4, 8}
           and ("streamed", 1) in names,
           f"per-lane X: the kernels taking it are {names}")
     max_abs_err = 0.0
     for steps in (1, 10):
-        W_r, H_r = cuda_klnmf.fused_mu_block_reference(X, W, H, steps)
+        reference = cuda_klnmf.fused_mu_block_reference(X, W, H, steps)
         for variant, cluster in names:
-            W_k, H_k = cuda_klnmf._fused_mu_block_variant(
-                X, W, H, steps, variant, cluster)
-            torch.cuda.synchronize()
-            errors = []
-            for name, actual, expected in (("W", W_k, W_r), ("H", H_k, H_r)):
-                check(bool(torch.isfinite(actual).all()),
-                      f"per-lane X: non-finite kernel {name}")
-                torch.testing.assert_close(
-                    actual, expected, rtol=KERNEL_RTOL,
-                    atol=1e-6 * float(expected.abs().max()))
-                error = float((actual - expected).abs().max())
-                relative = float(((actual - expected).abs()
-                                  / expected.abs()).max())
-                max_abs_err = max(max_abs_err, error)
-                errors.append(f"{name} abs {error:.3e} rel {relative:.3e}")
-            print(f"[3] per-lane X (R={R}, {V}x{D} resamples) K={K} "
-                  f"steps={steps} {variant} C={cluster}: max err "
-                  f"{'; '.join(errors)}")
+            max_abs_err = max(max_abs_err, hold_kernel(
+                torch, cuda_klnmf, X, W, H, steps, variant, cluster,
+                reference, f"per-lane X (R={R}, {V}x{D} resamples) K={K}"))
     shared = X[0].contiguous()
     copies = shared.expand_as(X).contiguous()
     for variant, cluster in names:
@@ -2589,6 +2730,208 @@ def phase_mesh(torch, sal, cuda_klnmf, X_host, drive, grouped, launches):
     return counts
 
 
+# suite config5 scans k = 2..20 x 100 restarts; the whole scan took 45.7 s
+# of a 652 s script, so the script runs six of its ranks at full width
+COHORT_RANKS = (2, 5, 8, 12, 16, 20)
+COHORT_RESTARTS = 100
+COHORT_CHECKED_RANKS = (2, 8, 20)  # held against the plain block's fits
+
+
+def cohort_catalog(sal) -> np.ndarray:
+    """Suite config5's catalog: synthetic_catalog(96, 10,000, 8, seed=0)."""
+    return sal.datasets.synthetic_catalog(96, 10_000, 8, seed=0)
+
+
+def streamed_only(cuda_klnmf, label: str) -> int:
+    """Checks that every launch since the counts were set to 0 went to
+    the streamed kernel; returns their number."""
+    kernel = cuda_klnmf.fused_mu_block
+    check(kernel.launches > 0 and kernel.launches_by_variant["resident"]
+          == 0 and kernel.launches_by_variant["streamed"] == kernel.launches,
+          f"{label}: launches {kernel.launches_by_variant}, not all streamed")
+    return kernel.launches
+
+
+def plain_block_update(params, data):
+    """make_block_update of the plain block
+    (cuda_klnmf.fused_mu_block_reference)."""
+    from salamander_tpu_torch.ops import cuda_klnmf
+
+    def block(p, n_steps):
+        W, H = cuda_klnmf.fused_mu_block_reference(data["X"], p["W"], p["H"],
+                                                   n_steps)
+        return {"W": W, "H": H}
+    return block
+
+
+def plain_runner(config):
+    """A fit_klnmf_restarts runner whose blocks are the plain block
+    (cuda_klnmf.fused_mu_block_reference): no kernel, no compaction."""
+    from salamander_tpu_torch.ops.klnmf import make_step_functions
+    from salamander_tpu_torch.parallel.compaction import lockstep_fit
+
+    _, objective_fn = make_step_functions()
+
+    def run(params0, data):
+        result, losses = lockstep_fit(objective_fn, config,
+                                      plain_block_update, params0, data)
+        return result.params, losses, result.n_iterations
+
+    return run
+
+
+def phase_cohort_fit(torch, sal, cuda_klnmf, timings):
+    """19a: KLNMF(8).fit on suite config5's 96 x 10,000 catalog, float32,
+    every block through the streamed kernel split over S > 1 CTAs; the
+    same fit from the same init through the plain block agrees (KL rtol
+    1e-4, iterations within 5%)."""
+    from salamander_tpu_torch.engine import fit_loop
+    from salamander_tpu_torch.models.signature_nmf import promote_objective
+
+    X = cohort_catalog(sal)
+
+    def adata():
+        return sal.AnnData(np.ascontiguousarray(X.T))
+
+    plan = cuda_klnmf.plan_launch(1, 96, 8, X.shape[1],
+                                  cuda_klnmf._sm_count(0))
+    check(plan.variant == "streamed" and plan.cluster > 1,
+          f"one cohort lane plans {plan}")
+    model = sal.KLNMF(n_signatures=8, device="cuda", dtype="float32")
+    _, seconds = timed(torch, lambda: model.fit(adata()))
+    launches = streamed_only(cuda_klnmf, "19a KLNMF(8).fit")
+    n_iterations = model.history["n_iterations"]
+    final = float(model.history["objective_function"][-1])
+    W = model.asignatures.X
+    check(W.shape == (8, 96) and model.adata.obsm["exposures"].shape
+          == (X.shape[1], 8), "19a: fitted shapes")
+    check(bool(np.isfinite(W).all()
+               and np.isfinite(model.adata.obsm["exposures"]).all()),
+          "19a: non-finite parameters")
+    check(np.allclose(W.sum(axis=1), 1.0, atol=1e-4),
+          "19a: signatures do not sum to one")
+    check(n_iterations < 10000, "19a: the fit ran into the iteration cap")
+    blocks = -(-n_iterations // BLOCK)
+    kernel_ms = min(timings[("cohort", 8, 1, X.shape[1])]["streamed_ms"])
+    print(f"[19] KLNMF(8).fit on 96 x {X.shape[1]:,}: {n_iterations} "
+          f"iterations, final KL {final:.4f}, {seconds:.3f} s, {launches} "
+          f"launches, all streamed (S={plan.cluster}); "
+          f"{1000 * seconds / blocks:.4f} ms of wall a block against "
+          f"{kernel_ms:.4f} ms of kernel (phase 3): the host loop sets the "
+          "rest")
+
+    reference = sal.KLNMF(n_signatures=8, device="cuda", dtype="float32")
+    reference._setup_adata(adata())
+    reference._initialize()
+    reference._setup_fitting_parameters()
+    params0, data = reference._device_state()
+    update_fn, objective_fn = reference._build_step()
+    objective_fn = promote_objective(objective_fn, params0)
+
+    def plain_block(params, n_steps):
+        W_new, H_new = cuda_klnmf.fused_mu_block_reference(
+            data["X"], params["W"][None], params["H"][None], n_steps)
+        return {"W": W_new[0], "H": H_new[0]}
+
+    result, plain_seconds = timed(torch, lambda: fit_loop(
+        lambda p: update_fn(p, data), lambda p: objective_fn(p, data),
+        params0, reference._fit_config(), block_update_fn=plain_block))
+    plain_final = float(result.history[result.n_evals - 1])
+    print(f"[19] same fit, plain block: {result.n_iterations} iterations, "
+          f"final KL {plain_final:.4f}, {plain_seconds:.3f} s")
+    check(abs(final - plain_final) <= FIT_RTOL * abs(plain_final),
+          "19a: final objective differs from the plain fit")
+    check(abs(n_iterations - result.n_iterations)
+          <= 0.05 * result.n_iterations,
+          "19a: iteration count differs from the plain fit by over 5%")
+
+
+def phase_cohort_scan(torch, sal, cuda_klnmf):
+    """19b, cell 5: rank_scan_klnmf(96 x 10,000, COHORT_RANKS, 100, seed=0,
+    FitConfig(200, 2000, 10, 1e-7)) in the layout a card picks by default;
+    every launch streamed; ranks 2, 8 and 20 hold their best loss within
+    1e-4 of fit_klnmf_restarts through the plain block from the same
+    starts."""
+    from salamander_tpu_torch.engine import FitConfig
+
+    X = cohort_catalog(sal)
+    config = FitConfig(200, 2000, BLOCK, 1e-7)
+    ranks = list(COHORT_RANKS)
+    results, seconds = timed(torch, lambda: sal.rank_scan_klnmf(
+        X, ranks, COHORT_RESTARTS, seed=0, config=config, device="cuda"))
+    launches = streamed_only(cuda_klnmf, "19b rank_scan_klnmf")
+    iterations = {k: int(np.sum(result.n_iterations))
+                  for k, result in results.items()}
+    for k, result in results.items():
+        check(bool(np.isfinite(result.losses).all()),
+              f"19b k={k}: non-finite losses")
+    print(f"[19] rank_scan_klnmf(96 x {X.shape[1]:,}, k in {ranks}, "
+          f"R={COHORT_RESTARTS}): {seconds:.3f} s, "
+          f"{sum(iterations.values())} lane iterations, {launches} launches "
+          f"(by kernel {dict(cuda_klnmf.fused_mu_block.launches_by_variant)})"
+          ", best per rank " + ", ".join(
+              f"{k}:{result.best_loss:.2f}" for k, result in results.items()))
+    print("[19] lane iterations per rank: " + ", ".join(
+        f"{k}:{n}" for k, n in iterations.items()))
+    for k in COHORT_CHECKED_RANKS:
+        plain, plain_seconds = timed(torch, lambda: sal.fit_klnmf_restarts(
+            X, k, COHORT_RESTARTS, seed=1000 * ranks.index(k), config=config,
+            device="cuda", runner=plain_runner(config)))
+        print(f"[19] k={k} through the plain block from the same starts: "
+              f"best {plain.best_loss:.4f} against {results[k].best_loss:.4f}"
+              f", {plain_seconds:.3f} s")
+        check_best_agree(f"[19] k={k} scan vs plain", results[k].best_loss,
+                         plain.best_loss)
+
+
+def phase_cohort_7b(torch, sal, cuda_klnmf, timings):
+    """19c, a cell 7b probe: one rank group (rank 5, 10 lanes, one
+    multinomial resample of synthetic_catalog(96, 200,000, 5, seed=0) per
+    lane) over a fixed 200-iteration window, through the launch plan's
+    kernel and through the plain block from the same init: the final
+    losses agree at rtol 1e-4."""
+    from salamander_tpu_torch.engine import FitConfig
+    from salamander_tpu_torch.initialization.methods import (
+        random_init_batch,
+    )
+    from salamander_tpu_torch.ops.klnmf import make_step_functions
+    from salamander_tpu_torch.parallel.compaction import (
+        klnmf_block_builder,
+        lockstep_fit,
+    )
+
+    K, R, D = COHORT_7B
+    lanes = cohort_7b_lanes(torch, sal.datasets)
+    generator = torch.Generator(device="cuda").manual_seed(7)
+    W0, H0 = random_init_batch(generator, lanes[0], K, R)
+    params0, data = {"W": W0, "H": H0}, {"X": lanes}
+    config = FitConfig(200, 200, BLOCK, 1e-7)
+    update_fn, objective_fn = make_step_functions()
+    (kernel, kernel_losses), seconds = timed(torch, lambda: lockstep_fit(
+        objective_fn, config, klnmf_block_builder(update_fn), params0, data))
+    launches = streamed_only(cuda_klnmf, "19c cell 7b rank group")
+    (plain, plain_losses), plain_seconds = timed(torch, lambda: lockstep_fit(
+        objective_fn, config, plain_block_update, params0, data))
+    kernel_losses = kernel_losses.cpu().numpy()
+    plain_losses = plain_losses.cpu().numpy()
+    check(bool(np.isfinite(kernel_losses).all()), "19c: non-finite losses")
+    check(bool((kernel.n_iterations.cpu().numpy() == 200).all()),
+          "19c: every lane runs the 200-iteration window")
+    gap = float(np.max(np.abs(kernel_losses - plain_losses)
+                       / np.abs(plain_losses)))
+    check(gap <= FIT_RTOL, f"19c: kernel and plain losses {gap:.2e} apart")
+    blocks = 200 // BLOCK
+    entry = timings[("cohort", K, R, D)]
+    print(f"[19] cell 7b rank group (K={K}, {R} lanes, one X each of 96 x "
+          f"{D:,}), 200 iterations: kernel {seconds:.3f} s ({launches} "
+          f"launches, streamed S={cuda_klnmf.launch_plan(lanes, W0).cluster}"
+          f"; {1000 * seconds / blocks:.3f} ms of wall a block, "
+          f"{min(entry['streamed_ms']):.4f} ms of kernel in phase 3, bound "
+          f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})), plain "
+          f"{plain_seconds:.3f} s; final losses within "
+          f"{gap:.2e} relative, best {kernel_losses.min():.2f}")
+
+
 def main() -> int:
     import torch
 
@@ -2647,6 +2990,12 @@ def main() -> int:
     phase_cli(torch, sal, cuda_klnmf, drive)
     ranks = phase_mesh(torch, sal, cuda_klnmf, X_host, drive, extracted,
                        launches["12 extract_signatures"])
+    drive("19a KLNMF.fit cohort", phase_cohort_fit, torch, sal, cuda_klnmf,
+          timings)
+    drive("19b rank_scan_klnmf cohort", phase_cohort_scan, torch, sal,
+          cuda_klnmf)
+    drive("19c cell 7b rank group", phase_cohort_7b, torch, sal, cuda_klnmf,
+          timings)
     check(launches["18b mesh, two ranks over gloo (this process)"] == 0,
           "phase 18b's fits run in its two ranks, not here")
     for path, (count, variants, xs) in ranks.items():
@@ -2677,6 +3026,12 @@ def main() -> int:
         check(launches[path] > 0, f"path {path} launched no kernel")
         check(by_variant[path]["resident"] > 0,
               f"path {path} did not run the resident kernel")
+    for path in ("19a KLNMF.fit cohort", "19b rank_scan_klnmf cohort",
+                 "19c cell 7b rank group"):
+        check(launches[path] > 0 and by_variant[path]["streamed"]
+              == launches[path], f"path {path}: not every launch streamed")
+    check(by_x["19c cell 7b rank group"]["per_lane"] > 0,
+          "the cell 7b group launched no kernel with a per-lane X")
     for path in ("12 extract_signatures", "14 bootstrap", "17b CLI extract",
                  "18a extract_signatures, 1 x 1 mesh",
                  "18a CLI extract --mesh auto", *mesh_extract):

@@ -12,9 +12,11 @@ full blocks and its remainder tail.
 Two kernels compute the block. The resident kernel keeps a lane's X, W and
 H in shared memory for every step, on a thread block cluster of C CTAs per
 lane (C > 1 when the lanes are too few to fill the card); the streamed
-kernel reads X from L2 in 32-sample tiles and takes any D. The route is
-decided from the shapes alone, before the launch (:func:`plan_launch`,
-twin of mu_block_plan in the source).
+kernel takes any D: it splits each lane's samples over S CTAs (S > 1 when
+the lanes are too few to fill the card, through a cooperative launch) and
+streams X and H through shared memory in tiles. The route is decided from
+the shapes alone, before the launch (:func:`plan_launch`, twin of
+mu_block_plan in the source).
 
 Build: nvcc compiles the source for sm_90a into a shared library with a
 plain C interface, at first use, under ``build/`` at the root of the
@@ -46,7 +48,6 @@ from .klnmf import update_WH
 
 K_MAX = 32          # MU_BLOCK_K_MAX in csrc/mu_block.cu
 THREADS = 256       # MU_BLOCK_THREADS
-_TILE_PITCH = 33    # MU_BLOCK_TILE_D + 1
 _WARPS = THREADS // 32
 _SHARED_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 _CLUSTERS = (1, 2, 4, 8)
@@ -61,19 +62,13 @@ _VARIANT_CODES = {None: 0, "resident": 1, "streamed": 2}
 
 class LaunchPlan(NamedTuple):
     """How a block update launches: the kernel ("resident", "streamed",
-    or None where neither takes the shapes), the CTAs per lane (a thread
-    block cluster), the threads per CTA and its dynamic shared bytes."""
+    or None where neither takes the shapes), the CTAs per lane (the
+    resident kernel's thread block cluster, or the streamed kernel's split
+    S), the threads per CTA and its dynamic shared bytes."""
     variant: str | None
     cluster: int
     threads: int
     shared_bytes: int
-
-
-def shared_bytes(n_features: int, n_signatures: int) -> int:
-    """Dynamic shared memory of one streamed block
-    (mu_block_shared_bytes)."""
-    return 4 * (2 * n_features * n_signatures
-                + (n_features + n_signatures) * _TILE_PITCH)
 
 
 def _samples_per_cta(D: int, cluster: int) -> int:
@@ -128,16 +123,77 @@ def resident_shared_bytes(V: int, K: int, D: int, cluster: int) -> int:
     return 4 * floats if 4 * floats <= _SHARED_LIMIT else 0
 
 
+def stream_rank(K: int) -> int:
+    """The compile-time rank the streamed kernel runs K at: K up to 8,
+    else K rounded up to a multiple of 4 (csrc/mu_block.cu::stream_rank)."""
+    return K if K <= 8 else -(-K // 4) * 4
+
+
+def stream_tile(K: int) -> int:
+    """Samples of one streamed tile at rank K: 32 times the chunks a warp
+    keeps in registers (csrc/mu_block.cu::stream_tile)."""
+    KT = stream_rank(K)
+    return 32 * (4 if KT <= 12 else 3 if KT <= 20 else 2 if KT <= 24 else 1)
+
+
+def _stream_partials(K: int) -> int:
+    return 16 if stream_rank(K) <= 5 else 8
+
+
+def streamed_split(R: int, K: int, D: int, n_sms: int) -> int:
+    """The CTAs S a lane is split over (csrc/mu_block.cu::streamed_split):
+    the most with R * S <= n_sms and at least one tile each (1 where the
+    lanes alone fill the card), evened so every CTA holds the same whole
+    number of tiles but the last."""
+    tiles = -(-D // stream_tile(K))
+    first = min(1 if R >= n_sms else n_sms // R, tiles)
+    per = -(-tiles // first)
+    return -(-tiles // per)
+
+
+def streamed_layout(V: int, K: int, D: int, split: int):
+    """(shared bytes, samples a CTA owns, ring depth) of the streamed
+    kernel with each lane split over `split` CTAs, or None if it does not
+    take the shapes (a CTA would own no sample, or two tile slots exceed
+    the 227 KB, whatever the split). Depth 0: every tile of a CTA stays in
+    shared memory for all steps. Layout in
+    csrc/mu_block.cu::streamed_shared_bytes."""
+    KT, T = stream_rank(K), stream_tile(K)
+    tiles = -(-D // T)
+    if not 1 <= split <= tiles:
+        return None
+    per = -(-tiles // split)
+    if (split - 1) * per * T >= D:
+        return None
+    fixed = V * KT + V * K * _stream_partials(K) + _WARPS * K * T + V * K
+    slot = (V + K) * T
+    if 4 * (fixed + 2 * slot) > _SHARED_LIMIT:  # at any split, so support
+        return None                             # does not depend on it
+    for stages, slots in ((0, per), (3, 3), (2, 2)):
+        if 4 * (fixed + slots * slot) <= _SHARED_LIMIT:
+            return 4 * (fixed + slots * slot), per * T, stages
+    return None
+
+
+def shared_bytes(V: int, K: int, D: int, split: int) -> int:
+    """Dynamic shared memory of one streamed CTA, or 0 if the streamed
+    kernel does not take the shapes (mu_block_shared_bytes)."""
+    layout = streamed_layout(V, K, D, split)
+    return 0 if layout is None else layout[0]
+
+
 def plan_launch(R: int, V: int, K: int, D: int, n_sms: int) -> LaunchPlan:
     """The kernel, cluster size, threads and shared bytes of a block
     update of R lanes of X (V, D) at rank K on a card with `n_sms` SMs.
 
     The resident kernel with the largest cluster C in 1, 2, 4, 8 such that
     R * C <= n_sms and each CTA keeps >= 16 samples; where a lane does not
-    fit there, the streamed kernel; where that does not fit either, the
+    fit there, the streamed kernel split over streamed_split's S CTAs a
+    lane (R * S <= n_sms where S > 1); where that does not fit either, the
     resident kernel at the smallest cluster (>= 16 samples a CTA) that
-    fits. So whether a kernel takes the shapes does not depend on n_sms.
-    Twin of mu_block_plan in csrc/mu_block.cu."""
+    fits. The streamed kernel takes the shapes at S = 1 wherever it takes
+    them at all, so whether a kernel takes the shapes does not depend on
+    n_sms. Twin of mu_block_plan in csrc/mu_block.cu."""
     if min(R, V, K, D) <= 0 or K > K_MAX:
         return LaunchPlan(None, 1, THREADS, 0)
     cluster = max(c for c in _CLUSTERS
@@ -146,8 +202,10 @@ def plan_launch(R: int, V: int, K: int, D: int, n_sms: int) -> LaunchPlan:
     shared = resident_shared_bytes(V, K, D, cluster)
     if shared:
         return LaunchPlan("resident", cluster, THREADS, shared)
-    if shared_bytes(V, K) <= _SHARED_LIMIT:
-        return LaunchPlan("streamed", 1, THREADS, shared_bytes(V, K))
+    split = streamed_split(R, K, D, n_sms)
+    shared = shared_bytes(V, K, D, split)
+    if shared:
+        return LaunchPlan("streamed", split, THREADS, shared)
     for other in _CLUSTERS:
         if other > 1 and _samples_per_cta(D, other) < _MIN_SAMPLES_PER_CTA:
             break
@@ -222,9 +280,13 @@ def _nvcc() -> str:
     return found
 
 
-# the resident kernel's compile-time ranks, one translation unit each
-# (MU_BLOCK_RANKS in csrc/mu_block.cu)
+# the kernels' compile-time ranks, one translation unit each (the resident
+# kernel at each chunk count and the streamed kernel; MU_BLOCK_RANKS in
+# csrc/mu_block.cu)
 _RANK_PARTS = (1, 2, 3, 4, 5, 6, 7, 8, 12, 16, 24, 32)
+# the streamed kernel's ranks (MU_BLOCK_STREAM_RANKS): 20 and 28 build in
+# the units of 24 and 32
+_STREAM_RANKS = _RANK_PARTS + (20, 28)
 
 
 def _run_all(commands):
@@ -243,8 +305,8 @@ def _run_all(commands):
 
 def build() -> Path:
     """Compile csrc/mu_block.cu for sm_90a (once per source version) and
-    return the shared library's path. The resident kernel's ranks compile
-    as separate units in parallel and link with the C interface's unit.
+    return the shared library's path. The kernels' ranks compile as
+    separate units in parallel and link with the C interface's unit.
     ptxas's register, spill and shared-memory report is kept beside the
     library with the suffix '.log'."""
     digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
@@ -274,12 +336,24 @@ def build() -> Path:
 
 # shapes on which _library() holds plan_launch against mu_block_plan:
 # PCAWG SBS at the headline's lanes, one lane, the R=40 and R=20 scans, a
-# D that limits the cluster, the largest rank, the streamed catalog and
-# one that neither kernel takes
+# D that limits the cluster, the largest rank, the cohort shapes (the
+# 96 x 10,000 scan at R = 100 and 20, one fit, a cell 7b rank group of 10
+# lanes and one lane at 96 x 200,000, an unaligned D, a D the resident
+# kernel just misses) and one that neither kernel takes
 _PLAN_CHECKS = ((100, 96, 5, 192), (1, 96, 5, 192), (40, 96, 5, 192),
                 (20, 96, 10, 192), (1, 96, 5, 100), (4, 96, 32, 192),
                 (4, 96, 20, 192), (100, 96, 13, 192),
-                (20, 96, 10, 10000), (1, 4096, 3, 20), (1, 83, 5, 17))
+                (20, 96, 10, 10000), (100, 96, 5, 10000),
+                (100, 96, 20, 10000), (100, 96, 32, 10000),
+                (1, 96, 8, 10000), (10, 96, 5, 200000),
+                (1, 96, 5, 200000), (4, 96, 5, 9999), (2, 96, 5, 2500),
+                (1, 4096, 3, 20), (1, 83, 5, 17))
+
+# (V, K, D, split) on which _library() holds shared_bytes against
+# mu_block_shared_bytes: each ring depth, kept tiles, an invalid split
+_SHARED_CHECKS = ((96, 5, 10000, 1), (96, 8, 10000, 1), (96, 20, 10000, 6),
+                  (96, 8, 10000, 79), (96, 5, 200000, 13), (96, 5, 9999, 4),
+                  (96, 5, 192, 3))
 
 
 @functools.lru_cache(maxsize=None)
@@ -295,14 +369,15 @@ def _library():
     lib.mu_block_k_max.restype = integer
     lib.mu_block_threads.argtypes = []
     lib.mu_block_threads.restype = integer
-    lib.mu_block_shared_bytes.argtypes = [integer, integer]
+    lib.mu_block_shared_bytes.argtypes = [integer] * 4
     lib.mu_block_shared_bytes.restype = ctypes.c_size_t
     lib.mu_block_plan.argtypes = [integer] * 5 + [
         ctypes.POINTER(integer), ctypes.POINTER(integer),
         ctypes.POINTER(ctypes.c_size_t)]
     lib.mu_block_plan.restype = None
     if lib.mu_block_k_max() != K_MAX or lib.mu_block_threads() != THREADS \
-            or lib.mu_block_shared_bytes(96, 5) != shared_bytes(96, 5):
+            or any(lib.mu_block_shared_bytes(*shape) != shared_bytes(*shape)
+                   for shape in _SHARED_CHECKS):
         raise RuntimeError("csrc/mu_block.cu and ops/cuda_klnmf.py disagree "
                            "on K_MAX, the threads or the streamed layout")
     for shape in _PLAN_CHECKS:
@@ -361,14 +436,19 @@ def _launch(X, W, H, n_steps: int, plan: LaunchPlan):
     x_stride = V * D if X.dim() == 3 else 0
     W_out = torch.empty_like(W)
     H_out = torch.empty_like(H)
-    H_scratch = torch.empty_like(H) if plan.variant == "streamed" else None
+    workspace = None
+    if plan.variant == "streamed" and plan.cluster > 1:
+        # the lanes' arrival counters (zeroed), then two rounds of the
+        # CTAs' numerators (mu_block_launch)
+        workspace = torch.zeros(-(-R // 4) * 4 + 2 * R * plan.cluster * V * K,
+                                dtype=torch.float32, device=X.device)
     lib = _library()
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         status = lib.mu_block_launch(
             X.data_ptr(), W.data_ptr(), H.data_ptr(), W_out.data_ptr(),
             H_out.data_ptr(),
-            None if H_scratch is None else H_scratch.data_ptr(),
+            None if workspace is None else workspace.data_ptr(),
             R, V, K, D, int(n_steps), _VARIANT_CODES[plan.variant],
             plan.cluster, x_stride, stream,
         )
@@ -415,8 +495,9 @@ fused_mu_block.launches_by_x = {"shared": 0, "per_lane": 0}
 def _fused_mu_block_variant(X, W, H, n_steps: int, variant: str,
                             cluster: int = 1):
     """fused_mu_block through a named kernel ("resident" with clusters of
-    `cluster`, or "streamed") on CUDA tensors, whatever the plan: for
-    holding each kernel against the plain version on the card."""
+    `cluster`, or "streamed" with each lane split over `cluster` CTAs) on
+    CUDA tensors, whatever the plan: for holding each kernel against the
+    plain version on the card."""
     _check_kernel_inputs(X, W, H)
     R, V, K = W.shape
     D = X.shape[-1]
@@ -427,23 +508,28 @@ def _fused_mu_block_variant(X, W, H, n_steps: int, variant: str,
                              f"K={K}, D={D} with clusters of {cluster}")
         plan = LaunchPlan("resident", cluster, THREADS, shared)
     elif variant == "streamed":
-        if shared_bytes(V, K) > _SHARED_LIMIT:
+        shared = shared_bytes(V, K, D, cluster)
+        if not shared or (cluster > 1
+                          and R * cluster > _sm_count(X.device.index)):
             raise ValueError(f"the streamed kernel does not take V={V}, "
-                             f"K={K}")
-        plan = LaunchPlan("streamed", 1, THREADS, shared_bytes(V, K))
+                             f"K={K}, D={D}, R={R} split over {cluster}")
+        plan = LaunchPlan("streamed", cluster, THREADS, shared)
     else:
         raise ValueError(f"unknown kernel {variant!r}")
     return _launch(X, W, H, n_steps, plan)
 
 
-def _kernels_taking(V: int, K: int, D: int):
-    """Every (kernel, cluster) that takes a lane of X (V, D) at rank K:
-    the resident kernel at each cluster size that holds it, and the
-    streamed kernel. For holding each against the plain version."""
+def _kernels_taking(R: int, V: int, K: int, D: int, n_sms: int):
+    """The (kernel, cluster or split) pairs that take R lanes of X (V, D)
+    at rank K on a card of `n_sms` SMs, for holding each against the plain
+    version: the resident kernel at each cluster size that holds a lane,
+    and the streamed kernel at the splits 1, 2 and 8 where they fit and at
+    the one its plan picks."""
     names = [("resident", c) for c in _CLUSTERS
              if resident_shared_bytes(V, K, D, c)]
-    if shared_bytes(V, K) <= _SHARED_LIMIT:
-        names.append(("streamed", 1))
+    splits = {1, 2, 8, streamed_split(R, K, D, n_sms)}
+    names += [("streamed", S) for S in sorted(splits)
+              if shared_bytes(V, K, D, S) and (S == 1 or R * S <= n_sms)]
     return names
 
 

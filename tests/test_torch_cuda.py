@@ -1,7 +1,7 @@
 """Tests that need an NVIDIA GPU: the port's CUDA kernels (resident at
-every cluster size, and streamed) against their plain PyTorch version,
-with one X shared by all lanes and with one X per lane. They skip without
-a card.
+every cluster size, and streamed at every split it is tested at) against
+their plain PyTorch version, with one X shared by all lanes and with one X
+per lane, at PCAWG size and at cohort size. They skip without a card.
 
 This file imports neither jax nor salamander_tpu, so it also runs where JAX
 is not installed: on the card, run
@@ -31,6 +31,13 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     return torch.device("cuda")
+
+
+def kernels_taking(X, W):
+    """Every (kernel, cluster or split) the tests hold for these tensors."""
+    R, V, K = W.shape
+    return cuda_klnmf._kernels_taking(R, V, K, X.shape[-1],
+                                      cuda_klnmf._sm_count(X.device.index))
 
 
 def assert_kernel_close(actual, expected):
@@ -83,17 +90,34 @@ def test_kernel_matches_plain_on_card(cuda_device, V, K, D, R):
         assert_kernel_close(H_k, H_r)
 
 
+# the cohort shapes: the 96 x 10,000 scan (suite config5) at R = 100 and
+# 20, one cohort fit, the largest rank, an unaligned D (4-byte copies)
+COHORT_SHAPES = [
+    (96, 5, 10000, 20),
+    (96, 5, 10000, 100),
+    (96, 20, 10000, 100),
+    (96, 10, 10000, 20),
+    (96, 8, 10000, 1),
+    (96, 32, 10000, 4),
+    (96, 5, 9999, 4),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("V, K, D, R", SHAPES + [(96, 5, 10000, 20)])
+@pytest.mark.parametrize("V, K, D, R", SHAPES + COHORT_SHAPES)
 def test_each_kernel_matches_plain_on_card(cuda_device, V, K, D, R):
     """Both kernels, the resident one at every cluster size that holds a
-    lane, against the plain version at 0, 1, 3, 7 and 10 steps; 0 steps
-    copy the inputs."""
+    lane and the streamed one at splits 1, 2, 8 and its plan's, against
+    the plain version at 0, 1, 3, 7 and 10 steps; 0 steps copy the
+    inputs. The cohort shapes plan the streamed kernel."""
     X, W, H = card_problem(cuda_device, V, K, D, R)
-    names = cuda_klnmf._kernels_taking(V, K, D)
+    names = kernels_taking(X, W)
     assert ("streamed", 1) in names
-    if D == 10000:
-        assert cuda_klnmf.launch_plan(X, W).variant == "streamed"
+    if D >= 9999:
+        plan = cuda_klnmf.launch_plan(X, W)
+        assert plan.variant == "streamed"
+        assert ("streamed", plan.cluster) in names
+        assert R > 20 or plan.cluster > 1
     for steps in STEP_COUNTS:
         W_r, H_r = cuda_klnmf.fused_mu_block_reference(X, W, H, steps)
         for variant, cluster in names:
@@ -108,12 +132,13 @@ def test_each_kernel_matches_plain_on_card(cuda_device, V, K, D, R):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("V, K, D, R", [(96, 5, 192, 100), (96, 5, 192, 1),
-                                        (96, 10, 192, 20), (83, 5, 17, 3)])
+                                        (96, 10, 192, 20), (83, 5, 17, 3),
+                                        (96, 8, 10000, 1), (96, 5, 9999, 4)])
 def test_two_launches_are_bit_equal(cuda_device, V, K, D, R):
-    """Fixed reduction orders and no atomics: the same inputs give the same
-    bits, in every kernel."""
+    """Fixed reduction orders and no atomics on values: the same inputs
+    give the same bits, in every kernel and at every split."""
     X, W, H = card_problem(cuda_device, V, K, D, R)
-    for variant, cluster in cuda_klnmf._kernels_taking(V, K, D):
+    for variant, cluster in kernels_taking(X, W):
         first = cuda_klnmf._fused_mu_block_variant(X, W, H, 10, variant,
                                                    cluster)
         second = cuda_klnmf._fused_mu_block_variant(X, W, H, 10, variant,
@@ -146,7 +171,7 @@ def test_per_lane_x_matches_plain_on_card(cuda_device):
     every cluster size that holds a lane and the streamed kernel, against
     the plain version at rtol 2e-4."""
     X, W, H = per_lane_problem(cuda_device)
-    names = cuda_klnmf._kernels_taking(96, 5, 192)
+    names = kernels_taking(X, W)
     assert {c for v, c in names if v == "resident"} == {1, 2, 4, 8}
     assert ("streamed", 1) in names
     for steps in (1, 10, 0):
@@ -166,7 +191,39 @@ def test_shared_x_equals_identical_lanes_bitwise(cuda_device):
     X, W, H = per_lane_problem(cuda_device)
     shared = X[0].contiguous()
     copies = shared.expand_as(X).contiguous()
-    for variant, cluster in cuda_klnmf._kernels_taking(96, 5, 192):
+    for variant, cluster in kernels_taking(X, W):
+        one = cuda_klnmf._fused_mu_block_variant(shared, W, H, 10, variant,
+                                                 cluster)
+        lanes = cuda_klnmf._fused_mu_block_variant(copies, W, H, 10,
+                                                   variant, cluster)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(one, lanes))
+
+
+@pytest.mark.cuda
+def test_per_lane_x_at_cohort_size_matches_plain_on_card(cuda_device):
+    """X (R, V, D) of 10 lanes of 96 x 20,000 Poisson counts, K = 5 (a
+    cell 7b rank group at a tenth of its samples): the streamed kernel at
+    each split against the plain version, and a per-lane X whose lanes
+    copy one X bit-equal to the shared-X launch."""
+    rng = np.random.default_rng(7)
+    X0, W, H = make_problem(96, 5, 20000, 10, seed=7)
+    X = np.clip(rng.poisson(X0, (10,) + X0.shape), EPSILON, None)
+    X, W, H = (torch.from_numpy(np.ascontiguousarray(a, np.float32))
+               .to(cuda_device) for a in (X, W, H))
+    names = kernels_taking(X, W)
+    assert cuda_klnmf.launch_plan(X, W).variant == "streamed"
+    for steps in (1, 10):
+        W_r, H_r = cuda_klnmf.fused_mu_block_reference(X, W, H, steps)
+        for variant, cluster in names:
+            W_k, H_k = cuda_klnmf._fused_mu_block_variant(
+                X, W, H, steps, variant, cluster)
+            torch.cuda.synchronize()
+            assert_kernel_close(W_k, W_r)
+            assert_kernel_close(H_k, H_r)
+    shared = X[0].contiguous()
+    copies = shared.expand_as(X).contiguous()
+    for variant, cluster in names:
         one = cuda_klnmf._fused_mu_block_variant(shared, W, H, 10, variant,
                                                  cluster)
         lanes = cuda_klnmf._fused_mu_block_variant(copies, W, H, 10,

@@ -163,10 +163,12 @@ def test_routing_decides_before_launch(case, reason):
 
 
 def test_shared_bytes_bound():
-    # PCAWG SBS at K=5 and the largest rank both fit; the bound is on V
-    assert cuda_klnmf.shared_bytes(96, 5) < 48 * 1024
-    assert cuda_klnmf.shared_bytes(96, cuda_klnmf.K_MAX) < 232448
-    assert cuda_klnmf.shared_bytes(4096, 3) > 232448
+    # the 96 x 10,000 cohort at K=5 and at the largest rank both fit, one
+    # lane a CTA; the bound is on V (two tile slots of V rows)
+    assert 0 < cuda_klnmf.shared_bytes(96, 5, 10000, 1) <= 232448
+    assert 0 < cuda_klnmf.shared_bytes(96, cuda_klnmf.K_MAX, 10000, 1) \
+        <= 232448
+    assert cuda_klnmf.shared_bytes(4096, 3, 10000, 1) == 0
     # the resident kernel holds PCAWG SBS's X (72 KiB) with W and H
     assert 96 * 192 * 4 < cuda_klnmf.resident_shared_bytes(96, 5, 192, 1) \
         <= 232448
@@ -181,8 +183,8 @@ H100_SMS = 132
     (40, 96, 5, 192, "resident", 2),
     (20, 96, 10, 192, "resident", 4),    # the rank scan's lanes
     (1, 96, 5, 100, "resident", 4),      # >= 16 samples a CTA caps C at 4
-    (20, 96, 10, 10000, "streamed", 1),  # X does not fit: the streamed one
-    (100, 96, 32, 192, "streamed", 1),
+    (20, 96, 10, 10000, "streamed", 6),  # X does not fit: streamed, 6 CTAs
+    (100, 96, 32, 192, "streamed", 1),   # a lane each: 100 lanes fill it
     (1, 4096, 3, 20, None, 1),           # neither kernel takes V=4096
     (1, 96, 33, 192, None, 1),           # K above K_MAX
 ])
@@ -194,7 +196,7 @@ def test_launch_plan(R, V, K, D, variant, cluster):
         assert plan.shared_bytes == cuda_klnmf.resident_shared_bytes(
             V, K, D, cluster)
     elif variant == "streamed":
-        assert plan.shared_bytes == cuda_klnmf.shared_bytes(V, K)
+        assert plan.shared_bytes == cuda_klnmf.shared_bytes(V, K, D, cluster)
 
 
 @pytest.mark.parametrize("K", [1, 5, 8, 9, 16, 17, 32])
@@ -211,3 +213,52 @@ def test_every_planned_launch_fits_shared_memory(K):
         # support does not depend on the SM count
         assert (cuda_klnmf.plan_launch(R, V, K, D, 1).variant is None) == \
             (plan.variant is None)
+
+
+COHORT_PLANS = (
+    [(100, K, 10000) for K in range(2, 21)]   # cell 5: k=2..20 x 100
+    + [(20, K, 10000) for K in (5, 10, 20)]   # the scan at 20 restarts
+    + [(1, K, 10000) for K in (5, 8, 20, 32)]  # one cohort fit
+    + [(1, 5, 200000), (10, 5, 200000),       # cell 7b: a lane, a group
+       (4, 5, 9999), (1, 5, 9999)])           # no 16-byte rows
+
+
+@pytest.mark.parametrize("R, K, D", COHORT_PLANS)
+def test_cohort_launch_plan(R, K, D):
+    """At cohort size every lane takes the streamed kernel, split over S
+    CTAs: S > 1 where the lanes are too few to fill the card, R * S never
+    above the SM count the plan assumes, every CTA owning samples, and the
+    plan on one SM the same kernel at S = 1."""
+    plan = cuda_klnmf.plan_launch(R, 96, K, D, H100_SMS)
+    assert plan.variant == "streamed"
+    S = plan.cluster
+    assert S >= 1 and (S == 1 or R * S <= H100_SMS)
+    if R <= H100_SMS // 2:
+        assert S > 1
+    layout = cuda_klnmf.streamed_layout(96, K, D, S)
+    assert layout is not None and plan.shared_bytes == layout[0] <= 232448
+    _, dc, stages = layout
+    assert dc % cuda_klnmf.stream_tile(K) == 0 and (S - 1) * dc < D <= S * dc
+    assert stages in (0, 2, 3)
+    single = cuda_klnmf.plan_launch(R, 96, K, D, 1)
+    assert (single.variant, single.cluster) == ("streamed", 1)
+    assert any(name == ("streamed", S) for name in
+               cuda_klnmf._kernels_taking(R, 96, K, D, H100_SMS))
+
+
+def test_plain_block_matches_pallas_where_the_resident_kernel_cannot():
+    """(R, V, K, D) = (2, 96, 5, 2,500), float64: a lane the resident kernel
+    does not hold (the streamed kernel's shapes), the plain block against
+    the Pallas block under vmap, 3 steps. The Pallas dots accumulate in
+    float32 (preferred_element_type), hence rtol 1e-5."""
+    assert cuda_klnmf.plan_launch(2, 96, 5, 2500, H100_SMS).variant == \
+        "streamed"
+    X, W, H = (a.astype(np.float64) for a in make_problem(96, 5, 2500, R=2))
+    vmapped = jax.vmap(lambda w, h: pallas_mu_block(X, w, h, 3,
+                                                    interpret=True))
+    W_pl, H_pl = vmapped(W, H)
+    W_t, H_t = cuda_klnmf.fused_mu_block(torch.from_numpy(X),
+                                         torch.from_numpy(W),
+                                         torch.from_numpy(H), 3)
+    np.testing.assert_allclose(W_t.numpy(), np.asarray(W_pl), rtol=1e-5)
+    np.testing.assert_allclose(H_t.numpy(), np.asarray(H_pl), rtol=1e-5)
