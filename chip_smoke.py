@@ -24,19 +24,27 @@ check raises, so the script exits non-zero and prints no result):
    Then the cohort shapes: suite config5's 96 x 10,000 catalog at (K, R) =
    (5, 100), (20, 100), (10, 20), (8, 1) and one rank group of cell 7b (10
    lanes, one resample each of 96 x 200,000, K=5), every split against the
-   plain version, the planned streamed kernel and the plain block timed in
-   turns beside the bound (at R=1 also the plan's split against 8 CTAs a
-   lane); D = 9,999 (no 16-byte rows) for correctness.
+   plain version run in float64 (the float32 plain version's errors
+   printed beside), the planned streamed kernel and the plain block timed
+   in turns beside the bound (at R=1 also the plan's split against 8 CTAs
+   a lane); D = 9,999 (no 16-byte rows) for correctness.
 4. the main path: KLNMF(n_signatures=5).fit(adata) on PCAWG SBS, float32
-   on the card, which must run through the kernel; the same fit again from
-   the same init with the plain block must agree.
+   on the card, which must run through the kernel and replay CUDA graphs
+   (the engine's spans); the fit with graphed and with eager spans in
+   turns (g, e, e, g), ms of wall a block, equal iterations; the same fit
+   again from the same init with the plain block must agree.
 5. the multi-start headline: fit_klnmf_restarts R=100, k=5 over a fixed
    5,000-iteration window; the best loss must be within 1e-4 of 20414.
-   Aggregate MU iterations/s of the kernel and the plain path, best of 3.
+   Aggregate MU iterations/s of the kernel with graphed and with eager
+   spans in turns, and of the plain path, best of 3; the device busy share
+   (torch.profiler) of each span mode with its kernels a block; then the
+   engine's span swept over 4, 8, 16, 32 in turns: ms of wall a block of
+   the headline and of KLNMF(5).fit's loop.
 6. the README quick start: fit_best_of(KLNMF(5, init_method="random"),
-   PCAWG SBS, n_restarts=100, base_seed=0), compacted and monolithic in
-   turns (walls printed); both launch the kernel, their best losses agree
-   at rtol 1e-4, and so does the same lanes' plain-block run from the same
+   PCAWG SBS, n_restarts=100, base_seed=0), compacted and monolithic, each
+   with graphed and eager spans, in turns (walls printed); all launch the
+   kernel, the graphed runs replay graphs, their best losses agree at rtol
+   1e-4, and so does the same lanes' plain-block run from the same
    params0.
 7. MvNMF(n_signatures=5).fit in float32 must stop below the 10,000 cap
    with finite, column-normalized signatures (line-search evaluations per
@@ -63,10 +71,11 @@ check raises, so the script exits non-zero and prints no result):
    at rtol 1e-4.
 Phases 9-11 run plain PyTorch ops (neither family reaches the kernel).
 12. extract_signatures(PCAWG SBS, range(2, 11), n_bootstraps=20, seed=0)
-   grouped (each rank's lanes through the kernel with a per-lane X) and
-   padded (one rank-masked batch of plain ops), one run each: walls, lane
-   iterations, launches, suggested rank, min stabilities; each rank's best
-   replicate loss agrees across the layouts at rtol 1e-4.
+   grouped (each rank's lanes through the kernel with a per-lane X) with
+   graphed and eager spans in turns (g, e, e, g), and padded (one
+   rank-masked batch of plain ops) once: walls, lane iterations, launches,
+   graph replays, suggested rank, min stabilities; each rank's best
+   replicate loss agrees across the layouts and span modes at rtol 1e-4.
 13. assign_exposures and assign_signatures(rel_tol=0.02) of PCAWG SBS
    against COSMIC-79 (fails on any sample over the reported budget), then
    decompose_signatures of phase 12's rank-5 consensus.
@@ -166,7 +175,8 @@ Phases 9-11 run plain PyTorch ops (neither family reaches the kernel).
    to be streamed): (a) KLNMF(8).fit on suite config5's 96 x 10,000
    catalog (one lane split over S > 1 CTAs) against the same fit through
    the plain block from the same init (KL rtol 1e-4, iterations within
-   5%), ms of wall a block against the kernel's; (b) cell 5 at six of its
+   5%), ms of wall a block against the kernel's, graphed and eager spans
+   in turns (g, e, e, g); (b) cell 5 at six of its
    19 ranks: rank_scan_klnmf(96 x 10,000, (2, 5, 8, 12, 16, 20), 100,
    seed=0, FitConfig(200, 2000, 10, 1e-7)) in the card's default layout: wall,
    lane iterations, launches by kernel; ranks 2, 8 and 20 hold their best
@@ -174,11 +184,16 @@ Phases 9-11 run plain PyTorch ops (neither family reaches the kernel).
    same starts; (c) one rank group of cell 7b (rank 5, 10 lanes, one
    resample each of synthetic_catalog(96, 200,000, 5, seed=0)) over a
    fixed 200-iteration window, kernel against plain block from one init:
-   final losses within 1e-4.
+   final losses within 1e-4; the kernel's run with graphed and eager spans
+   in turns (g, e, e, g), then twice with an empty_cache before each
+   capture (what torch.cuda.graph does).
 
 Each of phases 4-19 runs with the kernel's launch counts (in all, by
-kernel and by shared or per-lane X) set to 0 just before it and read just
-after. The last two lines are the per-kernel JSON
+kernel and by shared or per-lane X) and the engine's CUDA graph counts
+(captures, replays) set to 0 just before it and read just after: every
+kernel path of phases 4-6, 8, 12, 14, 17 (fit, scan, extract), 18 and 19
+replays graphs, every plain-op and sample-sharded path none. A replay
+counts the launches its graph holds. The last two lines are the per-kernel JSON
 record and
 {"ok": true, "device": {...}}; the card's name and power limit precede
 them.
@@ -190,6 +205,7 @@ import json
 import subprocess
 import sys
 import time
+from contextlib import contextmanager, nullcontext
 from importlib import metadata, util
 from pathlib import Path
 
@@ -431,11 +447,14 @@ def kernel_label(variant: str, cluster: int) -> str:
 
 
 def hold_kernel(torch, cuda_klnmf, X, W, H, steps, variant, cluster,
-                reference, label):
+                reference, label, exact=None):
     """One kernel ("planned": the one fused_mu_block plans) against the
     plain version's (W, H) `reference` at rtol 2e-4 (atol 1e-6 x
     max|plain| per tensor): prints the errors, returns the largest
-    absolute one."""
+    absolute one against `reference`. With `exact`, the plain version run
+    in float64, the kernel is held against that instead, at the same
+    tolerance, and the relative errors of the kernel and of the float32
+    plain version against it are printed beside."""
     if variant == "planned":
         plan = cuda_klnmf.launch_plan(X, W)
         which = f"planned {kernel_label(plan.variant, plan.cluster)}"
@@ -446,15 +465,24 @@ def hold_kernel(torch, cuda_klnmf, X, W, H, steps, variant, cluster,
                                                       variant, cluster)
     torch.cuda.synchronize()
     largest, errors = 0.0, []
-    for name, actual, expected in zip("WH", (W_k, H_k), reference):
+    for name, actual, expected, truth in zip(
+            "WH", (W_k, H_k), reference, exact or (None, None)):
         check(bool(torch.isfinite(actual).all()),
               f"{label}: non-finite kernel {name}")
-        torch.testing.assert_close(actual, expected, rtol=KERNEL_RTOL,
-                                   atol=1e-6 * float(expected.abs().max()))
+        target = expected if truth is None else truth
+        torch.testing.assert_close(actual.to(target.dtype), target,
+                                   rtol=KERNEL_RTOL,
+                                   atol=1e-6 * float(target.abs().max()))
         error = float((actual - expected).abs().max())
         relative = float(((actual - expected).abs() / expected.abs()).max())
         largest = max(largest, error)
         errors.append(f"{name} abs {error:.3e} rel {relative:.3e}")
+        if truth is not None:
+            kernel_rel, plain_rel = (
+                float(((x.double() - truth).abs() / truth.abs()).max())
+                for x in (actual, expected))
+            errors[-1] += (f" (against float64: kernel rel {kernel_rel:.3e}, "
+                           f"float32 plain rel {plain_rel:.3e})")
     print(f"[3] {label} steps={steps} {which}: max err {'; '.join(errors)}")
     return largest
 
@@ -474,7 +502,9 @@ def cohort_7b_lanes(torch, datasets):
 
 def phase_kernel_cohort(torch, cuda_klnmf, datasets, synthetic,
                         random_init_batch, timings):
-    """The streamed kernel at cohort size against the plain version: the
+    """The streamed kernel at cohort size against the plain version run in
+    float64 (the float32 plain block's own error at these D is near the
+    tolerance; its errors are printed beside): the
     96 x 10,000 catalog (suite config5) at (K, R) = (5, 100), (20, 100),
     (10, 20) and (8, 1), and cell 7b's rank group (10 lanes, one X each of
     96 x 200,000, K = 5), at every split _kernels_taking names, then the
@@ -501,12 +531,14 @@ def phase_kernel_cohort(torch, cuda_klnmf, datasets, synthetic,
         label = (f"cohort {'per-lane ' if per_lane else ''}V={V} D={D} "
                  f"K={K} R={R}")
         reference = cuda_klnmf.fused_mu_block_reference(X, W, H, BLOCK)
+        exact = cuda_klnmf.fused_mu_block_reference(X.double(), W.double(),
+                                                    H.double(), BLOCK)
         for variant, cluster in [("planned", plan.cluster)] + \
                 cuda_klnmf._kernels_taking(R, V, K, D, n_sms):
             max_abs_err = max(max_abs_err, hold_kernel(
                 torch, cuda_klnmf, X, W, H, BLOCK, variant, cluster,
-                reference, label))
-        del reference
+                reference, label, exact=exact))
+        del reference, exact
         if D == 9999:
             continue
         repeats = 3 if per_lane else 10
@@ -653,26 +685,80 @@ def phase_kernel_per_lane_x(torch, cuda_klnmf, counts_host):
     }
 
 
-def phase_main_path(sal, cuda_klnmf):
+def eager_spans():
+    """A context in which every span of the engine runs eagerly, the
+    kernel route's too (engine.fit._eager_spans)."""
+    from salamander_tpu_torch.engine.fit import _eager_spans
+
+    return _eager_spans()
+
+
+def span_line(tag: str, label: str, blocks: int, walls: dict) -> str:
+    """One line: ms of wall a block of a path run with graphed and with
+    eager spans in turns (walls: {"graphed": [s], "eager": [s]})."""
+    from salamander_tpu_torch.engine.fit import SPAN
+
+    def per_block(name):
+        return ", ".join(f"{1000 * s / blocks:.4f}" for s in walls[name])
+
+    return (f"[{tag}] {label}, span {SPAN}: ms of wall a block graphed "
+            f"{per_block('graphed')}, eager {per_block('eager')} (in turns "
+            f"g, e, e, g; {blocks} blocks); graphed at "
+            f"{min(walls['eager']) / min(walls['graphed']):.2f}x the eager "
+            "speed")
+
+
+def fit_in_turns(torch, fit, first_seconds: float):
+    """A fit run once with graphed spans already (first_seconds), then
+    eager, eager, graphed: (walls, the results of the eager fits)."""
+    walls = {"graphed": [first_seconds], "eager": []}
+    results = []
+    for how in ("eager", "eager", "graphed"):
+        if how == "eager":
+            with eager_spans():
+                result, seconds = timed(torch, fit)
+            results.append(result)
+        else:
+            result, seconds = timed(torch, fit)
+        walls[how].append(seconds)
+    return walls, results
+
+
+def phase_main_path(torch, sal, cuda_klnmf):
     from salamander_tpu_torch.engine import fit_loop
     from salamander_tpu_torch.models.signature_nmf import promote_objective
 
     def adata():
         return sal.AnnData(sal.datasets.load_pcawg_sbs())
 
+    def fit():
+        model = sal.KLNMF(n_signatures=5, device="cuda", dtype="float32")
+        return model.fit(adata())
+
     launches = cuda_klnmf.fused_mu_block.launches
-    model = sal.KLNMF(n_signatures=5, device="cuda", dtype="float32")
-    start = time.perf_counter()
-    model.fit(adata())
-    seconds = time.perf_counter() - start
+    model, seconds = timed(torch, fit)
+    graphs = graphs_now()
     n_iterations = model.history["n_iterations"]
     final = float(model.history["objective_function"][-1])
     fit_launches = cuda_klnmf.fused_mu_block.launches - launches
     W = model.asignatures.X
     print(f"[4] KLNMF(n_signatures=5).fit: {n_iterations} iterations, "
           f"final KL {final:.4f}, {seconds:.3f} s, {fit_launches} kernel "
-          "launches")
+          f"launches, CUDA graphs captured {graphs['captures']}, replayed "
+          f"{graphs['replays']}")
     check(fit_launches > 0, "the fit did not launch the kernel")
+    check(graphs["replays"] > 0, "the fit replayed no CUDA graph")
+    walls, eager = fit_in_turns(torch, fit, seconds)
+    print(span_line("4", "KLNMF(5).fit", n_iterations // BLOCK, walls))
+    same = all(other.history["n_iterations"] == n_iterations
+               and other.history["objective_function"]
+               == model.history["objective_function"]
+               and np.array_equal(other.asignatures.X, W) for other in eager)
+    print(f"[4] graphed and eager fits bit-equal (iterations, history, "
+          f"signatures): {same}")
+    check(all(other.history["n_iterations"] == n_iterations
+              for other in eager),
+          "graphed and eager spans stop the fit at other iterations")
     check(n_iterations < 10000, "the fit ran into the iteration cap")
     check(W.shape == (5, 96) and model.adata.obsm["exposures"].shape
           == (192, 5), "fitted shapes")
@@ -740,30 +826,100 @@ def phase_headline(torch, sal, cuda_klnmf, random_init_batch, X_host):
         losses = objective_fn(result.params, data)
         return losses.cpu().numpy(), result.n_iterations.cpu().numpy()
 
-    rates, best = {}, {}
-    for name, run in (("kernel", kernel_run), ("plain", plain_run)):
-        seconds = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            losses, n_iterations = run()
-            torch.cuda.synchronize()
-            seconds.append(time.perf_counter() - start)
+    def eager_run():
+        with eager_spans():
+            return kernel_run()
+
+    runs = {"kernel": kernel_run, "kernel, eager spans": eager_run,
+            "plain": plain_run}
+    seconds = {name: [] for name in runs}
+    losses_of, rates, best = {}, {}, {}
+    # the kernel with graphed and eager spans in turns, then the plain path
+    for name in ("kernel", "kernel, eager spans", "kernel, eager spans",
+                 "kernel", "kernel", "kernel, eager spans", "plain",
+                 "plain", "plain"):
+        if name == "kernel":
+            reset_graphs = graphs_now()["replays"]
+        (losses, n_iterations), wall = timed(torch, runs[name])
+        if name == "kernel":
+            check(graphs_now()["replays"] > reset_graphs,
+                  "the headline replayed no CUDA graph")
+        seconds[name].append(wall)
+        losses_of[name] = losses
         check(bool(np.isfinite(losses).all()), f"{name}: non-finite losses")
         check(bool((n_iterations == WINDOW).all()),
               f"{name}: every lane runs the {WINDOW}-iteration window")
-        best[name] = float(np.min(losses))
-        rates[name] = R * WINDOW / min(seconds)
-        print(f"[5] {name} path: best-of-{R} KL {best[name]:.4f}, "
-              f"{min(seconds):.4f} s best of 3 "
-              f"({', '.join(f'{s:.4f}' for s in seconds)}), "
-              f"{rates[name]:.1f} aggregate MU it/s")
+    for name in runs:
+        best[name] = float(np.min(losses_of[name]))
+        rates[name] = R * WINDOW / min(seconds[name])
+        print(f"[5] {name}: best-of-{R} KL {best[name]:.4f}, "
+              f"{min(seconds[name]):.4f} s best of 3 "
+              f"({', '.join(f'{s:.4f}' for s in seconds[name])}), "
+              f"{rates[name]:.1f} aggregate MU it/s, "
+              f"{1000 * min(seconds[name]) / (WINDOW // BLOCK):.4f} ms of "
+              "wall a block")
     check(abs(best["kernel"] - SBS_BEST_OF_100)
           <= FIT_RTOL * SBS_BEST_OF_100,
           f"best-of-100 loss {best['kernel']} not within 1e-4 of 20414")
     check(abs(best["kernel"] - best["plain"]) <= FIT_RTOL * best["plain"],
           "kernel and plain best-of-100 losses differ")
+    check_best_agree("[5] graphed vs eager spans", best["kernel"],
+                     best["kernel, eager spans"])
+    same = np.array_equal(losses_of["kernel"],
+                          losses_of["kernel, eager spans"])
+    print(f"[5] graphed and eager spans: losses bit-equal {same}")
+    blocks = WINDOW // BLOCK
+    for label, run in (("graphed", kernel_run), ("eager", eager_run)):
+        print_busy("5", f"headline, {label} spans", device_busy(
+            torch, run, blocks), unit="block")
+    phase_span_sweep(torch, sal, kernel_run)
     return rates
+
+
+SWEEP_SPANS = (4, 8, 16, 32)  # the spans engine.fit.SPAN was chosen from
+
+
+def phase_span_sweep(torch, sal, headline_run):
+    """The span of engine.fit timed at each of SWEEP_SPANS in turns (4, 8,
+    16, 32, 32, 16, 8, 4): ms of wall a block of the headline and of
+    KLNMF(5).fit's loop from the model's own state (capture included);
+    the fit stops at the same iteration at every span."""
+    from salamander_tpu_torch.engine import fit as engine_fit
+    from salamander_tpu_torch.engine import make_fit_function
+    from salamander_tpu_torch.models.signature_nmf import promote_objective
+
+    model = sal.KLNMF(n_signatures=5, device="cuda", dtype="float32")
+    model._setup_adata(sbs_adata(sal))
+    model._initialize()
+    model._setup_fitting_parameters()
+    params0, data = model._device_state()
+    update_fn, objective_fn = model._build_step()
+    run_fit = make_fit_function(
+        update_fn, promote_objective(objective_fn, params0),
+        model._fit_config(),
+        block_update_fn=model._block_update_fn(params0, data))
+    chosen = engine_fit.SPAN
+    times = {span: {"headline": [], "fit": []} for span in SWEEP_SPANS}
+    iterations = set()
+    try:
+        for span in SWEEP_SPANS + SWEEP_SPANS[::-1]:
+            engine_fit.SPAN = span
+            _, wall = timed(torch, headline_run)
+            times[span]["headline"].append(1000 * wall / (WINDOW // BLOCK))
+            result, wall = timed(torch, lambda: run_fit(params0, data))
+            iterations.add(result.n_iterations)
+            times[span]["fit"].append(1000 * wall * BLOCK
+                                      / result.n_iterations)
+    finally:
+        engine_fit.SPAN = chosen
+    for span, entry in times.items():
+        mark = " (engine.fit.SPAN)" if span == chosen else ""
+        print(f"[5] span {span}{mark}: ms of wall a block, headline "
+              f"{', '.join(f'{t:.4f}' for t in entry['headline'])}, "
+              f"KLNMF(5).fit {', '.join(f'{t:.4f}' for t in entry['fit'])} "
+              "(in turns 4, 8, 16, 32, 32, 16, 8, 4)")
+    check(len(iterations) == 1,
+          f"KLNMF(5).fit stops at {sorted(iterations)} across the spans")
 
 
 def timed(torch, fn):
@@ -796,25 +952,48 @@ def phase_quickstart(torch, sal, cuda_klnmf):
         return sal.KLNMF(n_signatures=5, init_method="random",
                          device="cuda", dtype="float32")
 
-    walls = {True: [], False: []}
-    best = {}
-    for compact in (True, False, False, True):
+    walls = {(compact, how): [] for compact in (True, False)
+             for how in ("graphed", "eager")}
+    best, losses = {}, {}
+    for compact, how in ((True, "graphed"), (True, "eager"),
+                         (False, "graphed"), (False, "eager"),
+                         (False, "eager"), (False, "graphed"),
+                         (True, "eager"), (True, "graphed")):
         before = cuda_klnmf.fused_mu_block.launches
-        summary, seconds = timed(torch, lambda: sal.fit_best_of(
-            model(), sbs_adata(sal), n_restarts=100, base_seed=0,
-            compact=compact))
+        replays = graphs_now()["replays"]
+
+        def run():
+            return sal.fit_best_of(model(), sbs_adata(sal), n_restarts=100,
+                                   base_seed=0, compact=compact)
+
+        if how == "eager":
+            with eager_spans():
+                summary, seconds = timed(torch, run)
+        else:
+            summary, seconds = timed(torch, run)
         launches = cuda_klnmf.fused_mu_block.launches - before
+        replays = graphs_now()["replays"] - replays
         check(launches > 0, f"fit_best_of(compact={compact}) launched no "
               "kernel")
+        check((replays > 0) == (how == "graphed"),
+              f"fit_best_of(compact={compact}, {how} spans): {replays} "
+              "graph replays")
         check(bool(np.isfinite(summary.losses).all()), "non-finite losses")
-        walls[compact].append(seconds)
+        walls[compact, how].append(seconds)
         best[compact] = float(summary.losses.min())
-        print(f"[6] fit_best_of(KLNMF(5), R=100, compact={compact}): "
-              f"{seconds:.4f} s, best KL {best[compact]:.4f}, iterations "
-              f"{summary.n_iterations.min()}..{summary.n_iterations.max()} "
-              f"(mean {summary.n_iterations.mean():.1f}), {launches} "
-              "kernel launches")
+        losses[compact, how] = summary.losses
+        print(f"[6] fit_best_of(KLNMF(5), R=100, compact={compact}, {how} "
+              f"spans): {seconds:.4f} s, best KL {best[compact]:.4f}, "
+              f"iterations {summary.n_iterations.min()}.."
+              f"{summary.n_iterations.max()} (mean "
+              f"{summary.n_iterations.mean():.1f}), {launches} kernel "
+              f"launches, {replays} graph replays")
     check_best_agree("[6] compacted vs monolithic", best[True], best[False])
+    for compact in (True, False):
+        same = np.array_equal(losses[compact, "graphed"],
+                              losses[compact, "eager"])
+        print(f"[6] compact={compact}: graphed and eager losses bit-equal "
+              f"{same}")
 
     reference = model()
     reference._setup_adata(sbs_adata(sal))
@@ -837,8 +1016,9 @@ def phase_quickstart(torch, sal, cuda_klnmf):
     print(f"[6] the same lanes, plain block: {seconds:.4f} s, best KL "
           f"{plain_best:.4f}")
     check_best_agree("[6] kernel vs plain", best[False], plain_best)
-    print(f"[6] walls: compacted {', '.join(f'{s:.4f}' for s in walls[True])}"
-          f" s; monolithic {', '.join(f'{s:.4f}' for s in walls[False])} s")
+    print("[6] walls: " + "; ".join(
+        f"compact={compact} {how} {', '.join(f'{s:.4f}' for s in runs)} s"
+        for (compact, how), runs in walls.items()))
 
 
 def phase_mvnmf(torch, sal):
@@ -1107,51 +1287,81 @@ def per_lane_launches(cuda_klnmf) -> int:
 def phase_extraction(torch, sal, cuda_klnmf):
     """Cell 7: extract_signatures(PCAWG SBS, range(2, 11), n_bootstraps=20,
     seed=0) in the grouped layout (each rank's lanes through the kernel
-    with a per-lane X) and the padded one (one rank-masked batch of plain
-    ops), one run each; each rank's best replicate loss agrees across them
-    at rtol 1e-4. Returns the grouped run's result."""
+    with a per-lane X), with graphed and eager spans in turns (g, e, e, g),
+    and the padded one (one rank-masked batch of plain ops), one run; each
+    rank's best replicate loss agrees across them at rtol 1e-4. Returns the
+    first grouped run's result and its kernel launches."""
     from salamander_tpu_torch import extraction
 
     data = sal.datasets.load_pcawg_sbs()
     choose = extraction._choose_layout
-    results, walls = {}, {"grouped": [], "padded": []}
-    for layout in ("grouped", "padded"):  # one run each
+    results, walls = {}, {"grouped graphed": [], "grouped eager": [],
+                          "padded": []}
+    run_launches = {}
+    for layout, how in (("grouped", "graphed"), ("grouped", "eager"),
+                        ("grouped", "eager"), ("grouped", "graphed"),
+                        ("padded", "graphed")):
         if layout == "padded":
             extraction._choose_layout = lambda *args: "padded"
         launches, per_lane = (cuda_klnmf.fused_mu_block.launches,
                               per_lane_launches(cuda_klnmf))
+        replays = graphs_now()["replays"]
         try:
-            result, seconds = timed(torch, lambda: sal.extract_signatures(
-                data, range(2, 11), n_bootstraps=20, seed=0, device="cuda"))
+            with eager_spans() if how == "eager" else nullcontext():
+                result, seconds = timed(torch, lambda: sal.extract_signatures(
+                    data, range(2, 11), n_bootstraps=20, seed=0,
+                    device="cuda"))
         finally:
             extraction._choose_layout = choose
         launches = cuda_klnmf.fused_mu_block.launches - launches
         per_lane = per_lane_launches(cuda_klnmf) - per_lane
+        replays = graphs_now()["replays"] - replays
         check(result.layout == layout, f"ran {result.layout}, not {layout}")
         if layout == "grouped":
             check(launches > 0 and per_lane == launches,
                   "the grouped extraction did not launch the kernel with a "
                   "per-lane X")
+            check((replays > 0) == (how == "graphed"),
+                  f"the grouped extraction, {how} spans: {replays} graph "
+                  "replays")
         else:
-            check(launches == 0, "the padded extraction has no kernel")
+            check(launches == 0 and replays == 0,
+                  "the padded extraction has no kernel")
         table = result.table
         check(bool(np.isfinite(table.to_numpy()).all()),
               "non-finite extraction table")
         iterations = np.concatenate(list(
             result.replicate_iterations.values()))
-        walls[layout].append(seconds)
-        results[layout] = result
-        print(f"[12] extract_signatures(PCAWG SBS, k=2..10, B=20) {layout}: "
+        name = layout if layout == "padded" else f"{layout} {how}"
+        walls[name].append(seconds)
+        print(f"[12] extract_signatures(PCAWG SBS, k=2..10, B=20) {name}: "
               f"{seconds:.3f} s, {launches} kernel launches ({per_lane} with "
-              f"a per-lane X), lane iterations {iterations.min()}.."
-              f"{iterations.max()} (sum {iterations.sum()}), suggested rank "
-              f"{result.suggested_rank}")
-        print(f"[12] {layout} min stability per rank: " + ", ".join(
+              f"a per-lane X), {replays} graph replays, lane iterations "
+              f"{iterations.min()}..{iterations.max()} (sum "
+              f"{iterations.sum()}), suggested rank {result.suggested_rank}")
+        run_launches.setdefault(name, launches)
+        if name in results:
+            same = all(np.array_equal(result.replicate_losses[k], losses)
+                       for k, losses in results[name].replicate_losses.items())
+            print(f"[12] {name} again: replicate losses bit-equal to its "
+                  f"first run {same}")
+            continue
+        results[name] = result
+        print(f"[12] {name} min stability per rank: " + ", ".join(
             f"{k}:{s:.4f}" for k, s in table["min_stability"].items()))
-        print(f"[12] {layout} best replicate loss per rank: " + ", ".join(
+        print(f"[12] {name} best replicate loss per rank: " + ", ".join(
             f"{k}:{losses.min():.3f}"
             for k, losses in result.replicate_losses.items()))
-    grouped, padded = results["grouped"], results["padded"]
+    grouped, padded = results["grouped graphed"], results["padded"]
+    eager = results["grouped eager"]
+    print("[12] grouped, graphed and eager spans: replicate losses "
+          "bit-equal " + str(all(
+              np.array_equal(grouped.replicate_losses[k], losses)
+              for k, losses in eager.replicate_losses.items())))
+    for k in grouped.replicate_losses:
+        check_best_agree(f"[12] k={k} grouped graphed vs eager",
+                         float(grouped.replicate_losses[k].min()),
+                         float(eager.replicate_losses[k].min()))
     for k in grouped.replicate_losses:
         check_best_agree(f"[12] k={k} grouped vs padded",
                          float(grouped.replicate_losses[k].min()),
@@ -1159,7 +1369,7 @@ def phase_extraction(torch, sal, cuda_klnmf):
     print("[12] walls: " + "; ".join(
         f"{name} {', '.join(f'{s:.3f}' for s in walls[name])} s"
         for name in walls))
-    return grouped
+    return grouped, run_launches["grouped graphed"]
 
 
 def phase_assignment(torch, sal, consensus):
@@ -2209,10 +2419,22 @@ def headline_config():
 
 
 def reset_counts(kernel) -> None:
+    """Set the kernel's launch counts and the engine's graph counts to 0."""
+    from salamander_tpu_torch.engine import graph_counts
+
     kernel.launches = 0
-    for counts in (kernel.launches_by_variant, kernel.launches_by_x):
+    for counts in (kernel.launches_by_variant, kernel.launches_by_x,
+                   graph_counts):
         for key in counts:
             counts[key] = 0
+
+
+def graphs_now() -> dict:
+    """The engine's CUDA graph counts (captures, replays) since the last
+    reset_counts."""
+    from salamander_tpu_torch.engine import graph_counts
+
+    return dict(graph_counts)
 
 
 def plain_fit(sal, device: str = "cuda"):
@@ -2414,7 +2636,8 @@ def run_sample_paths(torch, sal, mesh, kernel) -> dict:
                               collectives=collectives[0],
                               launches=kernel.launches,
                               by_variant=dict(kernel.launches_by_variant),
-                              by_x=dict(kernel.launches_by_x))
+                              by_x=dict(kernel.launches_by_x),
+                              graphs=graphs_now())
     finally:
         dist.all_reduce = all_reduce
     return runs
@@ -2439,9 +2662,9 @@ def check_sample_paths(torch, sal, reports, counts) -> None:
         for report in reports:
             entry = report["1x2 paths"][name]
             rank = report["rank"]
-            check(entry["launches"] == 0,
+            check(entry["launches"] == 0 and entry["graphs"]["replays"] == 0,
                   f"rank {rank}: the sample-sharded {name} launched the "
-                  "kernel")
+                  "kernel or replayed a graph")
             check(len(entry["trace"]) == len(plain["trace"])
                   and bool(np.allclose(entry["trace"], plain["trace"],
                                        rtol=MESH_RTOL, atol=0.0))
@@ -2453,7 +2676,8 @@ def check_sample_paths(torch, sal, reports, counts) -> None:
                       f"rank {rank}: {name} ran {entry['n']}, meshless "
                       f"{plain['n']}")
             counts[f"18b mesh (1, 2) {name} rank {rank}"] = (
-                entry["launches"], entry["by_variant"], entry["by_x"])
+                entry["launches"], entry["by_variant"], entry["by_x"],
+                entry["graphs"])
         entry = ours[0]
         relative = np.max(np.abs(np.asarray(entry["trace"])
                                  - plain["trace"])
@@ -2526,7 +2750,7 @@ def mesh_rank(rank: int, store: str) -> None:
         "shape": list(restarts.shape), "seconds": seconds,
         "launches": kernel.launches,
         "by_variant": dict(kernel.launches_by_variant),
-        "by_x": dict(kernel.launches_by_x),
+        "by_x": dict(kernel.launches_by_x), "graphs": graphs_now(),
         "losses": result.losses.tolist(),
         "n_iterations": result.n_iterations.tolist(),
     }
@@ -2538,7 +2762,7 @@ def mesh_rank(rank: int, store: str) -> None:
     report["2x1 extract"] = {
         "seconds": seconds, "launches": kernel.launches,
         "by_variant": dict(kernel.launches_by_variant),
-        "by_x": dict(kernel.launches_by_x),
+        "by_x": dict(kernel.launches_by_x), "graphs": graphs_now(),
         "layout": extracted.layout,
         "suggested": extracted.suggested_rank,
         "best": {str(k): float(losses.min())
@@ -2556,7 +2780,7 @@ def mesh_rank(rank: int, store: str) -> None:
         "shape": list(samples.shape), "seconds": seconds,
         "launches": kernel.launches,
         "by_variant": dict(kernel.launches_by_variant),
-        "by_x": dict(kernel.launches_by_x),
+        "by_x": dict(kernel.launches_by_x), "graphs": graphs_now(),
         "n_iterations": int(model.history["n_iterations"]),
         "kl": final_kl(model),
         "exposures_shape": list(exposures.shape),
@@ -2679,7 +2903,8 @@ def phase_mesh_ranks(torch, sal, ranks, meshless_losses, grouped):
         for shape, entry in (("(2, 1)", lanes), ("(2, 1) extract", extract),
                              ("(1, 2)", fit)):
             counts[f"18b mesh {shape} rank {rank}"] = (
-                entry["launches"], entry["by_variant"], entry["by_x"])
+                entry["launches"], entry["by_variant"], entry["by_x"],
+                entry["graphs"])
     check(reports[0]["2x1"]["losses"] == reports[1]["2x1"]["losses"]
           and reports[0]["2x1 extract"]["table"]
           == reports[1]["2x1 extract"]["table"]
@@ -2797,9 +3022,13 @@ def phase_cohort_fit(torch, sal, cuda_klnmf, timings):
                                   cuda_klnmf._sm_count(0))
     check(plan.variant == "streamed" and plan.cluster > 1,
           f"one cohort lane plans {plan}")
-    model = sal.KLNMF(n_signatures=8, device="cuda", dtype="float32")
-    _, seconds = timed(torch, lambda: model.fit(adata()))
+    def fit():
+        return sal.KLNMF(n_signatures=8, device="cuda",
+                         dtype="float32").fit(adata())
+
+    model, seconds = timed(torch, fit)
     launches = streamed_only(cuda_klnmf, "19a KLNMF(8).fit")
+    graphs = graphs_now()
     n_iterations = model.history["n_iterations"]
     final = float(model.history["objective_function"][-1])
     W = model.asignatures.X
@@ -2815,10 +3044,17 @@ def phase_cohort_fit(torch, sal, cuda_klnmf, timings):
     kernel_ms = min(timings[("cohort", 8, 1, X.shape[1])]["streamed_ms"])
     print(f"[19] KLNMF(8).fit on 96 x {X.shape[1]:,}: {n_iterations} "
           f"iterations, final KL {final:.4f}, {seconds:.3f} s, {launches} "
-          f"launches, all streamed (S={plan.cluster}); "
+          f"launches, all streamed (S={plan.cluster}), CUDA graphs captured "
+          f"{graphs['captures']}, replayed {graphs['replays']}; "
           f"{1000 * seconds / blocks:.4f} ms of wall a block against "
-          f"{kernel_ms:.4f} ms of kernel (phase 3): the host loop sets the "
-          "rest")
+          f"{kernel_ms:.4f} ms of kernel (phase 3)")
+    check(graphs["replays"] > 0, "19a: the fit replayed no CUDA graph")
+    walls, eager = fit_in_turns(torch, fit, seconds)
+    print(span_line("19", f"KLNMF(8).fit on 96 x {X.shape[1]:,}", blocks,
+                    walls))
+    check(all(other.history["n_iterations"] == n_iterations
+              for other in eager),
+          "19a: graphed and eager spans stop the fit at other iterations")
 
     reference = sal.KLNMF(n_signatures=8, device="cuda", dtype="float32")
     reference._setup_adata(adata())
@@ -2884,6 +3120,25 @@ def phase_cohort_scan(torch, sal, cuda_klnmf):
                          plain.best_loss)
 
 
+@contextmanager
+def emptying_captures(torch):
+    """Every capture of engine.fit's spans begins with
+    torch.cuda.empty_cache(), as torch.cuda.graph's captures do."""
+    from salamander_tpu_torch.engine import fit as engine_fit
+
+    real = engine_fit._Spans._capture
+
+    def capture(self, *args):
+        torch.cuda.empty_cache()
+        real(self, *args)
+
+    engine_fit._Spans._capture = capture
+    try:
+        yield
+    finally:
+        engine_fit._Spans._capture = real
+
+
 def phase_cohort_7b(torch, sal, cuda_klnmf, timings):
     """19c, a cell 7b probe: one rank group (rank 5, 10 lanes, one
     multinomial resample of synthetic_catalog(96, 200,000, 5, seed=0) per
@@ -2907,9 +3162,24 @@ def phase_cohort_7b(torch, sal, cuda_klnmf, timings):
     params0, data = {"W": W0, "H": H0}, {"X": lanes}
     config = FitConfig(200, 200, BLOCK, 1e-7)
     update_fn, objective_fn = make_step_functions()
-    (kernel, kernel_losses), seconds = timed(torch, lambda: lockstep_fit(
-        objective_fn, config, klnmf_block_builder(update_fn), params0, data))
+
+    def kernel_fit():
+        return lockstep_fit(objective_fn, config,
+                            klnmf_block_builder(update_fn), params0, data)
+
+    (kernel, kernel_losses), seconds = timed(torch, kernel_fit)
     launches = streamed_only(cuda_klnmf, "19c cell 7b rank group")
+    walls, eager = fit_in_turns(torch, kernel_fit, seconds)
+    print(span_line("19", "cell 7b rank group", 200 // BLOCK, walls))
+    same = all(torch.equal(kernel_losses, losses) for _, losses in eager)
+    print(f"[19] cell 7b rank group, graphed and eager spans: final losses "
+          f"bit-equal {same}")
+    with emptying_captures(torch):
+        emptied = [timed(torch, kernel_fit)[1] for _ in range(2)]
+    print(f"[19] cell 7b rank group with torch.cuda.graph's empty_cache "
+          f"before each capture: {', '.join(f'{s:.4f}' for s in emptied)} s "
+          f"against {', '.join(f'{s:.4f}' for s in walls['graphed'])} s "
+          "graphed without it")
     (plain, plain_losses), plain_seconds = timed(torch, lambda: lockstep_fit(
         objective_fn, config, plain_block_update, params0, data))
     kernel_losses = kernel_losses.cpu().numpy()
@@ -2952,25 +3222,26 @@ def main() -> int:
                                         random_init_batch)
 
     X_host = datasets.load_pcawg_sbs().to_numpy().T.copy()
-    launches, by_variant, by_x = {}, {}, {}
+    launches, by_variant, by_x, graphs = {}, {}, {}, {}
 
     def drive(path, phase, *args):
-        """Run one path with the launch counts set to 0 just before it and
-        read just after."""
+        """Run one path with the launch counts and the graph counts set to
+        0 just before it and read just after."""
         kernel = cuda_klnmf.fused_mu_block
-        kernel.launches = 0
-        for counts in (kernel.launches_by_variant, kernel.launches_by_x):
-            for key in counts:
-                counts[key] = 0
+        reset_counts(kernel)
         start = time.perf_counter()
         out = phase(*args)
-        print(f"[path] {path}: {time.perf_counter() - start:.1f} s")
+        graphs[path] = graphs_now()
+        print(f"[path] {path}: {time.perf_counter() - start:.1f} s, "
+              f"{kernel.launches} kernel launches, CUDA graphs captured "
+              f"{graphs[path]['captures']}, replayed "
+              f"{graphs[path]['replays']}")
         launches[path] = kernel.launches
         by_variant[path] = dict(kernel.launches_by_variant)
         by_x[path] = dict(kernel.launches_by_x)
         return out
 
-    drive("4 KLNMF.fit", phase_main_path, sal, cuda_klnmf)
+    drive("4 KLNMF.fit", phase_main_path, torch, sal, cuda_klnmf)
     rates = drive("5 fit_klnmf_restarts", phase_headline, torch, sal,
                   cuda_klnmf, random_init_batch, X_host)
     drive("6 fit_best_of KLNMF", phase_quickstart, torch, sal, cuda_klnmf)
@@ -2980,8 +3251,8 @@ def main() -> int:
     drive("10 ARDNMF", phase_ardnmf, torch, sal)
     drive("11 rank_scan_corrnmf", phase_corrnmf_scan, torch, sal,
           np.ascontiguousarray(X_host.T))
-    extracted = drive("12 extract_signatures", phase_extraction, torch, sal,
-                      cuda_klnmf)
+    extracted, extract_launches = drive(
+        "12 extract_signatures", phase_extraction, torch, sal, cuda_klnmf)
     drive("13 assignment", phase_assignment, torch, sal,
           extracted.consensus[5])
     drive("14 bootstrap", phase_bootstrap, torch, sal, cuda_klnmf)
@@ -2989,7 +3260,7 @@ def main() -> int:
     drive("16 SVI and streaming", phase_svi, torch, sal)
     phase_cli(torch, sal, cuda_klnmf, drive)
     ranks = phase_mesh(torch, sal, cuda_klnmf, X_host, drive, extracted,
-                       launches["12 extract_signatures"])
+                       extract_launches)
     drive("19a KLNMF.fit cohort", phase_cohort_fit, torch, sal, cuda_klnmf,
           timings)
     drive("19b rank_scan_klnmf cohort", phase_cohort_scan, torch, sal,
@@ -2998,8 +3269,9 @@ def main() -> int:
           timings)
     check(launches["18b mesh, two ranks over gloo (this process)"] == 0,
           "phase 18b's fits run in its two ranks, not here")
-    for path, (count, variants, xs) in ranks.items():
+    for path, (count, variants, xs, replays) in ranks.items():
         launches[path], by_variant[path], by_x[path] = count, variants, xs
+        graphs[path] = replays
     check(launches["16 SVI and streaming"] == 0,
           "the minibatch paths have no hand kernel to launch")
     for command in ("assign", "assign --dense", "bootstrap"):
@@ -3009,6 +3281,11 @@ def main() -> int:
     mesh_kernel = [f"18b mesh (2, 1) rank {rank}" for rank in range(2)]
     mesh_extract = [f"18b mesh (2, 1) extract rank {rank}"
                     for rank in range(2)]
+    plain_paths = ["7 MvNMF", "9 CorrNMFDet", "10 ARDNMF",
+                   "11 rank_scan_corrnmf", "13 assignment",
+                   "15 MultimodalCorrNMF", "16 SVI and streaming",
+                   "17b CLI assign", "17b CLI assign --dense",
+                   "17b CLI bootstrap"]
     for path in launches:
         if path.startswith("18b mesh (1, 2)") or path in (
                 "18a CLI assign --mesh auto",
@@ -3016,6 +3293,10 @@ def main() -> int:
             check(launches[path] == 0,
                   f"{path}: a sample-sharded path or plain-op command "
                   "launches no kernel")
+            plain_paths.append(path)
+    for path in plain_paths:
+        check(graphs[path]["replays"] == 0,
+              f"{path}: a plain-op or sample-sharded path replayed a graph")
     for path in ("4 KLNMF.fit", "5 fit_klnmf_restarts",
                  "6 fit_best_of KLNMF", "8 rank_scan_klnmf",
                  "12 extract_signatures", "14 bootstrap", *cli_kernel,
@@ -3030,6 +3311,16 @@ def main() -> int:
                  "19c cell 7b rank group"):
         check(launches[path] > 0 and by_variant[path]["streamed"]
               == launches[path], f"path {path}: not every launch streamed")
+    for path in ("4 KLNMF.fit", "5 fit_klnmf_restarts",
+                 "6 fit_best_of KLNMF", "8 rank_scan_klnmf",
+                 "12 extract_signatures", "14 bootstrap", "17b CLI fit",
+                 "17b CLI scan", "17b CLI extract",
+                 "18a mesh, NCCL world of one",
+                 "18a extract_signatures, 1 x 1 mesh", *mesh_kernel,
+                 *mesh_extract, "19a KLNMF.fit cohort",
+                 "19b rank_scan_klnmf cohort", "19c cell 7b rank group"):
+        check(graphs[path]["replays"] > 0,
+              f"path {path}: the kernel route replayed no CUDA graph")
     check(by_x["19c cell 7b rank group"]["per_lane"] > 0,
           "the cell 7b group launched no kernel with a per-lane X")
     for path in ("12 extract_signatures", "14 bootstrap", "17b CLI extract",
@@ -3040,15 +3331,19 @@ def main() -> int:
     print(f"kernel launches by path: {launches}")
     print(f"kernel launches by path and kernel: {by_variant}")
     print(f"kernel launches by path, shared or per-lane X: {by_x}")
+    print(f"CUDA graphs captured and replayed by path: {graphs}")
 
     headline = timings[(5, 100)]
     block_ms = min(headline["resident_ms"])
     blocks = WINDOW // BLOCK
-    wall_ms = 1000 * (100 * WINDOW / rates["kernel"]) / blocks
+    walls_ms = {name: 1000 * (100 * WINDOW / rates[name]) / blocks
+                for name in ("kernel", "kernel, eager spans")}
     print(f"[5] kernel time per {BLOCK}-step block {block_ms:.4f} ms vs "
-          f"{wall_ms:.4f} ms wall per block of the headline ({blocks} "
-          "blocks; the rest is the objective, the lane freeze and one host "
-          "sync per block)")
+          f"{walls_ms['kernel']:.4f} ms wall per block of the headline with "
+          f"graphed spans, {walls_ms['kernel, eager spans']:.4f} ms with "
+          f"eager ones ({blocks} blocks; the rest is the float64 objective, "
+          "the lane freeze and, eager, the launches and one host read a "
+          "span)")
     print(card_line())
     print(json.dumps({"kernels": [{
         "name": "fused_mu_block",
@@ -3063,6 +3358,7 @@ def main() -> int:
         "launches_by_x": {
             x: sum(counts[x] for counts in by_x.values())
             for x in ("shared", "per_lane")},
+        "graph_replays": sum(g["replays"] for g in graphs.values()),
         "max_abs_err": max_abs_err,
         "variant": "resident",
         "cluster": headline["cluster"],

@@ -1,14 +1,18 @@
-"""The fit engine: the shared convergence loop, driven block by block."""
+"""The fit engine: the shared convergence loop, its state on the device,
+driven span by span (CUDA graphs on the kernel route)."""
 
 from .fit import (  # noqa: F401
     FitConfig,
     FitResult,
     LockstepState,
+    bind_data,
     effective_tolerance,
     finish_lockstep,
     fit_loop,
     fit_loop_lockstep,
+    graph_counts,
     init_lockstep_state,
+    kernel_route,
     make_fit_function,
     run_lockstep_segment,
     tolerance_floor,

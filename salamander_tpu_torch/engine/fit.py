@@ -7,12 +7,24 @@ least `min_iterations`, hard-stop at `max_iterations`, and record the
 objective trace. Iterations past the last full block of `conv_test_freq`
 form a remainder tail that runs once and is never evaluated.
 
-The loop is driven from the host block by block. A block is one fused
-kernel launch (or `conv_test_freq` plain updates) followed by one objective
-evaluation; the only device-to-host transfer per block is the test of
-whether the fit (every lane of it) is done. Lanes that are done are frozen
-on the device with `torch.where`, so a batched fit gives each lane the
-result it would get alone.
+The loop state lives on the device, as the JAX package's `_LoopState` and
+`LockstepState` do: the iteration and evaluation counters, the objective
+trace, the per-problem `done` flag. A block is one fused kernel launch (or
+`conv_test_freq` plain updates) followed by one objective evaluation; a
+finished problem (or lane) is frozen with `torch.where` on every leaf
+(JAX's `_select`), so blocks run after it is done change nothing and a
+batched fit gives each lane the result it would get alone.
+
+The host drives the loop in SPANS of `SPAN` blocks and reads one flag a
+span (is the fit done; are more lanes alive than the floor), where the
+JAX package runs one `lax.while_loop` with no host round-trip. A span
+never runs past the last full block, and no span before `min_iterations`
+is tested (no problem can converge there) unless `stop_on_nonfinite` is
+set. On the kernel route (a block update marked with :func:`kernel_route`,
+every parameter on a card) the first full span runs eagerly and every
+later full span is the replay of one CUDA graph captured from it: the
+graph reads and writes the loop state's tensors in place. Every other
+route runs its spans eagerly. A capture or replay that fails raises.
 
 History is a NaN-padded tensor of max_iterations // conv_test_freq entries
 (the reference's `of_values[1:]`).
@@ -20,12 +32,26 @@ History is a NaN-padded tensor of max_iterations // conv_test_freq entries
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import warnings
 from typing import Any, Callable, NamedTuple
 
 import torch
 
-from .tree import tree_leaves, tree_map
+from .tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+
+# blocks a span runs between two host reads of the loop state: chosen on an
+# NVIDIA H100 from 4, 8, 16 and 32 by timing the headline and KLNMF(5).fit
+# in turns (chip_smoke.py phase 5; PERF.md): the shortest was the fastest,
+# a longer span costing more in its eager warm-up and capture than it
+# saves in host reads
+SPAN = 4
+
+# CUDA graphs captured and replayed by the kernel route's spans
+graph_counts = {"captures": 0, "replays": 0}
+
+_EAGER_SPANS = False  # set by _eager_spans(): no span is captured
 
 
 class FitConfig(NamedTuple):
@@ -93,6 +119,140 @@ class FitResult(NamedTuple):
 BlockUpdate = Callable[[dict, int], dict]
 
 
+def kernel_route(block_update_fn):
+    """Mark a block update as the kernel route: one fused kernel launch a
+    block, no host read, no collective. Its spans are captured as CUDA
+    graphs where every parameter lies on a card. Returns the function."""
+    block_update_fn.kernel_route = True
+    return block_update_fn
+
+
+def bind_data(block_update_fn, data) -> BlockUpdate:
+    """block(params, n_steps) = block_update_fn(params, data, n_steps),
+    keeping the kernel-route mark."""
+    def block(params, n_steps):
+        return block_update_fn(params, data, n_steps)
+
+    if getattr(block_update_fn, "kernel_route", False):
+        kernel_route(block)
+    return block
+
+
+@contextlib.contextmanager
+def _eager_spans():
+    """Run every span eagerly, the kernel route's too: for holding graphed
+    spans against eager ones on a card."""
+    global _EAGER_SPANS
+    before, _EAGER_SPANS = _EAGER_SPANS, True
+    try:
+        yield
+    finally:
+        _EAGER_SPANS = before
+
+
+def _graphed(block_update_fn, params) -> bool:
+    """Whether a loop's spans are captured: decided before the loop from
+    the route. The kernel route has no sample axis (cuda_klnmf refuses a
+    sample-sharded block), so its blocks hold no collective."""
+    return (not _EAGER_SPANS
+            and getattr(block_update_fn, "kernel_route", False)
+            and all(leaf.is_cuda for leaf in tree_leaves(params)))
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream(device_index: int):
+    return torch.cuda.Stream(device=device_index)
+
+
+class _Spans:
+    """Runs spans of `step` (one block: loop state -> loop state, a
+    NamedTuple of tensors with a `params` tree).
+
+    Eager, or with `graphed`: every span eager until one full span has run
+    (the warm-up: the kernel library built, its launch attributes set),
+    then each full span is a replay of one CUDA graph captured from a full
+    span of `step`. The graph reads the state's tensors and copies the
+    span's final state back into them, so a replayed span's state is those
+    same tensors, and each later run() is given the state the last one
+    returned. A span shorter than SPAN (the last) runs eagerly. Each
+    replay adds the kernel launches its graph holds to the kernel's
+    counts (ops.cuda_klnmf). release() frees the graph and its memory
+    pool."""
+
+    def __init__(self, step, graphed: bool):
+        self.step = step
+        self.graphed = graphed
+        self.warm = False
+        self.graph = None
+        self.device = None
+        self.static: dict = {}
+        self.launches: list = []
+
+    def run(self, state, n_blocks: int):
+        if not (self.graphed and self.warm and n_blocks == SPAN):
+            for _ in range(n_blocks):
+                state = self.step(state)
+            self.warm = self.warm or n_blocks == SPAN
+            return state
+        from ..ops import cuda_klnmf
+
+        if self.graph is None:
+            self._capture(type(state), tree_flatten(state._asdict()))
+        with torch.cuda.device(self.device):
+            self.graph.replay()
+        cuda_klnmf.count_replay(self.launches)
+        graph_counts["replays"] += 1
+        return type(state)(**tree_unflatten(self.static))
+
+    def _capture(self, state_type, flat: dict) -> None:
+        from ..ops import cuda_klnmf
+
+        self.static = flat
+        self.device = next(iter(flat.values())).device
+        cuda_klnmf.captured_launches()  # drop any stale record
+        graph = torch.cuda.CUDAGraph()
+        # capture_begin/end rather than torch.cuda.graph, whose empty_cache
+        # before each capture hands the eager spans' memory back to the
+        # card only for the capture to take it again: at a cell 7b rank
+        # group's size that made graphed spans slower than eager ones
+        # (chip_smoke.py phase 19c; PERF.md)
+        torch.cuda.synchronize(self.device)
+        with torch.cuda.device(self.device), torch.cuda.stream(
+                _capture_stream(self.device.index)):
+            graph.capture_begin()
+            try:
+                state = state_type(**tree_unflatten(flat))
+                for _ in range(SPAN):
+                    state = self.step(state)
+                for path, leaf in tree_flatten(state._asdict()).items():
+                    if leaf is not flat[path]:
+                        flat[path].copy_(leaf)
+                del state
+            finally:
+                graph.capture_end()
+        self.graph = graph
+        self.launches = cuda_klnmf.captured_launches()
+        graph_counts["captures"] += 1
+
+    def release(self) -> None:
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph, self.static, self.launches = None, {}, []
+
+
+def _span_blocks(blocks: int, full_blocks: int) -> int:
+    """Blocks of the next span: SPAN, or fewer at the last full block."""
+    return min(SPAN, full_blocks - blocks)
+
+
+def _tested(blocks: int, config: FitConfig) -> bool:
+    """Whether the host reads the loop state after `blocks` blocks: not
+    before min_iterations, where no problem can converge, unless a
+    non-finite objective may stop the fit."""
+    return (blocks * int(config.conv_test_freq) >= int(config.min_iterations)
+            or config.stop_on_nonfinite)
+
+
 def _plain_block(update_fn) -> BlockUpdate:
     def block(params, n_steps: int):
         for _ in range(n_steps):
@@ -100,6 +260,40 @@ def _plain_block(update_fn) -> BlockUpdate:
         return params
 
     return block
+
+
+class _LoopState(NamedTuple):
+    """State of the single-problem loop, on the parameters' device (JAX:
+    salamander_tpu/engine/fit.py::_LoopState)."""
+
+    params: dict
+    of_prev: torch.Tensor    # () objective at the last eval
+    history: torch.Tensor    # (max_evals,) NaN-padded, written in place
+    n_evals: torch.Tensor    # () int64
+    iteration: torch.Tensor  # () int32
+    done: torch.Tensor       # () bool
+
+
+def _select(frozen, old, new):
+    """torch.where(frozen, old, new) on every leaf of a tree (JAX:
+    _select); `frozen` is a scalar or a (R,) lane mask."""
+    def pick(a, b):
+        mask = frozen.reshape(frozen.shape + (1,) * (a.dim() - frozen.dim()))
+        return torch.where(mask, a, b)
+
+    return tree_map(pick, old, new)
+
+
+def _print_crossings(state: _LoopState, first: int, last: int, freq: int,
+                     verbosity_freq: int) -> None:
+    """The verbose lines of blocks first..last-1 that ran before the fit
+    was done: 'iteration: N; objective: X' where a block crossed a
+    verbosity_freq boundary, read from the device history."""
+    values = state.history[first:min(last, int(state.n_evals))].tolist()
+    for block, value in enumerate(values, start=first):
+        iteration = (block + 1) * freq
+        if iteration // verbosity_freq > (iteration - freq) // verbosity_freq:
+            print(f"iteration: {iteration}; objective: {value:.2f}")
 
 
 def fit_loop(
@@ -116,61 +310,90 @@ def fit_loop(
 
     block_update_fn(params, n_steps), when given, replaces the n_steps
     single updates of a block with one call - the hook for a fused kernel
-    that keeps a whole block's intermediate state on chip."""
+    that keeps a whole block's intermediate state on chip. The returned
+    n_evals and n_iterations are host integers, read once at the end."""
     freq = int(config.conv_test_freq)
     max_iterations = int(config.max_iterations)
     min_iterations = int(config.min_iterations)
     max_evals = max(1, max_iterations // freq)
-    full_block_iterations = (max_iterations // freq) * freq
-    remainder = max_iterations - full_block_iterations
+    full_blocks = max_iterations // freq
+    remainder = max_iterations - full_blocks * freq
     advance = block_update_fn or _plain_block(update_fn)
 
     of0 = objective_fn(params0)
     tol = _effective_tol(config, of0.dtype, params0)
-    history = torch.full((max_evals,), float("nan"), dtype=of0.dtype,
-                         device=of0.device)
-    params, of_prev = params0, of0
-    n_evals = iteration = 0
-    done = False
-    while not done and iteration < full_block_iterations:
-        params = advance(params, freq)
-        iteration += freq
-        of_value = objective_fn(params)
-        rel_change = torch.abs(of_prev - of_value) / torch.abs(of_prev)
-        stop = (rel_change < tol) & (iteration >= min_iterations)
-        if config.stop_on_nonfinite:
-            stop = stop | ~torch.isfinite(of_value)
-        history[n_evals] = of_value
-        n_evals += 1
-        of_prev = of_value
-        done = bool(stop) or iteration >= max_iterations  # one host sync
-        if verbose and (iteration // verbosity_freq) > (
-            (iteration - freq) // verbosity_freq
-        ):
-            print(f"iteration: {iteration}; objective: {float(of_value):.2f}")
+    device = of0.device
 
-    if remainder > 0 and not done:
+    def step(state: _LoopState) -> _LoopState:
+        params = advance(state.params, freq)
+        iteration = state.iteration + freq
+        of_value = objective_fn(params)
+        rel_change = torch.abs(state.of_prev - of_value) / torch.abs(
+            state.of_prev)
+        done = ((rel_change < tol) & (iteration >= min_iterations)) | (
+            iteration >= max_iterations)
+        if config.stop_on_nonfinite:
+            done = done | ~torch.isfinite(of_value)
+        index = state.n_evals.reshape(1)
+        state.history.index_copy_(0, index, torch.where(
+            state.done, state.history.index_select(0, index),
+            of_value.to(state.history.dtype).reshape(1)))
+        new = {"params": params, "of_prev": of_value,
+               "n_evals": state.n_evals + 1, "iteration": iteration,
+               "done": done}
+        old = {name: getattr(state, name) for name in new}
+        return _LoopState(history=state.history,
+                          **_select(state.done, old, new))
+
+    state = _LoopState(
+        params=params0,
+        of_prev=of0,
+        history=torch.full((max_evals,), float("nan"), dtype=of0.dtype,
+                           device=device),
+        n_evals=torch.zeros((), dtype=torch.int64, device=device),
+        iteration=torch.zeros((), dtype=torch.int32, device=device),
+        done=torch.zeros((), dtype=torch.bool, device=device),
+    )
+    spans = _Spans(step, _graphed(advance, params0))
+    blocks = 0
+    try:
+        while blocks < full_blocks:
+            n_blocks = _span_blocks(blocks, full_blocks)
+            state = spans.run(state, n_blocks)
+            blocks += n_blocks
+            if verbose:
+                _print_crossings(state, blocks - n_blocks, blocks, freq,
+                                 verbosity_freq)
+            if _tested(blocks, config) and bool(state.done):  # one host sync
+                break
+    finally:
+        spans.release()
+
+    params = state.params
+    n_evals, iteration = int(state.n_evals), int(state.iteration)
+    if remainder > 0 and not bool(state.done):
         params = advance(params, remainder)
         iteration += remainder
 
-    return FitResult(params, of0, history, n_evals, iteration)
+    return FitResult(params, of0, state.history, n_evals, iteration)
 
 
 class LockstepState(NamedTuple):
     """Resumable state of the natively batched convergence loop.
 
     Every tensor except the two shared counters carries the leading restart
-    (lane) axis R. `eval_idx` and `iteration` are host integers: every lane
-    advances in lockstep blocks.
+    (lane) axis R. `eval_idx` and `iteration` are device scalars shared by
+    the lanes: every lane advances in lockstep blocks, so they stay right
+    across a compaction.
     """
 
     params: dict                # a tree of tensors (engine.tree)
     of_prev: torch.Tensor       # (R,) objective at each lane's last eval
     history: torch.Tensor       # (R, max_evals) NaN-padded traces
-    n_evals: torch.Tensor       # (R,)
-    eval_idx: int               # block evals performed so far
-    iteration: int              # iterations performed so far
-    n_iterations: torch.Tensor  # (R,) per-lane count, frozen when done
+    n_evals: torch.Tensor       # (R,) int32
+    eval_idx: torch.Tensor      # () int64: block evals performed so far
+    iteration: torch.Tensor     # () int32: iterations performed so far
+    n_iterations: torch.Tensor  # (R,) int32 per-lane count, frozen when done
     done: torch.Tensor          # (R,) bool
 
 
@@ -178,11 +401,7 @@ def _masked_advance(block_update_fn: BlockUpdate, params, frozen, n_steps):
     """Advance every lane by n_steps, then restore the frozen lanes (on
     every leaf of the tree: a leaf left out would let a frozen lane
     drift)."""
-    def restore(old, new):
-        lanes = frozen.reshape((frozen.shape[0],) + (1,) * (old.dim() - 1))
-        return torch.where(lanes, old, new)
-
-    return tree_map(restore, params, block_update_fn(params, n_steps))
+    return _select(frozen, params, block_update_fn(params, n_steps))
 
 
 def init_lockstep_state(
@@ -201,40 +420,23 @@ def init_lockstep_state(
         history=torch.full((n_restarts, max_evals), float("nan"),
                            dtype=of0.dtype, device=device),
         n_evals=torch.zeros(n_restarts, dtype=torch.int32, device=device),
-        eval_idx=0,
-        iteration=0,
+        eval_idx=torch.zeros((), dtype=torch.int64, device=device),
+        iteration=torch.zeros((), dtype=torch.int32, device=device),
         n_iterations=torch.zeros(n_restarts, dtype=torch.int32,
                                  device=device),
         done=torch.zeros(n_restarts, dtype=torch.bool, device=device),
     )
 
 
-def run_lockstep_segment(
-    objective_fn: Callable[[dict], torch.Tensor],
-    config: FitConfig,
-    block_update_fn: BlockUpdate,
-    state: LockstepState,
-    alive_floor: int = 0,
-) -> LockstepState:
-    """Advance the lockstep loop until every lane is done, max_iterations'
-    full blocks are exhausted, or at most `alive_floor` lanes remain
-    unconverged.
-
-    With alive_floor=0 this runs the loop to the same exit as
-    fit_loop_lockstep; a positive floor is the hook for lane compaction
-    (gather the survivors into a smaller batch and resume there). The
-    state's history tensor is updated in place.
-    """
+def _lockstep_step(objective_fn, config: FitConfig,
+                   block_update_fn: BlockUpdate, tol: float):
+    """One block of the lockstep loop: LockstepState -> LockstepState, the
+    history written in place at the device's eval_idx."""
     freq = int(config.conv_test_freq)
     max_iterations = int(config.max_iterations)
     min_iterations = int(config.min_iterations)
-    full_block_iterations = (max_iterations // freq) * freq
-    tol = _effective_tol(config, state.of_prev.dtype, state.params,
-                         warn=False)
 
-    # one host sync per block: the count of lanes still running
-    while (state.iteration < full_block_iterations
-           and int((~state.done).sum()) > alive_floor):
+    def step(state: LockstepState) -> LockstepState:
         done_prev = state.done
         params = _masked_advance(block_update_fn, state.params, done_prev,
                                  freq)
@@ -250,23 +452,67 @@ def run_lockstep_segment(
             done = done | ~torch.isfinite(of_value)
 
         record = ~done_prev  # lanes recording this eval
-        column = state.history[:, state.eval_idx]
-        state.history[:, state.eval_idx] = torch.where(
-            record, of_value.to(state.history.dtype), column
-        )
-        state = LockstepState(
+        index = state.eval_idx.reshape(1)
+        state.history.index_copy_(1, index, torch.where(
+            record.unsqueeze(1),
+            of_value.to(state.history.dtype).unsqueeze(1),
+            state.history.index_select(1, index)))
+        return LockstepState(
             params=params,
             of_prev=torch.where(record, of_value, state.of_prev),
             history=state.history,
             n_evals=state.n_evals + record.to(torch.int32),
             eval_idx=state.eval_idx + 1,
             iteration=iteration,
-            n_iterations=torch.where(
-                done_prev, state.n_iterations,
-                torch.full_like(state.n_iterations, iteration),
-            ),
+            n_iterations=torch.where(done_prev, state.n_iterations,
+                                     iteration),
             done=done,
         )
+
+    return step
+
+
+def _alive(state: LockstepState) -> int:
+    return int((~state.done).sum())  # one host sync
+
+
+def run_lockstep_segment(
+    objective_fn: Callable[[dict], torch.Tensor],
+    config: FitConfig,
+    block_update_fn: BlockUpdate,
+    state: LockstepState,
+    alive_floor: int = 0,
+) -> LockstepState:
+    """Advance the lockstep loop until every lane is done, max_iterations'
+    full blocks are exhausted, or at most `alive_floor` lanes remain
+    unconverged.
+
+    The host reads the alive count once a span (and once at the start), so
+    the segment may stop up to SPAN - 1 blocks after the floor is reached;
+    the lanes done by then are frozen, so no lane's result depends on it.
+    With alive_floor=0 this runs the loop to the same results as
+    fit_loop_lockstep; a positive floor is the hook for lane compaction
+    (gather the survivors into a smaller batch and resume there). The
+    state's history tensor is updated in place.
+    """
+    full_blocks = int(config.max_iterations) // int(config.conv_test_freq)
+    tol = _effective_tol(config, state.of_prev.dtype, state.params,
+                         warn=False)
+    blocks = int(state.eval_idx)  # the segment's one read of its counter
+    if blocks >= full_blocks or _alive(state) <= alive_floor:
+        return state
+    spans = _Spans(_lockstep_step(objective_fn, config, block_update_fn,
+                                  tol),
+                   _graphed(block_update_fn, state.params))
+    try:
+        while blocks < full_blocks:
+            n_blocks = _span_blocks(blocks, full_blocks)
+            state = spans.run(state, n_blocks)
+            blocks += n_blocks
+            if _tested(blocks, config) and _alive(state) <= alive_floor:
+                break
+    finally:
+        spans.release()
     return state
 
 
@@ -336,7 +582,7 @@ def make_fit_function(
         if block_update_fn is None:
             block = _plain_block(update)
         else:
-            block = lambda p, n: block_update_fn(p, data, n)
+            block = bind_data(block_update_fn, data)
         return fit_loop(update, objective, params0, config, verbose=verbose,
                         verbosity_freq=verbosity_freq,
                         block_update_fn=block)

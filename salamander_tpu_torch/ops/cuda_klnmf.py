@@ -44,6 +44,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..engine.fit import kernel_route
 from .klnmf import update_WH
 
 K_MAX = 32          # MU_BLOCK_K_MAX in csrc/mu_block.cu
@@ -456,10 +457,35 @@ def _launch(X, W, H, n_steps: int, plan: LaunchPlan):
         message = lib.mu_block_error_string(status).decode()
         raise RuntimeError(f"mu_block_launch ({plan.variant}, cluster "
                            f"{plan.cluster}) failed: {message} ({status})")
-    fused_mu_block.launches += 1
-    fused_mu_block.launches_by_variant[plan.variant] += 1
-    fused_mu_block.launches_by_x["per_lane" if x_stride else "shared"] += 1
+    launch = (plan.variant, "per_lane" if x_stride else "shared")
+    if torch.cuda.is_current_stream_capturing():
+        _captured.append(launch)  # counted at each replay of the graph
+    else:
+        count_replay([launch])
     return W_out, H_out
+
+
+# the launches made while a stream was capturing a CUDA graph, since the
+# last captured_launches()
+_captured: list = []
+
+
+def captured_launches() -> list:
+    """The (kernel, X) launches recorded while a stream captured, since
+    the last call, and forget them: the launches a graph holds, which
+    count_replay adds at each of its replays."""
+    taken = list(_captured)
+    _captured.clear()
+    return taken
+
+
+def count_replay(launches) -> None:
+    """Add (kernel, X) launches to fused_mu_block's counts: one launch, or
+    the launches a CUDA graph holds when it is replayed."""
+    for variant, x in launches:
+        fused_mu_block.launches += 1
+        fused_mu_block.launches_by_variant[variant] += 1
+        fused_mu_block.launches_by_x[x] += 1
 
 
 def launch_plan(X, W) -> LaunchPlan:
@@ -479,7 +505,9 @@ def fused_mu_block(X, W, H, n_steps: int):
     or raise if neither kernel takes them. Each launch adds one to
     ``fused_mu_block.launches``, to its kernel's entry of
     ``fused_mu_block.launches_by_variant`` and to the entry of
-    ``fused_mu_block.launches_by_x`` for a shared or a per-lane X.
+    ``fused_mu_block.launches_by_x`` for a shared or a per-lane X. A call
+    made while the stream captures a CUDA graph launches nothing then: it
+    is counted at each replay of the graph (count_replay).
     """
     if all(t.device.type == "cpu" for t in (X, W, H)):
         return fused_mu_block_reference(X, W, H, n_steps)
@@ -545,3 +573,8 @@ def fused_block_update(params, data, n_steps: int):
     if single:
         W, H = W.squeeze(0), H.squeeze(0)
     return {"W": W, "H": H}
+
+
+# one launch a block, no host read: the engine captures its spans as CUDA
+# graphs
+kernel_route(fused_block_update)

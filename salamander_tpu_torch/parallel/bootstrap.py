@@ -27,7 +27,7 @@ import pandas as pd
 import torch
 
 from .. import containers
-from ..engine import FitConfig
+from ..engine import FitConfig, bind_data
 from ..engine.tree import tree_map
 
 _SUPPORTED = ("KLNMF", "MvNMF", "ARDNMF", "CorrNMFDet", "MultimodalCorrNMF")
@@ -175,7 +175,7 @@ def bootstrap_stability(
     def make_block_update(params, lane_data):
         fused = clone._block_update_fn(params, lane_data, None)
         if fused is not None:
-            return lambda p, n: fused(p, lane_data, n)
+            return bind_data(fused, lane_data)
         return plain_block_builder(update_fn)(params, lane_data)
 
     result, losses = lockstep_fit(objective_fn, config, make_block_update,

@@ -34,6 +34,7 @@ from ..engine import FitConfig, FitResult
 from ..engine.fit import (
     LockstepState,
     _effective_tol,
+    bind_data,
     finish_lockstep,
     fit_loop_lockstep,
     init_lockstep_state,
@@ -136,7 +137,7 @@ class CompactingRunner:
             return
         of_prev = state.of_prev.detach().to("cpu", torch.float64)
         self.progress({
-            "iteration": state.iteration,
+            "iteration": int(state.iteration),
             "n_alive": int((~state.done).sum()),
             "n_lanes": n_lanes,
             "objective_min": float(of_prev.min()),
@@ -175,8 +176,7 @@ class CompactingRunner:
             )
             self._report(state, bucket)
             out = _scatter_lanes(out, ids, state)
-            if target is None or state.iteration >= full_blocks * int(
-                    config.conv_test_freq):
+            if target is None or int(state.eval_idx) >= full_blocks:
                 break
             alive = torch.nonzero(~state.done).squeeze(1)  # one host sync
             if alive.numel() == 0:
@@ -229,7 +229,7 @@ def klnmf_block_builder(update_fn,
                                          params["H"], data,
                                          mask=params.get("mask"),
                                          sample_sharded=sample_sharded):
-            return lambda p, n: cuda_klnmf.fused_block_update(p, data, n)
+            return bind_data(cuda_klnmf.fused_block_update, data)
         return plain_block_builder(update_fn)(params, data)
 
     return make_block_update

@@ -28,7 +28,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from ..engine import FitResult, effective_tolerance
+from ..engine import FitResult, bind_data, effective_tolerance
 from ..engine.transfer import params_to_numpy
 from ..engine.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from .compaction import (
@@ -392,7 +392,7 @@ def fit_best_of(
             fused = model._block_update_fn(params, data_, given_parameters,
                                            sample_sharded=sample_sharded)
         if fused is not None:
-            return lambda p, n: fused(p, data_, n)
+            return bind_data(fused, data_)
         return plain_block_builder(update_fn)(params, data_)
 
     def run_lanes(part0):

@@ -1,7 +1,9 @@
 """Tests that need an NVIDIA GPU: the port's CUDA kernels (resident at
 every cluster size, and streamed at every split it is tested at) against
 their plain PyTorch version, with one X shared by all lanes and with one X
-per lane, at PCAWG size and at cohort size. They skip without a card.
+per lane, at PCAWG size and at cohort size; and the engine's spans of the
+kernel route captured as CUDA graphs against the same spans run eagerly,
+bit for bit. They skip without a card.
 
 This file imports neither jax nor salamander_tpu, so it also runs where JAX
 is not installed: on the card, run
@@ -250,3 +252,238 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         cuda_klnmf.fused_mu_block(X, W.transpose(1, 2).contiguous()
                                   .transpose(1, 2), H, 2)
+
+
+# ---- the kernel route's spans as CUDA graphs (engine/fit.py) ----
+
+
+def graph_problem(device, K, R, X=None, seed=0):
+    """(params0, data) of R KLNMF lanes on X (PCAWG SBS by default; an
+    (R, V, D) X gives each lane its own), random W and H from a seed."""
+    from salamander_tpu_torch import datasets
+
+    if X is None:
+        X = datasets.load_pcawg_sbs().to_numpy().T
+    X = torch.as_tensor(np.ascontiguousarray(X), dtype=torch.float32,
+                        device=device)
+    V, D = X.shape[-2:]
+    _, W, H = make_problem(V, K, D, R, seed=seed)
+    H = H * float(X.sum()) / (X.shape[0] if X.dim() == 3 else 1) / (
+        D * K * 15.0)
+    return ({"W": torch.from_numpy(W).to(device),
+             "H": torch.from_numpy(np.ascontiguousarray(H)).to(device)},
+            {"X": X})
+
+
+def kernel_fns(params0):
+    """(update, objective, block factory) of the kernel route: the float64
+    objective of the fits, the block bound to its data."""
+    from salamander_tpu_torch.engine import bind_data
+    from salamander_tpu_torch.models.signature_nmf import promote_objective
+    from salamander_tpu_torch.ops.klnmf import make_step_functions
+
+    update_fn, objective_fn = make_step_functions()
+    objective_fn = promote_objective(objective_fn, params0)
+
+    def block(data):
+        fused = bind_data(cuda_klnmf.fused_block_update, data)
+        assert fused.kernel_route
+        return fused
+
+    return update_fn, objective_fn, block
+
+
+def graphed_and_eager(run):
+    """run() with spans captured, then with every span eager: the two
+    results, and the graph counts and launches of each."""
+    from salamander_tpu_torch.engine import fit as fit_module
+
+    out = []
+    for eager in (False, True):
+        for key in fit_module.graph_counts:
+            fit_module.graph_counts[key] = 0
+        cuda_klnmf.fused_mu_block.launches = 0
+        if eager:
+            with fit_module._eager_spans():
+                result = run()
+        else:
+            result = run()
+        torch.cuda.synchronize()
+        out.append((result, dict(fit_module.graph_counts),
+                    cuda_klnmf.fused_mu_block.launches))
+    return out
+
+
+def assert_fit_results_equal(a, b):
+    for key in a.params:
+        assert torch.equal(a.params[key], b.params[key]), key
+    torch.testing.assert_close(a.history, b.history, rtol=0, atol=0,
+                               equal_nan=True)
+    assert np.array_equal(np.asarray(torch.as_tensor(a.n_evals).cpu()),
+                          np.asarray(torch.as_tensor(b.n_evals).cpu()))
+    assert np.array_equal(np.asarray(torch.as_tensor(a.n_iterations).cpu()),
+                          np.asarray(torch.as_tensor(b.n_iterations).cpu()))
+
+
+def assert_graphed(counts, launches, eager_counts, eager_launches):
+    """The graphed run captured and replayed; the eager one did neither;
+    both launched the kernel as often (replays count their launches)."""
+    assert counts["captures"] >= 1 and counts["replays"] >= 1
+    assert eager_counts == {"captures": 0, "replays": 0}
+    assert launches == eager_launches > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compact", [False, True])
+def test_graphed_headline_equals_eager(cuda_device, compact):
+    """The headline shapes (PCAWG SBS, K=5, R=100), lockstep and
+    compacting: graphed spans give the eager spans' W, H, history,
+    evaluations and iterations bit for bit."""
+    from salamander_tpu_torch.engine import FitConfig, fit_loop_lockstep
+    from salamander_tpu_torch.parallel.compaction import compacting_runner
+
+    params0, data = graph_problem(cuda_device, 5, 100)
+    config = FitConfig(500, 3000, 10, 1e-7)
+    _, objective_fn, block = kernel_fns(params0)
+
+    def run():
+        if compact:
+            return compacting_runner(config, False, 8).run(params0, data)[0]
+        return fit_loop_lockstep(lambda p: objective_fn(p, data), params0,
+                                 config, block(data))
+
+    (graphed, counts, launches), (eager, eager_counts, eager_launches) = \
+        graphed_and_eager(run)
+    assert_fit_results_equal(graphed, eager)
+    assert_graphed(counts, launches, eager_counts, eager_launches)
+
+
+@pytest.mark.cuda
+def test_graphed_klnmf_fit_equals_eager(cuda_device):
+    """KLNMF(5).fit's loop (R=1, a cluster of 8) through make_fit_function
+    from the model's own state: graphed equals eager bit for bit; every
+    replay adds its graph's SPAN launches."""
+    import salamander_tpu_torch as sal
+    from salamander_tpu_torch.engine import fit as fit_module
+    from salamander_tpu_torch.engine import make_fit_function
+    from salamander_tpu_torch.models.signature_nmf import promote_objective
+
+    model = sal.KLNMF(n_signatures=5, device="cuda", dtype="float32")
+    model._setup_adata(sal.AnnData(sal.datasets.load_pcawg_sbs()))
+    model._initialize()
+    model._setup_fitting_parameters()
+    params0, data = model._device_state()
+    update_fn, objective_fn = model._build_step()
+    objective_fn = promote_objective(objective_fn, params0)
+    block = model._block_update_fn(params0, data)
+    assert block.kernel_route
+
+    def run():
+        return make_fit_function(update_fn, objective_fn,
+                                 model._fit_config(),
+                                 block_update_fn=block)(params0, data)
+
+    (graphed, counts, launches), (eager, eager_counts, eager_launches) = \
+        graphed_and_eager(run)
+    assert_fit_results_equal(graphed, eager)
+    assert_graphed(counts, launches, eager_counts, eager_launches)
+    assert counts["captures"] == 1
+    blocks = -(-graphed.n_evals // fit_module.SPAN) * fit_module.SPAN
+    assert launches <= blocks and counts["replays"] * fit_module.SPAN < \
+        launches
+
+
+@pytest.mark.cuda
+def test_graphed_per_lane_x_equals_eager(cuda_device):
+    """A per-lane X (R=20 PCAWG resamples, K=5, the resident kernel at
+    C=4 with a lane stride): graphed equals eager bit for bit."""
+    from salamander_tpu_torch.engine import FitConfig, fit_loop_lockstep
+
+    X, _, _ = per_lane_problem(cuda_device)
+    params0, data = graph_problem(cuda_device, 5, 20, X=X.cpu().numpy())
+    config = FitConfig(200, 1500, 10, 1e-7)
+    _, objective_fn, block = kernel_fns(params0)
+
+    def run():
+        return fit_loop_lockstep(lambda p: objective_fn(p, data), params0,
+                                 config, block(data))
+
+    (graphed, counts, launches), (eager, eager_counts, eager_launches) = \
+        graphed_and_eager(run)
+    assert cuda_klnmf.fused_mu_block.launches_by_x["per_lane"] > 0
+    assert_fit_results_equal(graphed, eager)
+    assert_graphed(counts, launches, eager_counts, eager_launches)
+
+
+@pytest.mark.cuda
+def test_graphed_streamed_cooperative_equals_eager(cuda_device):
+    """One lane of the 96 x 10,000 catalog at K=8: the streamed kernel
+    split over S=79 CTAs (a cooperative launch with a zeroed workspace in
+    every replay), graphed equal to eager bit for bit."""
+    from salamander_tpu_torch import datasets
+    from salamander_tpu_torch.engine import FitConfig, fit_loop
+
+    X = datasets.synthetic_catalog(96, 10_000, 8, seed=0)
+    params0, data = graph_problem(cuda_device, 8, 1, X=X)
+    params0 = {key: value[0] for key, value in params0.items()}
+    plan = cuda_klnmf.launch_plan(data["X"], params0["W"][None])
+    assert plan.variant == "streamed" and plan.cluster == 79
+    update_fn, objective_fn, block = kernel_fns(params0)
+    config = FitConfig(200, 1000, 10, 1e-7)
+
+    def run():
+        return fit_loop(lambda p: update_fn(p, data),
+                        lambda p: objective_fn(p, data), params0, config,
+                        block_update_fn=block(data))
+
+    (graphed, counts, launches), (eager, eager_counts, eager_launches) = \
+        graphed_and_eager(run)
+    assert cuda_klnmf.fused_mu_block.launches_by_variant["streamed"] > 0
+    assert_fit_results_equal(graphed, eager)
+    assert_graphed(counts, launches, eager_counts, eager_launches)
+
+
+@pytest.mark.cuda
+def test_plain_route_is_not_captured(cuda_device):
+    """A block without the kernel-route mark runs its spans eagerly on the
+    card: no capture, no replay."""
+    from salamander_tpu_torch.engine import FitConfig, fit_loop_lockstep
+    from salamander_tpu_torch.engine import fit as fit_module
+
+    params0, data = graph_problem(cuda_device, 5, 4)
+    _, objective_fn, _ = kernel_fns(params0)
+
+    def plain(p, n_steps):
+        W, H = cuda_klnmf.fused_mu_block_reference(data["X"], p["W"],
+                                                   p["H"], n_steps)
+        return {"W": W, "H": H}
+
+    for key in fit_module.graph_counts:
+        fit_module.graph_counts[key] = 0
+    fit_loop_lockstep(lambda p: objective_fn(p, data), params0,
+                      FitConfig(100, 400, 10, 1e-7), plain)
+    assert fit_module.graph_counts == {"captures": 0, "replays": 0}
+
+
+@pytest.mark.cuda
+def test_a_failing_capture_raises(cuda_device):
+    """A block marked as the kernel route that reads the host inside its
+    span cannot be captured: the fit raises, it does not carry on
+    eagerly."""
+    from salamander_tpu_torch.engine import FitConfig, fit_loop, kernel_route
+
+    params0, data = graph_problem(cuda_device, 5, 1)
+    params0 = {key: value[0] for key, value in params0.items()}
+    update_fn, objective_fn, block = kernel_fns(params0)
+    fused = block(data)
+
+    @kernel_route
+    def reads_the_host(p, n_steps):
+        float(p["W"].sum())  # a device-to-host copy: refused in a capture
+        return fused(p, n_steps)
+
+    with pytest.raises(RuntimeError):
+        fit_loop(lambda p: update_fn(p, data),
+                 lambda p: objective_fn(p, data), params0,
+                 FitConfig(100, 400, 10, 1e-7),
+                 block_update_fn=reads_the_host)
