@@ -22,34 +22,36 @@ check raises, so the script exits non-zero and prints no result):
    the plain version, lanes copying one X bit-equal to the shared-X
    launch, and the block timed with a per-lane and a shared X in turns.
    Then the cohort shapes: suite config5's 96 x 10,000 catalog at (K, R) =
-   (5, 100), (20, 100), (10, 20), (8, 1) and one rank group of cell 7b (10
-   lanes, one resample each of 96 x 200,000, K=5), every split against the
+   (5, 100), (20, 100), (10, 20), (8, 1), (16, 100), (24, 100), (28, 100)
+   and cell 7b's rank groups at each of its ranks (10 lanes, one resample
+   each of 96 x 200,000, K=2..10), every split against the
    plain version run in float64 (the float32 plain version's errors
    printed beside), the planned streamed kernel and the plain block timed
    in turns beside the bound (at R=1 also the plan's split against 8 CTAs
    a lane); D = 9,999 (no 16-byte rows) for correctness.
 4. the main path: KLNMF(n_signatures=5).fit(adata) on PCAWG SBS, float32
    on the card, which must run through the kernel and replay CUDA graphs
-   (the engine's spans); the fit with graphed and with eager spans in
-   turns (g, e, e, g), ms of wall a block, equal iterations; the same fit
+   (the engine's spans); the fit with graphed and then with eager spans,
+   ms of wall a block, equal iterations; the same fit
    again from the same init with the plain block must agree.
 5. the multi-start headline: fit_klnmf_restarts R=100, k=5 over a fixed
    5,000-iteration window; the best loss must be within 1e-4 of 20414.
-   Aggregate MU iterations/s of the kernel with graphed and with eager
-   spans in turns, and of the plain path, best of 3; the device busy share
+   Aggregate MU iterations/s of the kernel with graphed spans (best of
+   3, one run with eager spans among them) and of the plain path (best of
+   3); the device busy share
    (torch.profiler) of each span mode with its kernels a block; then the
    engine's span swept over 4, 8, 16, 32 in turns: ms of wall a block of
    the headline and of KLNMF(5).fit's loop.
 6. the README quick start: fit_best_of(KLNMF(5, init_method="random"),
    PCAWG SBS, n_restarts=100, base_seed=0), compacted and monolithic, each
-   with graphed and eager spans, in turns (walls printed); all launch the
+   once with graphed and once with eager spans (walls printed); all launch the
    kernel, the graphed runs replay graphs, their best losses agree at rtol
    1e-4, and so does the same lanes' plain-block run from the same
    params0.
 7. MvNMF(n_signatures=5).fit in float32 must stop below the 10,000 cap
    with finite, column-normalized signatures (line-search evaluations per
    iteration and the cost of one trial round printed); then
-   fit_best_of(MvNMF(5, random), n_restarts=10) compacted and monolithic
+   fit_best_of(MvNMF(5, random), n_restarts=5) compacted and monolithic
    (one run each), best losses at rtol 1e-4.
 8. rank_scan_klnmf(X, range(2, 11), 20, seed=0) unpadded (with and without
    compaction; launches the kernel) and padded (packed and one point per
@@ -66,13 +68,13 @@ check raises, so the script exits non-zero and prints no result):
    then fit_best_of(ARDNMF(20, random), n_restarts=8) compacted and
    monolithic, best objective at rtol 1e-4, inferred rank 8.
 11. rank_scan_corrnmf(PCAWG SBS, range(2, 8), n_restarts=4,
-   dim_embeddings=2) over a fixed 100-cycle window, unpadded, padded and
+   dim_embeddings=2) over a fixed 50-cycle window, unpadded, padded and
    packed, and padded one point per call, one run each; best ELBO per rank
    at rtol 1e-4.
 Phases 9-11 run plain PyTorch ops (neither family reaches the kernel).
 12. extract_signatures(PCAWG SBS, range(2, 11), n_bootstraps=20, seed=0)
-   grouped (each rank's lanes through the kernel with a per-lane X) with
-   graphed and eager spans in turns (g, e, e, g), and padded (one
+   grouped (each rank's lanes through the kernel with a per-lane X) once
+   with graphed and once with eager spans, and padded (one
    rank-masked batch of plain ops) once: walls, lane iterations, launches,
    graph replays, suggested rank, min stabilities; each rank's best
    replicate loss agrees across the layouts and span modes at rtol 1e-4.
@@ -106,7 +108,7 @@ Phases 9-11 run plain PyTorch ops (neither family reaches the kernel).
    50 (50 divides no epoch), 100 steps, eval_freq 25: every absorbed
    parameter bit-equal, traces at rtol 1e-5, streaming prefetch 1, 2 and 4
    bit-equal. (b) The synthetic 96 x 200,000 cohort, CorrNMFDet k=5 m=2,
-   init seed 1: 50 full-batch EM cycles, then 500 minibatch steps at
+   init seed 1: 50 full-batch EM cycles, then 250 minibatch steps at
    B=4,096, delay 50, no evaluations, resident and streaming in turns (r,
    s, s, r): steps/s, sample updates/s, peak allocated memory of each
    placement, the four final states bit-equal, the ELBO after the steps
@@ -175,24 +177,44 @@ Phases 9-11 run plain PyTorch ops (neither family reaches the kernel).
    to be streamed): (a) KLNMF(8).fit on suite config5's 96 x 10,000
    catalog (one lane split over S > 1 CTAs) against the same fit through
    the plain block from the same init (KL rtol 1e-4, iterations within
-   5%), ms of wall a block against the kernel's, graphed and eager spans
-   in turns (g, e, e, g); (b) cell 5 at six of its
-   19 ranks: rank_scan_klnmf(96 x 10,000, (2, 5, 8, 12, 16, 20), 100,
-   seed=0, FitConfig(200, 2000, 10, 1e-7)) in the card's default layout: wall,
+   5%), ms of wall a block against the kernel's, graphed and then eager
+   spans; (b) cell 5 at three of its 19 ranks: rank_scan_klnmf(96 x
+   10,000, (2, 8, 20), 100, seed=0, FitConfig(200, 2000, 10, 1e-7)) in
+   the card's default layout: wall,
    lane iterations, launches by kernel; ranks 2, 8 and 20 hold their best
    loss within 1e-4 of fit_klnmf_restarts through the plain block from the
    same starts; (c) one rank group of cell 7b (rank 5, 10 lanes, one
    resample each of synthetic_catalog(96, 200,000, 5, seed=0)) over a
    fixed 200-iteration window, kernel against plain block from one init:
    final losses within 1e-4; the kernel's run with graphed and eager spans
-   in turns (g, e, e, g), then twice with an empty_cache before each
-   capture (what torch.cuda.graph does).
+   in turns (g, e, e, g).
 
-Each of phases 4-19 runs with the kernel's launch counts (in all, by
+20. The JAX suite's cohort cells whole, at the port's defaults (the card,
+   float32; for 7b the grouped layout, graphed spans): (a) cell 7b,
+   extract_signatures(pd.DataFrame(X.T), ranks 2..10, n_bootstraps=10,
+   seed=0, fit_final=False) on synthetic_catalog(96, 200,000, 5, seed=0):
+   wall, layout, chunks, lane iterations, lanes at the 10,000 cap,
+   launches by kernel and X, graphs, ms of wall a block of each rank group
+   (its wall by the host clock around its fit, its longest lane's
+   blocks), peak allocated memory beside the reckoning and the budget;
+   every launch the streamed kernel with a per-lane X, the peak under the
+   budget and the reckoning, the memory reserved after the call and an
+   empty_cache back within one float64 lane-group buffer of before it
+   (the span graphs' shared pool handed back), rank 5 suggested, its minimum silhouette >= 0.99, its consensus
+   matched to the planted signatures at a minimum cosine >= 0.99, every
+   loss finite. (b) cell 8b, assign_signatures(cohort_8b(100,000),
+   COSMIC-79, rel_tol=0.02): wall, chunks, rounds, peak allocated memory
+   beside the reckoning (and under it), mean support, mean KL increase, the share of
+   supports holding all 5 planted signatures; the suite's contract (no
+   sample over the budget by more than 1.5e-7 relative); the first 5,000
+   samples again in float64 on the card: none over the budget, mean
+   support within 0.2 of the float32 run's, the share of equal supports.
+
+Each of phases 4-20 runs with the kernel's launch counts (in all, by
 kernel and by shared or per-lane X) and the engine's CUDA graph counts
 (captures, replays) set to 0 just before it and read just after: every
-kernel path of phases 4-6, 8, 12, 14, 17 (fit, scan, extract), 18 and 19
-replays graphs, every plain-op and sample-sharded path none. A replay
+kernel path of phases 4-6, 8, 12, 14, 17 (fit, scan, extract), 18, 19
+and 20a replays graphs, every plain-op and sample-sharded path none. A replay
 counts the launches its graph holds. The last two lines are the per-kernel JSON
 record and
 {"ok": true, "device": {...}}; the card's name and power limit precede
@@ -487,8 +509,12 @@ def hold_kernel(torch, cuda_klnmf, X, W, H, steps, variant, cluster,
     return largest
 
 
-COHORT_SHARED = ((5, 100), (20, 100), (10, 20), (8, 1))  # (K, R), 96 x 10,000
+# (K, R), 96 x 10,000; K=16, 24 and 28 hold the streamed kernel's compiled
+# ranks that no other shape here or in the card tests reaches
+COHORT_SHARED = ((5, 100), (20, 100), (10, 20), (8, 1), (16, 100),
+                 (24, 100), (28, 100))
 COHORT_7B = (5, 10, 200_000)  # K, lanes, samples: one rank group of cell 7b
+COHORT_7B_RANKS = tuple(range(2, 11))  # phase 3's 7b groups: every rank 20a
 
 
 def cohort_7b_lanes(torch, datasets):
@@ -505,20 +531,20 @@ def phase_kernel_cohort(torch, cuda_klnmf, datasets, synthetic,
     """The streamed kernel at cohort size against the plain version run in
     float64 (the float32 plain block's own error at these D is near the
     tolerance; its errors are printed beside): the
-    96 x 10,000 catalog (suite config5) at (K, R) = (5, 100), (20, 100),
-    (10, 20) and (8, 1), and cell 7b's rank group (10 lanes, one X each of
-    96 x 200,000, K = 5), at every split _kernels_taking names, then the
-    planned kernel and the plain block timed in turns (k, p, p, k) per
-    10-step block beside the bound (block_bound: X reread only where one
-    lane's X and its W and H exceed what the card holds on chip); at R = 1
-    also the plan's split against 8 CTAs a lane in turns. D = 9,999 (no
-    16-byte rows) at K = 5, R = 4 for correctness only. Adds to `timings`; returns the largest
-    absolute error."""
+    96 x 10,000 catalog (suite config5) at COHORT_SHARED's (K, R), and
+    cell 7b's rank groups (10 lanes, one X each of 96 x 200,000, K = 2..10,
+    every compiled rank 20a launches), at every split _kernels_taking
+    names, then the planned kernel and the plain block timed in turns (k,
+    p, p, k) per 10-step block beside the bound (block_bound: X reread
+    only where one lane's X and its W and H exceed what the card holds on
+    chip); at R = 1 also the plan's split against 8 CTAs a lane in turns.
+    D = 9,999 (no 16-byte rows) at K = 5, R = 4 for correctness only. Adds
+    to `timings`; returns the largest absolute error."""
     n_sms = cuda_klnmf._sm_count(0)
     lanes_7b = cohort_7b_lanes(torch, datasets)
     cases = [(synthetic, K, R) for K, R in COHORT_SHARED]
-    cases += [(lanes_7b, COHORT_7B[0], COHORT_7B[1]),
-              (synthetic[:, :9999].contiguous(), 5, 4)]
+    cases += [(lanes_7b, K, COHORT_7B[1]) for K in COHORT_7B_RANKS]
+    cases += [(synthetic[:, :9999].contiguous(), 5, 4)]
     max_abs_err = 0.0
     for X, K, R in cases:
         V, D = X.shape[-2:]
@@ -693,35 +719,40 @@ def eager_spans():
     return _eager_spans()
 
 
-def span_line(tag: str, label: str, blocks: int, walls: dict) -> str:
+def span_line(tag: str, label: str, blocks: int, runs: list) -> str:
     """One line: ms of wall a block of a path run with graphed and with
-    eager spans in turns (walls: {"graphed": [s], "eager": [s]})."""
+    eager spans, in the order run (runs: [(how, seconds)], fit_in_turns)."""
     from salamander_tpu_torch.engine.fit import SPAN
 
     def per_block(name):
-        return ", ".join(f"{1000 * s / blocks:.4f}" for s in walls[name])
+        return ", ".join(f"{1000 * s / blocks:.4f}" for how, s in runs
+                         if how == name)
 
+    def best(name):
+        return min(s for how, s in runs if how == name)
+
+    order = ", ".join(how[0] for how, _ in runs)
     return (f"[{tag}] {label}, span {SPAN}: ms of wall a block graphed "
             f"{per_block('graphed')}, eager {per_block('eager')} (in turns "
-            f"g, e, e, g; {blocks} blocks); graphed at "
-            f"{min(walls['eager']) / min(walls['graphed']):.2f}x the eager "
-            "speed")
+            f"{order}; {blocks} blocks); graphed at "
+            f"{best('eager') / best('graphed'):.2f}x the eager speed")
 
 
-def fit_in_turns(torch, fit, first_seconds: float):
-    """A fit run once with graphed spans already (first_seconds), then
-    eager, eager, graphed: (walls, the results of the eager fits)."""
-    walls = {"graphed": [first_seconds], "eager": []}
+def fit_in_turns(torch, fit, first_seconds: float, turns=("eager",)):
+    """A fit run once with graphed spans already (first_seconds), then in
+    `turns` ("eager" or "graphed"): ([(how, seconds)] in the order run,
+    the results of the eager fits)."""
+    runs = [("graphed", first_seconds)]
     results = []
-    for how in ("eager", "eager", "graphed"):
+    for how in turns:
         if how == "eager":
             with eager_spans():
                 result, seconds = timed(torch, fit)
             results.append(result)
         else:
             result, seconds = timed(torch, fit)
-        walls[how].append(seconds)
-    return walls, results
+        runs.append((how, seconds))
+    return runs, results
 
 
 def phase_main_path(torch, sal, cuda_klnmf):
@@ -748,8 +779,8 @@ def phase_main_path(torch, sal, cuda_klnmf):
           f"{graphs['replays']}")
     check(fit_launches > 0, "the fit did not launch the kernel")
     check(graphs["replays"] > 0, "the fit replayed no CUDA graph")
-    walls, eager = fit_in_turns(torch, fit, seconds)
-    print(span_line("4", "KLNMF(5).fit", n_iterations // BLOCK, walls))
+    runs, eager = fit_in_turns(torch, fit, seconds)
+    print(span_line("4", "KLNMF(5).fit", n_iterations // BLOCK, runs))
     same = all(other.history["n_iterations"] == n_iterations
                and other.history["objective_function"]
                == model.history["objective_function"]
@@ -834,10 +865,10 @@ def phase_headline(torch, sal, cuda_klnmf, random_init_batch, X_host):
             "plain": plain_run}
     seconds = {name: [] for name in runs}
     losses_of, rates, best = {}, {}, {}
-    # the kernel with graphed and eager spans in turns, then the plain path
-    for name in ("kernel", "kernel, eager spans", "kernel, eager spans",
-                 "kernel", "kernel", "kernel, eager spans", "plain",
-                 "plain", "plain"):
+    # the kernel with graphed spans best of 3, one run with eager spans in
+    # between, then the plain path
+    for name in ("kernel", "kernel, eager spans", "kernel", "kernel",
+                 "plain", "plain", "plain"):
         if name == "kernel":
             reset_graphs = graphs_now()["replays"]
         (losses, n_iterations), wall = timed(torch, runs[name])
@@ -853,7 +884,7 @@ def phase_headline(torch, sal, cuda_klnmf, random_init_batch, X_host):
         best[name] = float(np.min(losses_of[name]))
         rates[name] = R * WINDOW / min(seconds[name])
         print(f"[5] {name}: best-of-{R} KL {best[name]:.4f}, "
-              f"{min(seconds[name]):.4f} s best of 3 "
+              f"{min(seconds[name]):.4f} s best of {len(seconds[name])} "
               f"({', '.join(f'{s:.4f}' for s in seconds[name])}), "
               f"{rates[name]:.1f} aggregate MU it/s, "
               f"{1000 * min(seconds[name]) / (WINDOW // BLOCK):.4f} ms of "
@@ -956,9 +987,7 @@ def phase_quickstart(torch, sal, cuda_klnmf):
              for how in ("graphed", "eager")}
     best, losses = {}, {}
     for compact, how in ((True, "graphed"), (True, "eager"),
-                         (False, "graphed"), (False, "eager"),
-                         (False, "eager"), (False, "graphed"),
-                         (True, "eager"), (True, "graphed")):
+                         (False, "eager"), (False, "graphed")):
         before = cuda_klnmf.fused_mu_block.launches
         replays = graphs_now()["replays"]
 
@@ -1074,9 +1103,9 @@ def phase_mvnmf(torch, sal):
 
     walls = {True: [], False: []}
     best = {}
-    # one run of each layout at R=10: the whole script, phase 16 included,
-    # stays near ten minutes
-    mv_restarts = 10
+    # one run of each layout at R=5: the whole script, phases 16 and 20
+    # included, stays near twelve minutes
+    mv_restarts = 5
     for compact in (True, False):
         trials[0] = 0
         mv_ops._renormalized_objective = counting
@@ -1250,7 +1279,7 @@ def phase_ardnmf(torch, sal):
 
 def phase_corrnmf_scan(torch, sal, X_samples):
     """rank_scan_corrnmf(PCAWG SBS, range(2, 8), 4 restarts, m=2) over a
-    fixed 100-cycle window in every layout, one run each."""
+    fixed 50-cycle window in every layout, one run each."""
     from salamander_tpu_torch.engine import FitConfig
 
     layouts = {
@@ -1263,7 +1292,7 @@ def phase_corrnmf_scan(torch, sal, X_samples):
     for name in layouts:  # one run each
         results, seconds = timed(torch, lambda: sal.rank_scan_corrnmf(
             X_samples, range(2, 8), dim_embeddings=2, n_restarts=4,
-            config=FitConfig(100, 100, BLOCK, 1e-7), device="cuda",
+            config=FitConfig(50, 50, BLOCK, 1e-7), device="cuda",
             dtype="float32", **layouts[name]))
         walls[name].append(seconds)
         best[name] = {k: result.best_loss for k, result in results.items()}
@@ -1287,10 +1316,10 @@ def per_lane_launches(cuda_klnmf) -> int:
 def phase_extraction(torch, sal, cuda_klnmf):
     """Cell 7: extract_signatures(PCAWG SBS, range(2, 11), n_bootstraps=20,
     seed=0) in the grouped layout (each rank's lanes through the kernel
-    with a per-lane X), with graphed and eager spans in turns (g, e, e, g),
-    and the padded one (one rank-masked batch of plain ops), one run; each
+    with a per-lane X), once with graphed and once with eager spans, and
+    the padded one (one rank-masked batch of plain ops), one run; each
     rank's best replicate loss agrees across them at rtol 1e-4. Returns the
-    first grouped run's result and its kernel launches."""
+    graphed grouped run's result and its kernel launches."""
     from salamander_tpu_torch import extraction
 
     data = sal.datasets.load_pcawg_sbs()
@@ -1299,7 +1328,6 @@ def phase_extraction(torch, sal, cuda_klnmf):
                           "padded": []}
     run_launches = {}
     for layout, how in (("grouped", "graphed"), ("grouped", "eager"),
-                        ("grouped", "eager"), ("grouped", "graphed"),
                         ("padded", "graphed")):
         if layout == "padded":
             extraction._choose_layout = lambda *args: "padded"
@@ -1339,13 +1367,7 @@ def phase_extraction(torch, sal, cuda_klnmf):
               f"a per-lane X), {replays} graph replays, lane iterations "
               f"{iterations.min()}..{iterations.max()} (sum "
               f"{iterations.sum()}), suggested rank {result.suggested_rank}")
-        run_launches.setdefault(name, launches)
-        if name in results:
-            same = all(np.array_equal(result.replicate_losses[k], losses)
-                       for k, losses in results[name].replicate_losses.items())
-            print(f"[12] {name} again: replicate losses bit-equal to its "
-                  f"first run {same}")
-            continue
+        run_launches[name] = launches
         results[name] = result
         print(f"[12] {name} min stability per rank: " + ", ".join(
             f"{k}:{s:.4f}" for k, s in table["min_stability"].items()))
@@ -1799,12 +1821,12 @@ def phase_svi_equality(torch, sal):
 
 def phase_svi_cell3c(torch, sal):
     """The 96 x 200,000 synthetic cohort, CorrNMFDet k=5, m=2: full-batch
-    EM cycles/s, then 500 minibatch steps at B=4,096 resident and
+    EM cycles/s, then 250 minibatch steps at B=4,096 resident and
     streaming in turns."""
     from salamander_tpu_torch.models.signature_nmf import host_rows
     from salamander_tpu_torch.ops import svi
 
-    D, B, n_steps, n_cycles = 200_000, 4096, 500, 50
+    D, B, n_steps, n_cycles = 200_000, 4096, 250, 50
     X_host, seconds = timed(torch, lambda: np.ascontiguousarray(
         sal.datasets.synthetic_catalog(96, D, 5, seed=0).T, dtype=np.float32))
     model = sal.CorrNMFDet(n_signatures=5, dim_embeddings=2, device="cuda",
@@ -2956,8 +2978,8 @@ def phase_mesh(torch, sal, cuda_klnmf, X_host, drive, grouped, launches):
 
 
 # suite config5 scans k = 2..20 x 100 restarts; the whole scan took 45.7 s
-# of a 652 s script, so the script runs six of its ranks at full width
-COHORT_RANKS = (2, 5, 8, 12, 16, 20)
+# of a 652 s script, so the script runs three of its ranks at full width
+COHORT_RANKS = (2, 8, 20)
 COHORT_RESTARTS = 100
 COHORT_CHECKED_RANKS = (2, 8, 20)  # held against the plain block's fits
 
@@ -3049,9 +3071,9 @@ def phase_cohort_fit(torch, sal, cuda_klnmf, timings):
           f"{1000 * seconds / blocks:.4f} ms of wall a block against "
           f"{kernel_ms:.4f} ms of kernel (phase 3)")
     check(graphs["replays"] > 0, "19a: the fit replayed no CUDA graph")
-    walls, eager = fit_in_turns(torch, fit, seconds)
+    runs, eager = fit_in_turns(torch, fit, seconds)
     print(span_line("19", f"KLNMF(8).fit on 96 x {X.shape[1]:,}", blocks,
-                    walls))
+                    runs))
     check(all(other.history["n_iterations"] == n_iterations
               for other in eager),
           "19a: graphed and eager spans stop the fit at other iterations")
@@ -3120,25 +3142,6 @@ def phase_cohort_scan(torch, sal, cuda_klnmf):
                          plain.best_loss)
 
 
-@contextmanager
-def emptying_captures(torch):
-    """Every capture of engine.fit's spans begins with
-    torch.cuda.empty_cache(), as torch.cuda.graph's captures do."""
-    from salamander_tpu_torch.engine import fit as engine_fit
-
-    real = engine_fit._Spans._capture
-
-    def capture(self, *args):
-        torch.cuda.empty_cache()
-        real(self, *args)
-
-    engine_fit._Spans._capture = capture
-    try:
-        yield
-    finally:
-        engine_fit._Spans._capture = real
-
-
 def phase_cohort_7b(torch, sal, cuda_klnmf, timings):
     """19c, a cell 7b probe: one rank group (rank 5, 10 lanes, one
     multinomial resample of synthetic_catalog(96, 200,000, 5, seed=0) per
@@ -3169,17 +3172,12 @@ def phase_cohort_7b(torch, sal, cuda_klnmf, timings):
 
     (kernel, kernel_losses), seconds = timed(torch, kernel_fit)
     launches = streamed_only(cuda_klnmf, "19c cell 7b rank group")
-    walls, eager = fit_in_turns(torch, kernel_fit, seconds)
-    print(span_line("19", "cell 7b rank group", 200 // BLOCK, walls))
+    runs, eager = fit_in_turns(torch, kernel_fit, seconds,
+                               turns=("eager", "eager", "graphed"))
+    print(span_line("19", "cell 7b rank group", 200 // BLOCK, runs))
     same = all(torch.equal(kernel_losses, losses) for _, losses in eager)
     print(f"[19] cell 7b rank group, graphed and eager spans: final losses "
           f"bit-equal {same}")
-    with emptying_captures(torch):
-        emptied = [timed(torch, kernel_fit)[1] for _ in range(2)]
-    print(f"[19] cell 7b rank group with torch.cuda.graph's empty_cache "
-          f"before each capture: {', '.join(f'{s:.4f}' for s in emptied)} s "
-          f"against {', '.join(f'{s:.4f}' for s in walls['graphed'])} s "
-          "graphed without it")
     (plain, plain_losses), plain_seconds = timed(torch, lambda: lockstep_fit(
         objective_fn, config, plain_block_update, params0, data))
     kernel_losses = kernel_losses.cpu().numpy()
@@ -3202,9 +3200,248 @@ def phase_cohort_7b(torch, sal, cuda_klnmf, timings):
           f"{gap:.2e} relative, best {kernel_losses.min():.2f}")
 
 
+# cell 7b (suite:950): 96 x 200,000 planted k=5, ranks 2..10 x 10 bootstraps
+CELL_7B = dict(n_features=96, n_samples=200_000, n_signatures=5, seed=0)
+CELL_7B_RANKS = range(2, 11)
+CELL_7B_BOOTSTRAPS = 10
+CELL_7B_MIN_SILHOUETTE = 0.99  # the JAX package's float32 run: 1.000
+CELL_7B_MIN_COSINE = 0.99      # the rank-5 consensus against the planted
+CELL_8B_SAMPLES = 100_000      # suite:1044
+CELL_8B_FLOAT64_SAMPLES = 5_000
+CELL_8B_SUPPORT_GAP = 0.2      # mean support, float32 against float64
+BUDGET_ULP = 1.5e-7  # the suite's contract: one f32 ulp re-deriving it
+
+
+def matched_cosines(found: np.ndarray, truth: np.ndarray) -> np.ndarray:
+    """Cosines of the columns of `found` (V, k) Hungarian-matched to those
+    of `truth` (V, k)."""
+    from scipy.optimize import linear_sum_assignment
+
+    def unit(a):
+        return a / np.linalg.norm(a, axis=0, keepdims=True)
+
+    cosine = unit(found).T @ unit(truth)
+    rows, cols = linear_sum_assignment(-cosine)
+    return cosine[rows, cols]
+
+
+@contextmanager
+def rank_groups(torch, cuda_klnmf, record: list):
+    """Wraps extraction._discovery_fit, the fit of one rank group in the
+    grouped layout, to append (rank, seconds, launches) of each group to
+    `record` (the host clock ending in a sync)."""
+    from salamander_tpu_torch import extraction
+
+    real = extraction._discovery_fit
+
+    def timed_fit(params0, *args, **kwargs):
+        launches = cuda_klnmf.fused_mu_block.launches
+        out, seconds = timed(torch, lambda: real(params0, *args, **kwargs))
+        record.append((params0["W"].shape[-1], seconds,
+                       cuda_klnmf.fused_mu_block.launches - launches))
+        return out
+
+    extraction._discovery_fit = timed_fit
+    try:
+        yield
+    finally:
+        extraction._discovery_fit = real
+
+
+def phase_cell_7b(torch, sal, cuda_klnmf):
+    """20a, cell 7b whole: extract_signatures(pd.DataFrame(X.T), ranks
+    2..10, n_bootstraps=10, seed=0, fit_final=False) on
+    synthetic_catalog(96, 200,000, 5, seed=0) at the port's defaults (the
+    card, float32, the grouped layout, graphed spans). Every launch is the
+    streamed kernel with a per-lane X; the peak allocated memory stays
+    under the memory budget and extraction._chunk_bytes; the memory
+    reserved after the call and an empty_cache is back near its level
+    before it; rank 5 is suggested, its minimum silhouette
+    is >= 0.99 and its consensus, matched to the planted signatures, has
+    a minimum cosine >= 0.99; every loss is finite."""
+    import pandas as pd
+
+    from salamander_tpu_torch import assign, extraction
+
+    X, truth, _ = sal.datasets.synthetic_catalog(**CELL_7B,
+                                                 return_truth=True)
+    V, D = X.shape
+    ranks = list(CELL_7B_RANKS)
+    n_lanes = len(ranks) * CELL_7B_BOOTSTRAPS
+    device = torch.device("cuda")
+    budget = assign._memory_budget(device)
+    chunk = extraction._lane_chunk_size(n_lanes, None, torch.float32, V, D,
+                                        ranks[-1], device, CELL_7B_BOOTSTRAPS,
+                                        batch_lanes=CELL_7B_BOOTSTRAPS)
+    reckoned = extraction._chunk_bytes(
+        chunk, min(chunk, CELL_7B_BOOTSTRAPS), CELL_7B_BOOTSTRAPS,
+        torch.float32, V, D, ranks[-1])
+    groups = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reserved = torch.cuda.memory_reserved()
+    with rank_groups(torch, cuda_klnmf, groups):
+        result, seconds = timed(torch, lambda: sal.extract_signatures(
+            pd.DataFrame(X.T), ranks=CELL_7B_RANKS,
+            n_bootstraps=CELL_7B_BOOTSTRAPS, seed=0, fit_final=False))
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    kept = torch.cuda.memory_reserved() - reserved
+    kernel = cuda_klnmf.fused_mu_block
+    graphs = graphs_now()
+    iterations = {k: np.asarray(it) for k, it in
+                  result.replicate_iterations.items()}
+    total = int(sum(it.sum() for it in iterations.values()))
+    capped = int(sum((it >= 10_000).sum() for it in iterations.values()))
+    print(f"[20a] cell 7b, extract_signatures(96 x {D:,}, ranks "
+          f"{ranks[0]}..{ranks[-1]} x {CELL_7B_BOOTSTRAPS} bootstraps = "
+          f"{n_lanes} lanes): {seconds:.3f} s, layout {result.layout}, "
+          f"{-(-n_lanes // chunk)} chunk(s) of {chunk} lanes, {total} lane "
+          f"iterations, {capped} lanes stopped at the 10,000 cap, "
+          f"{kernel.launches} launches (by kernel "
+          f"{dict(kernel.launches_by_variant)}, by X "
+          f"{dict(kernel.launches_by_x)}), CUDA graphs captured "
+          f"{graphs['captures']}, replayed {graphs['replays']}")
+    print(f"[20a] peak allocated memory {peak / 1e9:.3f} GB against "
+          f"{reckoned / 1e9:.3f} GB reckoned (extraction._chunk_bytes of a "
+          f"chunk) and a budget of {budget / 1e9:.3f} GB; reserved after "
+          f"the call and an empty_cache {kept / 1e9:+.3f} GB against before")
+    for k, group_seconds, launches in groups:
+        it = iterations[k]
+        blocks = -(-int(it.max()) // BLOCK)
+        print(f"[20a] rank group k={k}: {group_seconds:.3f} s, lane "
+              f"iterations {it.min()}..{it.max()} (sum {it.sum()}), "
+              f"{launches} launches, {1000 * group_seconds / blocks:.3f} ms "
+              f"of wall a block of the group ({blocks} blocks of its "
+              f"longest lane), {1000 * group_seconds * BLOCK / it.sum():.3f}"
+              " ms a lane-block")
+    table = result.table
+    print("[20a] min silhouette per rank: " + ", ".join(
+        f"{k}:{s:.4f}" for k, s in table["min_stability"].items()))
+    cosines = matched_cosines(result.consensus[5].to_numpy().T, truth)
+    print(f"[20a] suggested rank {result.suggested_rank} (planted 5); the "
+          f"rank-5 consensus against the planted signatures: cosines "
+          f"{', '.join(f'{c:.5f}' for c in np.sort(cosines))}")
+    check(result.layout == "grouped", f"20a ran {result.layout}")
+    check(kernel.launches > 0 and kernel.launches_by_variant["streamed"]
+          == kernel.launches == kernel.launches_by_x["per_lane"],
+          "20a: not every launch is the streamed kernel with a per-lane X")
+    check(len(groups) == len(ranks), f"20a ran {len(groups)} rank groups")
+    check(peak < budget, f"20a: peak {peak} B over the budget {budget} B")
+    check(peak <= reckoned, f"20a: peak {peak} B over the reckoned "
+          f"{reckoned:.0f} B")
+    # a rank group's span graph pool holds five of these
+    one_buffer = 8 * CELL_7B_BOOTSTRAPS * V * D  # float64 (R, V, D)
+    check(kept < one_buffer, f"20a: {kept} B still reserved after the call")
+    check(result.suggested_rank == 5,
+          f"20a suggested rank {result.suggested_rank}, planted 5")
+    check(float(table.loc[5, "min_stability"]) >= CELL_7B_MIN_SILHOUETTE,
+          "20a: the rank-5 silhouette is below 0.99")
+    check(float(cosines.min()) >= CELL_7B_MIN_COSINE,
+          "20a: the rank-5 consensus misses a planted signature")
+    check(bool(np.isfinite(table.to_numpy()).all()) and all(
+        np.isfinite(losses).all()
+        for losses in result.replicate_losses.values()),
+          "20a: a loss is not finite")
+    return {"groups": groups, "peak": peak, "reckoned": reckoned}
+
+
+def cohort_8b(n_samples: int, seed: int = 0):
+    """Cell 8b's cohort (suite:1058-1072): 5 of the COSMIC-79 signatures
+    (columns normalized) planted with gamma(2, 400) exposures, Poisson
+    counts with zeros set to 1. Returns (samples x channels counts,
+    float64; the catalog; the planted signatures' indices)."""
+    import pandas as pd
+
+    from salamander_tpu_torch import datasets
+
+    rng = np.random.default_rng(seed)
+    cosmic = datasets.load_cosmic_sbs_catalog()          # (79, 96)
+    W = cosmic.to_numpy().T                              # (96, 79)
+    W = W / W.sum(axis=0, keepdims=True)
+    planted = rng.choice(79, size=5, replace=False)
+    H = np.zeros((79, n_samples))
+    H[planted] = rng.gamma(2.0, 400.0, size=(5, n_samples))
+    X = rng.poisson(W @ H).astype(np.float64)
+    X[X == 0] = 1.0
+    return pd.DataFrame(X.T, columns=cosmic.columns), cosmic, planted
+
+
+def budget_excess(result) -> np.ndarray:
+    """The suite's per-sample excess over the acceptance budget,
+    (kl_sparse - 1.02 kl_dense) / |kl_dense|."""
+    kl_dense = result.kl_dense.to_numpy()
+    return (result.kl_sparse.to_numpy() - 1.02 * kl_dense) / np.abs(kl_dense)
+
+
+def phase_cell_8b(torch, sal):
+    """20b, cell 8b whole: assign_signatures(cohort_8b(100,000), COSMIC-79,
+    rel_tol=0.02) at the port's defaults (the card, float32): the suite's
+    contract (no sample over the budget by more than one f32 ulp); then
+    the first 5,000 samples again in float64 on the card: none over the
+    budget, mean support within 0.2 of the float32 run's there."""
+    from salamander_tpu_torch import assign
+
+    data, cosmic, planted = cohort_8b(CELL_8B_SAMPLES)
+    D, V = data.shape
+    K = cosmic.shape[0]
+    device = torch.device("cuda")
+    per_sample = assign.candidate_bytes_per_sample(V, K, 4)
+    together = assign._memory_lanes(device, per_sample, D)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    result, seconds = timed(torch, lambda: sal.assign_signatures(
+        data, cosmic, rel_tol=0.02))
+    peak = torch.cuda.max_memory_allocated()
+    excess = budget_excess(result)
+    support = result.n_active.to_numpy()
+    active = result.active.to_numpy()
+    kl_dense = result.kl_dense.to_numpy()
+    kl_sparse = result.kl_sparse.to_numpy()
+    print(f"[20b] cell 8b, assign_signatures({D:,} samples x COSMIC-{K}, "
+          f"rel_tol=0.02): {seconds:.3f} s, "
+          f"{-(-D // result.meta['batch_size'])} chunk(s), candidates of "
+          f"{together:,} samples at once, {result.meta['n_rounds']} "
+          f"elimination rounds, mean support {support.mean():.3f} "
+          f"({support.min()}..{support.max()}), mean KL increase "
+          f"{100 * np.mean(kl_sparse / kl_dense - 1):.4f}%, all 5 planted "
+          f"signatures in {np.mean(active[:, planted].all(1)):.4f} of the "
+          f"supports, max budget excess {excess.max():.3e} "
+          f"({int((excess > 0).sum())} samples above 0)")
+    print(f"[20b] peak allocated memory {peak / 1e9:.3f} GB against "
+          f"{per_sample * D / 1e9:.3f} GB reckoned ({D:,} x "
+          f"assign.candidate_bytes_per_sample) and a budget of "
+          f"{assign._memory_budget(device) / 1e9:.3f} GB")
+    check(bool(np.isfinite(kl_sparse).all() and np.isfinite(
+        result.exposures.to_numpy()).all()), "20b: non-finite results")
+    check(float(excess.max()) <= BUDGET_ULP,
+          f"20b: budget contract violated, max excess {excess.max():.2e}")
+    check(peak <= per_sample * D, f"20b: peak {peak} B over the reckoned "
+          f"{per_sample * D} B")
+
+    n = CELL_8B_FLOAT64_SAMPLES
+    exact, seconds = timed(torch, lambda: sal.assign_signatures(
+        data.iloc[:n], cosmic, rel_tol=0.02, dtype=torch.float64))
+    exact_support = exact.n_active.to_numpy()
+    gap = abs(exact_support.mean() - support[:n].mean())
+    equal = np.mean((exact.active.to_numpy() == active[:n]).all(1))
+    print(f"[20b] the first {n:,} samples in float64: {seconds:.3f} s, "
+          f"{exact.meta['n_rounds']} rounds, mean support "
+          f"{exact_support.mean():.3f} against {support[:n].mean():.3f} in "
+          f"float32, supports equal in {equal:.4f} of the samples, max "
+          f"budget excess {budget_excess(exact).max():.3e}")
+    check(bool((exact.kl_sparse.to_numpy()
+                <= 1.02 * exact.kl_dense.to_numpy()).all()),
+          "20b: a float64 sample over the budget")
+    check(gap <= CELL_8B_SUPPORT_GAP,
+          f"20b: mean supports {gap:.3f} apart, float32 against float64")
+    return {"peak": peak, "reckoned": per_sample * D}
+
+
 def main() -> int:
     import torch
 
+    script_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3267,6 +3504,8 @@ def main() -> int:
           cuda_klnmf)
     drive("19c cell 7b rank group", phase_cohort_7b, torch, sal, cuda_klnmf,
           timings)
+    cell_7b = drive("20a cell 7b", phase_cell_7b, torch, sal, cuda_klnmf)
+    drive("20b cell 8b", phase_cell_8b, torch, sal)
     check(launches["18b mesh, two ranks over gloo (this process)"] == 0,
           "phase 18b's fits run in its two ranks, not here")
     for path, (count, variants, xs, replays) in ranks.items():
@@ -3285,7 +3524,7 @@ def main() -> int:
                    "11 rank_scan_corrnmf", "13 assignment",
                    "15 MultimodalCorrNMF", "16 SVI and streaming",
                    "17b CLI assign", "17b CLI assign --dense",
-                   "17b CLI bootstrap"]
+                   "17b CLI bootstrap", "20b cell 8b"]
     for path in launches:
         if path.startswith("18b mesh (1, 2)") or path in (
                 "18a CLI assign --mesh auto",
@@ -3307,8 +3546,10 @@ def main() -> int:
         check(launches[path] > 0, f"path {path} launched no kernel")
         check(by_variant[path]["resident"] > 0,
               f"path {path} did not run the resident kernel")
+    check(launches["20b cell 8b"] == 0,
+          "cell 8b runs plain ops: it has no kernel to launch")
     for path in ("19a KLNMF.fit cohort", "19b rank_scan_klnmf cohort",
-                 "19c cell 7b rank group"):
+                 "19c cell 7b rank group", "20a cell 7b"):
         check(launches[path] > 0 and by_variant[path]["streamed"]
               == launches[path], f"path {path}: not every launch streamed")
     for path in ("4 KLNMF.fit", "5 fit_klnmf_restarts",
@@ -3318,11 +3559,13 @@ def main() -> int:
                  "18a mesh, NCCL world of one",
                  "18a extract_signatures, 1 x 1 mesh", *mesh_kernel,
                  *mesh_extract, "19a KLNMF.fit cohort",
-                 "19b rank_scan_klnmf cohort", "19c cell 7b rank group"):
+                 "19b rank_scan_klnmf cohort", "19c cell 7b rank group",
+                 "20a cell 7b"):
         check(graphs[path]["replays"] > 0,
               f"path {path}: the kernel route replayed no CUDA graph")
-    check(by_x["19c cell 7b rank group"]["per_lane"] > 0,
-          "the cell 7b group launched no kernel with a per-lane X")
+    for path in ("19c cell 7b rank group", "20a cell 7b"):
+        check(by_x[path]["per_lane"] == launches[path],
+              f"path {path} launched the kernel with a shared X")
     for path in ("12 extract_signatures", "14 bootstrap", "17b CLI extract",
                  "18a extract_signatures, 1 x 1 mesh",
                  "18a CLI extract --mesh auto", *mesh_extract):
@@ -3344,6 +3587,7 @@ def main() -> int:
           f"eager ones ({blocks} blocks; the rest is the float64 objective, "
           "the lane freeze and, eager, the launches and one host read a "
           "span)")
+    print(f"[wall] chip_smoke.py {time.perf_counter() - script_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": [{
         "name": "fused_mu_block",
@@ -3358,6 +3602,8 @@ def main() -> int:
         "launches_by_x": {
             x: sum(counts[x] for counts in by_x.values())
             for x in ("shared", "per_lane")},
+        "launches_20a_by_rank_group": {
+            k: n for k, _, n in cell_7b["groups"]},
         "graph_replays": sum(g["replays"] for g in graphs.values()),
         "max_abs_err": max_abs_err,
         "variant": "resident",

@@ -262,11 +262,20 @@ def assign_exposures(data, catalog, max_iterations: int = 10_000,
 
 def candidate_bytes_per_sample(n_features: int, n_signatures: int,
                                itemsize: int) -> int:
-    """The memory model of one sample in an elimination round: the
-    candidate exposures twice at (K, K) (state and update) and the
-    products WH and aux at (K, V)."""
+    """The memory model of one sample in an elimination round, the most
+    it holds at once. Its candidates: a candidate MU step keeps the warm
+    start, the state, the new exposures, their clip and their select at
+    (K, K) beside aux at (K, V); the candidates' KL keeps the exposures at
+    (K, K) beside three (K, V) products; the candidate masks are (K, K)
+    bools throughout. Its own state through the rounds (the counts, the
+    dense, current and accepted exposures, masks and KLs), reckoned as
+    2 V + 8 K elements. An H100 run of cell 8b (100,000 samples x
+    COSMIC-79, float32) held 655 elements a sample of its own and peaked
+    0.4% under this reckoning (PERF.md)."""
     K, V = n_signatures, n_features
-    return itemsize * (2 * K * K + 2 * K * V)
+    candidates = (itemsize * max(5 * K * K + K * V, K * K + 3 * K * V)
+                  + K * K)
+    return candidates + itemsize * (2 * V + 8 * K)
 
 
 def assign_signatures(
@@ -297,10 +306,10 @@ def assign_signatures(
     Samples are independent; the only chunking effect is that the
     convergence test aggregates the objective per chunk, so refits may stop
     a block earlier or later. Device memory needs no ``batch_size``: within
-    a chunk the candidate tensors (candidate_bytes_per_sample: H twice at
-    (K, K, B), WH and aux at (K, V, B)) are evaluated for as many samples
-    at once as fit the memory budget (_memory_budget), which changes no
-    result and no store.
+    a chunk the candidate tensors ((K, K, B) exposures and (K, V, B)
+    products, candidate_bytes_per_sample) are evaluated for as many
+    samples at once as fit the memory budget (_memory_budget), which
+    changes no result and no store.
 
     ``checkpoint_dir``: preemption-safe resume (checkpoint.ChunkStore):
     every completed chunk is written atomically, and a rerun with the same

@@ -15,6 +15,7 @@ from .fit import (  # noqa: F401
     kernel_route,
     make_fit_function,
     run_lockstep_segment,
+    shared_span_pool,
     tolerance_floor,
 )
 from .transfer import (  # noqa: F401

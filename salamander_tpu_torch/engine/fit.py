@@ -164,6 +164,53 @@ def _capture_stream(device_index: int):
     return torch.cuda.Stream(device=device_index)
 
 
+# within shared_span_pool(): the last released span graph of each card
+# (device index -> CUDAGraph), kept until the next capture there shares
+# its memory pool; None outside it
+_handoff: dict | None = None
+
+
+@contextlib.contextmanager
+def shared_span_pool():
+    """A scope in which the fits captured one after another on a card
+    share one memory pool: a released span graph is kept, never replayed
+    again, until the next capture there takes over its pool and resets
+    it. With a pool for each capture, every released graph's memory stayed
+    cached, the allocator cannot hand cached memory back to the card while
+    a capture runs, and cell 7b's rank groups (96 x 200,000) ran an H100
+    out of memory (PERF.md). When the outermost scope ends, the graph it
+    kept is reset, so its pool is cached memory that
+    torch.cuda.empty_cache() hands back. Outside a scope a released graph
+    is reset at once."""
+    global _handoff
+    if _handoff is not None:  # nested: the outermost scope ends it
+        yield
+        return
+    _handoff = {}
+    try:
+        yield
+    finally:
+        kept, _handoff = _handoff, None
+        for graph in kept.values():
+            graph.reset()
+
+
+def _end_capture(graph, pool, device_index: int) -> None:
+    """graph.capture_end() of a capture into `pool`. Where the capture
+    failed (a host read in the span), capture_end raises before it tells
+    the allocator that the capture ended: the allocator would go on
+    counting a capture under way and free no cached memory for the rest
+    of the process, empty_cache included (on an H100, fits after a failed
+    capture left 3 GB that empty_cache could not hand back). End it there,
+    and release the capture's hold on the pool."""
+    try:
+        graph.capture_end()
+    except RuntimeError:
+        torch._C._cuda_endAllocateToPool(device_index, pool)
+        torch._C._cuda_releasePool(device_index, pool)
+        raise
+
+
 class _Spans:
     """Runs spans of `step` (one block: loop state -> loop state, a
     NamedTuple of tensors with a `params` tree).
@@ -176,8 +223,8 @@ class _Spans:
     same tensors, and each later run() is given the state the last one
     returned. A span shorter than SPAN (the last) runs eagerly. Each
     replay adds the kernel launches its graph holds to the kernel's
-    counts (ops.cuda_klnmf). release() frees the graph and its memory
-    pool."""
+    counts (ops.cuda_klnmf). release() ends the graph's use: it is reset,
+    or within shared_span_pool() kept for the next capture's pool."""
 
     def __init__(self, step, graphed: bool):
         self.step = step
@@ -215,11 +262,16 @@ class _Spans:
         # before each capture hands the eager spans' memory back to the
         # card only for the capture to take it again: at a cell 7b rank
         # group's size that made graphed spans slower than eager ones
-        # (chip_smoke.py phase 19c; PERF.md)
+        # (chip_smoke.py phase 19c; PERF.md). Within shared_span_pool() the
+        # capture shares the pool of the card's last released span graph
+        previous = (None if _handoff is None
+                    else _handoff.pop(self.device.index, None))
         torch.cuda.synchronize(self.device)
         with torch.cuda.device(self.device), torch.cuda.stream(
                 _capture_stream(self.device.index)):
-            graph.capture_begin()
+            pool = (torch.cuda.graph_pool_handle() if previous is None
+                    else previous.pool())
+            graph.capture_begin(pool=pool)
             try:
                 state = state_type(**tree_unflatten(flat))
                 for _ in range(SPAN):
@@ -229,14 +281,23 @@ class _Spans:
                         flat[path].copy_(leaf)
                 del state
             finally:
-                graph.capture_end()
+                try:
+                    _end_capture(graph, pool, self.device.index)
+                finally:
+                    if previous is not None:
+                        previous.reset()
         self.graph = graph
         self.launches = cuda_klnmf.captured_launches()
         graph_counts["captures"] += 1
 
     def release(self) -> None:
-        if self.graph is not None:
+        if self.graph is not None and _handoff is None:
             self.graph.reset()
+        elif self.graph is not None:
+            stale = _handoff.pop(self.device.index, None)
+            if stale is not None:
+                stale.reset()
+            _handoff[self.device.index] = self.graph
         self.graph, self.static, self.launches = None, {}, []
 
 

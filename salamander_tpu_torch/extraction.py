@@ -32,7 +32,9 @@ The clustering runs on the host (copied): Hungarian matching on (k x k)
 cosine matrices and silhouettes.
 
 Memory: the discovery fit holds per-lane data, ``len(ranks) * n_bootstraps
-* V * D`` elements. Beyond the lane budget (``max_lane_gb``; None: a
+* V * D`` elements, and the lanes that run a block together (a rank group,
+or every lane of a chunk when padded) their objective's float64 buffers
+(_chunk_bytes). Beyond the lane budget (``max_lane_gb``; None: a
 fixed share of the card's total memory, unlimited on the CPU) the lanes
 run as consecutive equal chunks with results identical to one chunk, and
 a store keeps one entry per lane, so it resumes under any budget. The B
@@ -64,7 +66,7 @@ import pandas as pd
 import torch
 
 from . import containers
-from .engine import FitConfig
+from .engine import FitConfig, shared_span_pool
 from .ops.assign import resample_counts
 from .ops.klnmf import EPSILON
 
@@ -388,14 +390,49 @@ def _suggest_rank(ranks, min_sil, min_stability: float,
     return int(ranks[start:][prefix_end])
 
 
+def _lane_bytes(n_bootstraps: int, dtype, n_features: int, n_samples: int,
+                n_padded: int) -> tuple[float, float, float]:
+    """The memory model of the discovery lanes: (shared, each lane of a
+    chunk, each lane of its largest batch, the lanes that run a block
+    together). Shared: the cohort and its bootstrap resamples (V x D
+    each), on the card through every chunk's fit. Each lane of a chunk:
+    its bootstrap counts (V x D) and its factor pair twice (the init and
+    the result). Each lane of the batch: its counts gathered into the
+    batch (V x D), the five float64 V x D buffers that the convergence
+    objective holds at once (the float64 counts, WH, the ratio and two
+    temporaries) and its factor pair six times more (the loop state, its
+    update and freeze, the runner's copies; an H100 run of cell 7b's rank
+    groups held 5.5 such copies, PERF.md)."""
+    itemsize = torch.finfo(dtype).bits // 8
+    elements = n_features * n_samples
+    factors = itemsize * n_padded * (n_features + n_samples)
+    return ((1 + n_bootstraps) * itemsize * elements,
+            itemsize * elements + 2 * factors,
+            itemsize * elements + 8 * 5 * elements + 6 * factors)
+
+
+def _chunk_bytes(n_chunk: int, batch: int, n_bootstraps: int, dtype,
+                 n_features: int, n_samples: int, n_padded: int) -> float:
+    """The reckoned peak of a chunk of n_chunk discovery lanes whose
+    largest batch has `batch` lanes (_lane_bytes). An H100 run of cell 7b
+    (96 x 200,000, 90 lanes in rank groups of 10, float32) peaked 2% under
+    it (PERF.md)."""
+    shared, lane, batch_lane = _lane_bytes(n_bootstraps, dtype, n_features,
+                                           n_samples, n_padded)
+    return shared + n_chunk * lane + batch * batch_lane
+
+
 def _lane_chunk_size(n_lanes: int, max_lane_gb, dtype, n_features: int,
-                     n_samples: int, n_padded: int, device) -> int:
-    """Lanes per discovery chunk. Per-lane residency during a block: the
-    lane's bootstrap counts plus the aux quotient and the WH product
-    (3.5 V x D buffers) and the factor pairs twice (state and scatter
-    target), against max_lane_gb, or the memory budget of the device
+                     n_samples: int, n_padded: int, device,
+                     n_bootstraps: int,
+                     batch_lanes: int | None = None) -> int:
+    """Lanes per discovery chunk: the most whose _chunk_bytes fit
+    max_lane_gb, or the memory budget of the device
     (assign._memory_budget: a fixed share of the card's total memory,
-    unlimited on the CPU). The size decides no result and is no part of a
+    unlimited on the CPU), at least one, evened into equal chunks.
+    batch_lanes: the most lanes that run a block together (the grouped
+    layout's rank groups: n_bootstraps); None, every lane of a chunk (the
+    padded layout). The size decides no result and is no part of a
     store's identity: lanes are fitted and stored one by one."""
     from .assign import _memory_budget
 
@@ -405,11 +442,13 @@ def _lane_chunk_size(n_lanes: int, max_lane_gb, dtype, n_features: int,
               else _memory_budget(torch.device(device)))
     if budget is None:
         return n_lanes
-    itemsize = torch.finfo(dtype).bits // 8
-    bytes_per_lane = itemsize * (
-        3.5 * n_features * n_samples + 2 * n_padded * (n_features + n_samples)
-    )
-    n_chunks = max(1, int(-((n_lanes * bytes_per_lane) // -budget)))
+    shared, lane, batch_lane = _lane_bytes(n_bootstraps, dtype, n_features,
+                                           n_samples, n_padded)
+    room = budget - shared
+    fits = room // (lane + batch_lane)  # every lane of the chunk a batch's
+    if batch_lanes is not None and fits >= batch_lanes:
+        fits = (room - batch_lanes * batch_lane) // lane
+    n_chunks = -(-n_lanes // max(1, int(fits)))
     return -(n_lanes // -n_chunks)
 
 
@@ -567,7 +606,9 @@ def extract_signatures(
     layout = _choose_layout(model, dtype, n_given, ranks, n_features,
                             n_samples, device)
     chunk_size = n_lanes if mesh is not None else _lane_chunk_size(
-        n_lanes, max_lane_gb, dtype, n_features, n_samples, n_padded, device)
+        n_lanes, max_lane_gb, dtype, n_features, n_samples, n_padded, device,
+        n_bootstraps, batch_lanes=n_bootstraps if layout == "grouped"
+        else None)
     use_runner = (
         device.type == "cuda" and config.min_iterations
         < config.max_iterations
@@ -646,14 +687,15 @@ def extract_signatures(
                     -1, sample_lo, width).contiguous()
                 lane_data["X"] = lane_data["X"].narrow(
                     -1, sample_lo, width).contiguous()
-            if layout == "grouped":
-                W_m, loss_m, iter_m = _grouped_fit(
-                    params0, lane_data, lane_ranks[sl[mine]], config,
-                    use_runner, reduce_samples)
-            else:
-                W_m, loss_m, iter_m = _discovery_fit(
-                    params0, lane_data, config, model, lam, delta, n_given,
-                    use_runner, reduce_samples=reduce_samples)
+            with shared_span_pool():  # the rank groups' span graphs
+                if layout == "grouped":
+                    W_m, loss_m, iter_m = _grouped_fit(
+                        params0, lane_data, lane_ranks[sl[mine]], config,
+                        use_runner, reduce_samples)
+                else:
+                    W_m, loss_m, iter_m = _discovery_fit(
+                        params0, lane_data, config, model, lam, delta,
+                        n_given, use_runner, reduce_samples=reduce_samples)
             rows = torch.as_tensor(mine, device=device)
             W_c[rows] = W_m
             loss_c[rows] = loss_m.to(torch.float64)

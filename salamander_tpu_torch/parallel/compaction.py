@@ -39,6 +39,7 @@ from ..engine.fit import (
     fit_loop_lockstep,
     init_lockstep_state,
     run_lockstep_segment,
+    shared_span_pool,
 )
 from ..engine.tree import (
     by_leaf_name,
@@ -144,6 +145,7 @@ class CompactingRunner:
             "objective_max": float(of_prev.max()),
         })
 
+    @shared_span_pool()  # the buckets' span graphs share one memory pool
     def run(self, params0, data):
         """Fit all lanes to their own convergence, compacting the batch as
         lanes finish. Returns (FitResult, final_loss) with every tensor at

@@ -334,12 +334,18 @@ def test_bootstrap_chunks_and_seeds(small):
 
 
 def test_memory_model_sizes_chunks():
-    """The candidate tensors' memory model: H twice at (K, K) and WH and
-    aux at (K, V) per sample; COSMIC-79 x 100,000 samples come to ~11 GB
-    in float32 at one chunk."""
+    """The memory model of a sample in an elimination round: a candidate
+    step's five (K, K) exposures beside aux at (K, V), or the KL's (K, K)
+    exposures beside three (K, V) products, whichever is more, the (K, K)
+    bool masks, and the sample's own 2 V + 8 K elements; COSMIC-79 x
+    100,000 samples come to ~16.5 GB in float32 at one chunk (an H100 run
+    of cell 8b peaked at 16.40 GB)."""
     per_sample = assign.candidate_bytes_per_sample(96, 79, 4)
-    assert per_sample == 4 * (2 * 79 * 79 + 2 * 79 * 96)
-    assert 10e9 < per_sample * 100_000 < 12e9
+    assert per_sample == (4 * (5 * 79 * 79 + 79 * 96) + 79 * 79
+                          + 4 * (2 * 96 + 8 * 79))
+    assert 16.4e9 < per_sample * 100_000 < 16.5e9
+    assert assign.candidate_bytes_per_sample(24, 6, 8) == \
+        8 * (6 * 6 + 3 * 6 * 24) + 6 * 6 + 8 * (2 * 24 + 8 * 6)
     assert assign._memory_lanes(torch.device("cpu"), per_sample, 7) == 7
 
 

@@ -487,3 +487,43 @@ def test_a_failing_capture_raises(cuda_device):
                  lambda p: objective_fn(p, data), params0,
                  FitConfig(100, 400, 10, 1e-7),
                  block_update_fn=reads_the_host)
+
+
+@pytest.mark.cuda
+def test_span_graphs_reuse_one_memory_pool(cuda_device):
+    """Fits captured one after another within shared_span_pool(), as a
+    cohort's rank groups are, share the span graphs' memory pool: the
+    card's reserved memory does not grow with the captures, and once the
+    scope ends an empty_cache hands the pool back. With a pool a capture
+    each released graph's memory stayed cached, and a later capture could
+    not reclaim it (cell 7b ran the card out of memory)."""
+    from salamander_tpu_torch import datasets
+    from salamander_tpu_torch.engine import (
+        FitConfig,
+        fit_loop_lockstep,
+        shared_span_pool,
+    )
+    from salamander_tpu_torch.engine import fit as fit_module
+
+    X = datasets.synthetic_catalog(96, 100_000, 5, seed=0)
+    params0, data = graph_problem(cuda_device, 5, 10, X=X)
+    _, objective_fn, block = kernel_fns(params0)
+    config = FitConfig(80, 80, 10, 1e-7)  # two spans: one eager, one graph
+    for key in fit_module.graph_counts:
+        fit_module.graph_counts[key] = 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    reserved = []
+    with shared_span_pool():
+        for _ in range(4):
+            fit_loop_lockstep(lambda p: objective_fn(p, data), params0,
+                              config, block(data))
+            torch.cuda.synchronize()
+            reserved.append(torch.cuda.memory_reserved())
+    assert fit_module.graph_counts["captures"] == 4
+    one_temporary = 8 * 10 * X.size  # a float64 (R, V, D) tensor
+    assert reserved[-1] - reserved[0] < one_temporary, reserved
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_reserved()
+    assert after - before < one_temporary, (before, reserved, after)

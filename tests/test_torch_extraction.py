@@ -405,9 +405,11 @@ def test_memory_budget_decides_no_result_and_no_store(planted, tmp_path,
         return sizes[-1]
 
     monkeypatch.setattr(extraction, "_lane_chunk_size", recording_chunk)
-    monkeypatch.setattr(assign, "_memory_budget", lambda device: 120_000)
+    # two lanes a chunk and one (extraction._lane_bytes: the cohort and
+    # its 4 resamples beside each lane)
+    monkeypatch.setattr(assign, "_memory_budget", lambda device: 200_000)
     roomy = port.extract_signatures(data, checkpoint_dir=tmp_path, **kwargs)
-    monkeypatch.setattr(assign, "_memory_budget", lambda device: 50_000)
+    monkeypatch.setattr(assign, "_memory_budget", lambda device: 120_000)
     tight = port.extract_signatures(data, **kwargs)
     assert sizes[0] != sizes[1] and max(sizes) < 8
     for k in (2, 3):
