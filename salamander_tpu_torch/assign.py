@@ -41,6 +41,7 @@ import numpy as np
 import pandas as pd
 import torch
 
+from . import profiling
 from .models.signature_nmf import resolve_device, resolve_dtype
 from .ops import assign as ops
 from .ops.klnmf import EPSILON
@@ -278,6 +279,7 @@ def candidate_bytes_per_sample(n_features: int, n_signatures: int,
     return candidates + itemsize * (2 * V + 8 * K)
 
 
+@profiling.entry("assign.assign")
 def assign_signatures(
     data,
     catalog,
@@ -319,6 +321,9 @@ def assign_signatures(
     ``mesh`` shards each chunk's samples (module docstring); a
     ``batch_size`` is rounded up to a multiple of the sample ways, as the
     JAX package does.
+
+    A call is the span ``assign.assign`` (profiling.py), holding
+    ops.assign.eliminate_signatures' spans.
     """
     device, dtype = _setup(device, dtype, mesh)
     X, obs_names, var_names = _extract_counts(data)

@@ -28,6 +28,15 @@ route runs its spans eagerly. A capture or replay that fails raises.
 
 History is a NaN-padded tensor of max_iterations // conv_test_freq entries
 (the reference's `of_values[1:]`).
+
+Spans and counters (profiling.py): each span run is the span
+``engine.span``, a capture ``engine.capture`` (capture_begin to
+capture_end), each host read of the loop state ``engine.host_read``.
+``engine.host_syncs`` counts those reads (one may fetch several scalars
+once the device is done) and the synchronize before a capture;
+``engine.lane_steps`` the lanes in the batch times the steps of every
+block run, from shapes; and, while recording, ``engine.lane_steps_live``
+the lanes' own iteration counts, read once at a fit's end.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from .. import profiling
 from .tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 # blocks a span runs between two host reads of the loop state: chosen on an
@@ -226,9 +236,11 @@ class _Spans:
     counts (ops.cuda_klnmf). release() ends the graph's use: it is reset,
     or within shared_span_pool() kept for the next capture's pool."""
 
-    def __init__(self, step, graphed: bool):
+    def __init__(self, step, graphed: bool, lane_steps: int = 0):
+        profiling.end_prelude()  # the fit's first span is next
         self.step = step
         self.graphed = graphed
+        self.lane_steps = lane_steps  # lanes x steps of one block
         self.warm = False
         self.graph = None
         self.device = None
@@ -236,6 +248,11 @@ class _Spans:
         self.launches: list = []
 
     def run(self, state, n_blocks: int):
+        profiling.count("engine.lane_steps", self.lane_steps * n_blocks)
+        with profiling.span("engine.span"):
+            return self._run(state, n_blocks)
+
+    def _run(self, state, n_blocks: int):
         if not (self.graphed and self.warm and n_blocks == SPAN):
             for _ in range(n_blocks):
                 state = self.step(state)
@@ -266,26 +283,29 @@ class _Spans:
         # capture shares the pool of the card's last released span graph
         previous = (None if _handoff is None
                     else _handoff.pop(self.device.index, None))
+        profiling.count("engine.host_syncs")
         torch.cuda.synchronize(self.device)
         with torch.cuda.device(self.device), torch.cuda.stream(
                 _capture_stream(self.device.index)):
             pool = (torch.cuda.graph_pool_handle() if previous is None
                     else previous.pool())
-            graph.capture_begin(pool=pool)
             try:
-                state = state_type(**tree_unflatten(flat))
-                for _ in range(SPAN):
-                    state = self.step(state)
-                for path, leaf in tree_flatten(state._asdict()).items():
-                    if leaf is not flat[path]:
-                        flat[path].copy_(leaf)
-                del state
+                with profiling.span("engine.capture"):
+                    graph.capture_begin(pool=pool)
+                    try:
+                        state = state_type(**tree_unflatten(flat))
+                        for _ in range(SPAN):
+                            state = self.step(state)
+                        for path, leaf in tree_flatten(
+                                state._asdict()).items():
+                            if leaf is not flat[path]:
+                                flat[path].copy_(leaf)
+                        del state
+                    finally:
+                        _end_capture(graph, pool, self.device.index)
             finally:
-                try:
-                    _end_capture(graph, pool, self.device.index)
-                finally:
-                    if previous is not None:
-                        previous.reset()
+                if previous is not None:
+                    previous.reset()
         self.graph = graph
         self.launches = cuda_klnmf.captured_launches()
         graph_counts["captures"] += 1
@@ -299,6 +319,18 @@ class _Spans:
                 stale.reset()
             _handoff[self.device.index] = self.graph
         self.graph, self.static, self.launches = None, {}, []
+
+
+def _host_read():
+    """The span of one host read of the loop state, counted as a host
+    sync."""
+    profiling.count("engine.host_syncs")
+    return profiling.span("engine.host_read")
+
+
+def _done(state) -> bool:
+    with _host_read():
+        return bool(state.done)
 
 
 def _span_blocks(blocks: int, full_blocks: int) -> int:
@@ -350,7 +382,8 @@ def _print_crossings(state: _LoopState, first: int, last: int, freq: int,
     """The verbose lines of blocks first..last-1 that ran before the fit
     was done: 'iteration: N; objective: X' where a block crossed a
     verbosity_freq boundary, read from the device history."""
-    values = state.history[first:min(last, int(state.n_evals))].tolist()
+    with _host_read():
+        values = state.history[first:min(last, int(state.n_evals))].tolist()
     for block, value in enumerate(values, start=first):
         iteration = (block + 1) * freq
         if iteration // verbosity_freq > (iteration - freq) // verbosity_freq:
@@ -415,7 +448,7 @@ def fit_loop(
         iteration=torch.zeros((), dtype=torch.int32, device=device),
         done=torch.zeros((), dtype=torch.bool, device=device),
     )
-    spans = _Spans(step, _graphed(advance, params0))
+    spans = _Spans(step, _graphed(advance, params0), freq)
     blocks = 0
     try:
         while blocks < full_blocks:
@@ -425,16 +458,20 @@ def fit_loop(
             if verbose:
                 _print_crossings(state, blocks - n_blocks, blocks, freq,
                                  verbosity_freq)
-            if _tested(blocks, config) and bool(state.done):  # one host sync
+            if _tested(blocks, config) and _done(state):  # one host sync
                 break
     finally:
         spans.release()
 
     params = state.params
-    n_evals, iteration = int(state.n_evals), int(state.iteration)
-    if remainder > 0 and not bool(state.done):
+    with _host_read():
+        n_evals, iteration = int(state.n_evals), int(state.iteration)
+    if remainder > 0 and not _done(state):
+        profiling.count("engine.lane_steps", remainder)
         params = advance(params, remainder)
         iteration += remainder
+    if profiling.is_recording():
+        profiling.count("engine.lane_steps_live", iteration)
 
     return FitResult(params, of0, state.history, n_evals, iteration)
 
@@ -534,7 +571,8 @@ def _lockstep_step(objective_fn, config: FitConfig,
 
 
 def _alive(state: LockstepState) -> int:
-    return int((~state.done).sum())  # one host sync
+    with _host_read():
+        return int((~state.done).sum())
 
 
 def run_lockstep_segment(
@@ -559,12 +597,14 @@ def run_lockstep_segment(
     full_blocks = int(config.max_iterations) // int(config.conv_test_freq)
     tol = _effective_tol(config, state.of_prev.dtype, state.params,
                          warn=False)
-    blocks = int(state.eval_idx)  # the segment's one read of its counter
+    with _host_read():  # the segment's one read of its counter
+        blocks = int(state.eval_idx)
     if blocks >= full_blocks or _alive(state) <= alive_floor:
         return state
     spans = _Spans(_lockstep_step(objective_fn, config, block_update_fn,
                                   tol),
-                   _graphed(block_update_fn, state.params))
+                   _graphed(block_update_fn, state.params),
+                   int(state.done.shape[0]) * int(config.conv_test_freq))
     try:
         while blocks < full_blocks:
             n_blocks = _span_blocks(blocks, full_blocks)
@@ -584,19 +624,24 @@ def finish_lockstep(
     initial_objective,
 ) -> FitResult:
     """Apply the never-evaluated remainder tail to the lanes still running
-    and assemble the FitResult."""
+    and assemble the FitResult. While recording, the lanes' iteration
+    counts are read once (engine.lane_steps_live)."""
     freq = int(config.conv_test_freq)
     max_iterations = int(config.max_iterations)
     remainder = max_iterations - (max_iterations // freq) * freq
     params = state.params
     n_iterations = state.n_iterations
     if remainder > 0:
+        profiling.count("engine.lane_steps",
+                        int(state.done.shape[0]) * remainder)
         params = _masked_advance(block_update_fn, params, state.done,
                                  remainder)
         n_iterations = torch.where(
             state.done, n_iterations,
             torch.full_like(n_iterations, max_iterations),
         )
+    if profiling.is_recording():
+        profiling.count("engine.lane_steps_live", int(n_iterations.sum()))
     return FitResult(params, initial_objective, state.history,
                      state.n_evals, n_iterations)
 

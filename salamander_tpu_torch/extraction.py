@@ -51,6 +51,13 @@ reduce_samples. Each lane's resample and start are the meshless ones (the
 keyed draws). The lanes are gathered, the clustering runs on every rank,
 and the consensus refit and ``fit_final`` shard the samples.
 
+Spans (profiling.py): a call is ``extraction.extract``; within it
+``extraction.resample`` (the resamples drawn), ``extraction.rank_group``
+(each rank of the grouped layout), ``extraction.discovery`` (the padded
+layout's fit), ``extraction.consensus`` (a rank's clustering and
+silhouettes on the host), ``extraction.consensus_refit`` (a rank's
+exposure refit, to its copy to the host) and ``extraction.fit_final``.
+
 Not ported: the JAX package's accelerator-specific chunk and runner
 choices.
 """
@@ -65,7 +72,7 @@ import numpy as np
 import pandas as pd
 import torch
 
-from . import containers
+from . import containers, profiling
 from .engine import FitConfig, shared_span_pool
 from .ops.assign import resample_counts
 from .ops.klnmf import EPSILON
@@ -123,8 +130,9 @@ def _resample_all(X, generator, n_bootstraps: int, method: str):
     """All B bootstrap resamples of the cohort, EPSILON-clipped (models
     clip counts to EPSILON at fit start; replicate fits follow the same
     contract)."""
-    return torch.clamp_min(resample_counts(X, generator, n_bootstraps,
-                                           method), EPSILON)
+    with profiling.span("extraction.resample"):
+        return torch.clamp_min(resample_counts(X, generator, n_bootstraps,
+                                               method), EPSILON)
 
 
 def _prepare_lanes(X_boot, seed: int, lane_ranks, lane_replicates,
@@ -205,20 +213,22 @@ def _grouped_fit(params0, data, lane_ranks, config: FitConfig,
                                device=W.device)
     lane_ranks = np.asarray(lane_ranks)
     for rank in np.unique(lane_ranks):
-        rows = torch.as_tensor(np.flatnonzero(lane_ranks == rank),
-                               device=W.device)
-        k = int(rank)
-        group0 = {
-            "W": params0["W"].index_select(0, rows)[:, :, :k].contiguous(),
-            "H": params0["H"].index_select(0, rows)[:, :k].contiguous(),
-        }
-        group_data = {"X": data["X"].index_select(0, rows)}
-        W_k, loss_k, iter_k = _discovery_fit(
-            group0, group_data, config, "klnmf", 1.0, 1.0, 0, use_runner,
-            masked=False, reduce_samples=reduce_samples)
-        W[rows, :, :k] = W_k
-        losses[rows] = loss_k.to(torch.float64)
-        n_iterations[rows] = iter_k.to(torch.int32)
+        with profiling.span("extraction.rank_group"):
+            rows = torch.as_tensor(np.flatnonzero(lane_ranks == rank),
+                                   device=W.device)
+            k = int(rank)
+            group0 = {
+                "W": (params0["W"].index_select(0, rows)[:, :, :k]
+                      .contiguous()),
+                "H": params0["H"].index_select(0, rows)[:, :k].contiguous(),
+            }
+            group_data = {"X": data["X"].index_select(0, rows)}
+            W_k, loss_k, iter_k = _discovery_fit(
+                group0, group_data, config, "klnmf", 1.0, 1.0, 0, use_runner,
+                masked=False, reduce_samples=reduce_samples)
+            W[rows, :, :k] = W_k
+            losses[rows] = loss_k.to(torch.float64)
+            n_iterations[rows] = iter_k.to(torch.int32)
     return W, losses, n_iterations
 
 
@@ -452,6 +462,7 @@ def _lane_chunk_size(n_lanes: int, max_lane_gb, dtype, n_features: int,
     return -(n_lanes // -n_chunks)
 
 
+@profiling.entry("extraction.extract")
 def extract_signatures(
     data,
     ranks,
@@ -693,9 +704,11 @@ def extract_signatures(
                         params0, lane_data, lane_ranks[sl[mine]], config,
                         use_runner, reduce_samples)
                 else:
-                    W_m, loss_m, iter_m = _discovery_fit(
-                        params0, lane_data, config, model, lam, delta,
-                        n_given, use_runner, reduce_samples=reduce_samples)
+                    with profiling.span("extraction.discovery"):
+                        W_m, loss_m, iter_m = _discovery_fit(
+                            params0, lane_data, config, model, lam, delta,
+                            n_given, use_runner,
+                            reduce_samples=reduce_samples)
             rows = torch.as_tensor(mine, device=device)
             W_c[rows] = W_m
             loss_c[rows] = loss_m.to(torch.float64)
@@ -736,10 +749,11 @@ def extract_signatures(
             W_lanes[lanes][:, :, n_given:total], (0, 2, 1)
         )
         lane_losses = losses[lanes]
-        consensus, matched, _, _ = _consensus_cluster(
-            stack, int(np.argmin(lane_losses))
-        )
-        silhouette = _cluster_silhouettes(matched)
+        with profiling.span("extraction.consensus"):
+            consensus, matched, _, _ = _consensus_cluster(
+                stack, int(np.argmin(lane_losses))
+            )
+            silhouette = _cluster_silhouettes(matched)
 
         H = None
         if ckpt is not None:
@@ -756,15 +770,17 @@ def extract_signatures(
             mask2d = torch.as_tensor(
                 np.arange(n_padded)[:, None]
                 < np.full((1, sample_hi - sample_lo), total), device=device)
-            H_pad, _ = refit_exposures(
-                X[:, sample_lo:sample_hi],
-                torch.as_tensor(W_pad, dtype=dtype, device=device),
-                mask2d, max_iterations=max_iterations, tol=tol,
-                conv_test_freq=conv_test_freq, reduce_samples=reduce_samples,
-            )
-            if reduce_samples is not None:
-                H_pad = gather_samples(H_pad, mesh, n_samples)
-            H = H_pad.cpu().numpy().astype(np.float64)[:total]  # (G + k, D)
+            with profiling.span("extraction.consensus_refit"):
+                H_pad, _ = refit_exposures(
+                    X[:, sample_lo:sample_hi],
+                    torch.as_tensor(W_pad, dtype=dtype, device=device),
+                    mask2d, max_iterations=max_iterations, tol=tol,
+                    conv_test_freq=conv_test_freq,
+                    reduce_samples=reduce_samples,
+                )
+                if reduce_samples is not None:
+                    H_pad = gather_samples(H_pad, mesh, n_samples)
+                H = H_pad.cpu().numpy().astype(np.float64)[:total]  # (G+k, D)
             if ckpt is not None:
                 ckpt.save(
                     f"rank_{rank:03d}", match={"consensus": consensus}, H=H
@@ -833,26 +849,28 @@ def extract_signatures(
     if fit_final and suggested is not None:
         from .models import KLNMF, MvNMF
 
-        asignatures = containers.AnnData(consensus_by_rank[suggested])
-        adata = containers.AnnData(
-            pd.DataFrame(X_host.T, index=obs_names, columns=var_names)
-        )
-        shared_kwargs = dict(
-            n_signatures=n_given + suggested,
-            min_iterations=min_iterations, max_iterations=max_iterations,
-            conv_test_freq=conv_test_freq, tol=tol,
-            dtype=str(dtype).removeprefix("torch."), device=device,
-        )
-        if model == "mvnmf":
-            fitted = MvNMF(lam=lam, delta=delta, **shared_kwargs)
-        else:
-            fitted = KLNMF(**shared_kwargs)
-        fitted.fit(
-            adata,
-            given_parameters={"asignatures": asignatures},
-            init_kwargs={"seed": seed},
-            mesh=mesh,
-        )
+        with profiling.span("extraction.fit_final"):
+            asignatures = containers.AnnData(consensus_by_rank[suggested])
+            adata = containers.AnnData(
+                pd.DataFrame(X_host.T, index=obs_names, columns=var_names)
+            )
+            shared_kwargs = dict(
+                n_signatures=n_given + suggested,
+                min_iterations=min_iterations,
+                max_iterations=max_iterations,
+                conv_test_freq=conv_test_freq, tol=tol,
+                dtype=str(dtype).removeprefix("torch."), device=device,
+            )
+            if model == "mvnmf":
+                fitted = MvNMF(lam=lam, delta=delta, **shared_kwargs)
+            else:
+                fitted = KLNMF(**shared_kwargs)
+            fitted.fit(
+                adata,
+                given_parameters={"asignatures": asignatures},
+                init_kwargs={"seed": seed},
+                mesh=mesh,
+            )
 
     return ExtractionResult(
         table=table,

@@ -28,6 +28,12 @@ elimination's stopping count (one a round): every rank then runs the
 cohort's number of blocks and rounds, and a frozen sample gets the polish
 steps of every round, as in one process.
 
+Spans and counters (profiling.py): ``ops.host_syncs`` counts each host
+read above (a refit's block, an elimination round's stopping count);
+``eliminate_signatures`` opens ``assign.refit`` over its dense and its
+final refit and ``assign.round`` over each round, through the read that
+closes it.
+
 Masking convention (ops.klnmf.make_masked_step_functions): inactive (k, d)
 entries of H are held at EXACT zero, so W @ H, the KL and every ratio equal
 the subset computation; active entries are clipped at EPSILON.
@@ -45,6 +51,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiling
 from .klnmf import EPSILON, samplewise_kl_divergence, sum_samples
 from .precision import mm
 
@@ -133,6 +140,7 @@ def refit_exposures(X, W, mask, H0=None, max_iterations: int = 10_000,
         if blocks >= 1:
             rel = torch.abs(prev - cur) / torch.clamp_min(torch.abs(prev),
                                                           EPSILON)
+            profiling.count("ops.host_syncs")
             if not bool(rel >= tol):  # NaN stops, as the JAX cond does
                 break
         H = refit_exposures_fixed(X, W, mask, H, conv_test_freq)
@@ -167,6 +175,7 @@ def refit_exposures_lanes(X, W, mask, max_iterations: int = 10_000,
             rel = torch.abs(prev - cur) / torch.clamp_min(torch.abs(prev),
                                                           EPSILON)
             running = running & (rel >= tol)  # NaN stops a lane
+            profiling.count("ops.host_syncs")
             if not bool(running.any()):
                 break
         H_new = refit_exposures_fixed(X, W, mask, H, conv_test_freq)
@@ -279,10 +288,12 @@ def eliminate_signatures(
     device = X.device
 
     mask0 = torch.ones((K, D), dtype=torch.bool, device=device)
-    H_dense, _ = refit_exposures(
-        X, W, mask0, max_iterations=max_polish_iterations, tol=polish_tol,
-        conv_test_freq=conv_test_freq, reduce_samples=reduce_samples,
-    )
+    with profiling.span("assign.refit"):
+        H_dense, _ = refit_exposures(
+            X, W, mask0, max_iterations=max_polish_iterations,
+            tol=polish_tol, conv_test_freq=conv_test_freq,
+            reduce_samples=reduce_samples,
+        )
     kl_dense = _kl(X, W, H_dense)
     budget = (1.0 + rel_tol) * kl_dense + abs_tol
 
@@ -296,29 +307,35 @@ def eliminate_signatures(
         # the cohort's count, exact in float64
         (running,) = sum_samples(reduce_samples,
                                  (~frozen).sum(dtype=torch.float64))
+        profiling.count("ops.host_syncs")
         return bool(running > 0)
 
     n_rounds = 0
-    while n_rounds < K and searching():
-        k_star, kl_star, H_star = _cat_columns([
-            _best_removal(X[:, lo:lo + step], W, mask[:, lo:lo + step],
-                          H[:, lo:lo + step], removes, candidate_iters)
-            for lo in range(0, D, step)
-        ])
-        accept = (~frozen) & (kl_star <= budget)
-        removal = (rows == k_star.unsqueeze(0)) & accept.unsqueeze(0)
-        new_mask = mask & ~removal
-        new_H = torch.where(accept.unsqueeze(0), H_star, H)
-        H = refit_exposures_fixed(X, W, new_mask, new_H, polish_iterations)
-        mask = new_mask
-        frozen = frozen | ~accept
-        n_rounds += 1
+    going = K > 0 and searching()
+    while going:
+        with profiling.span("assign.round"):
+            k_star, kl_star, H_star = _cat_columns([
+                _best_removal(X[:, lo:lo + step], W, mask[:, lo:lo + step],
+                              H[:, lo:lo + step], removes, candidate_iters)
+                for lo in range(0, D, step)
+            ])
+            accept = (~frozen) & (kl_star <= budget)
+            removal = (rows == k_star.unsqueeze(0)) & accept.unsqueeze(0)
+            new_mask = mask & ~removal
+            new_H = torch.where(accept.unsqueeze(0), H_star, H)
+            H = refit_exposures_fixed(X, W, new_mask, new_H,
+                                      polish_iterations)
+            mask = new_mask
+            frozen = frozen | ~accept
+            n_rounds += 1
+            going = n_rounds < K and searching()
 
-    H_final, _ = refit_exposures(
-        X, W, mask, H0=H, max_iterations=max_polish_iterations,
-        tol=polish_tol, conv_test_freq=conv_test_freq,
-        reduce_samples=reduce_samples,
-    )
+    with profiling.span("assign.refit"):
+        H_final, _ = refit_exposures(
+            X, W, mask, H0=H, max_iterations=max_polish_iterations,
+            tol=polish_tol, conv_test_freq=conv_test_freq,
+            reduce_samples=reduce_samples,
+        )
     mask_out, H_out, kl_dense_out, kl_sparse, n_active = _finalize_contract(
         X, W, mask, H_final, H, H_dense, rel_tol, abs_tol
     )

@@ -34,6 +34,7 @@ from ..engine import FitConfig, FitResult
 from ..engine.fit import (
     LockstepState,
     _effective_tol,
+    _host_read,
     bind_data,
     finish_lockstep,
     fit_loop_lockstep,
@@ -178,9 +179,13 @@ class CompactingRunner:
             )
             self._report(state, bucket)
             out = _scatter_lanes(out, ids, state)
-            if target is None or int(state.eval_idx) >= full_blocks:
+            if target is None:
                 break
-            alive = torch.nonzero(~state.done).squeeze(1)  # one host sync
+            with _host_read():
+                if int(state.eval_idx) >= full_blocks:
+                    break
+            with _host_read():
+                alive = torch.nonzero(~state.done).squeeze(1)
             if alive.numel() == 0:
                 break
             state = _take_lanes(state, alive)

@@ -26,6 +26,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from .. import profiling
 from ..engine import FitConfig
 from ..initialization.methods import random_init_batch
 from ..models.signature_nmf import resolve_device
@@ -148,6 +149,7 @@ def build_klnmf_restart_runner(config: FitConfig, mesh=None):
     return _klnmf_runner(config, mesh, masked=False)
 
 
+@profiling.entry("restarts.fit")
 def fit_klnmf_restarts(
     X,
     n_signatures: int,
@@ -182,7 +184,12 @@ def fit_klnmf_restarts(
     every rank gets the whole result (module docstring). The mesh's ways
     must divide n_restarts and the samples. A `runner` must then be built
     on the same mesh.
+
+    Spans (profiling.py): a call is ``restarts.fit``; ``restarts.init``
+    runs from the entry to the fit's first engine span: the starting
+    points drawn and moved, the initial objective, the loop state.
     """
+    profiling.prelude("restarts.init")
     config = config or FitConfig()
     if runner is None and resolve_compact(
         compact, config, mesh, n_restarts, compact_min_bucket,
