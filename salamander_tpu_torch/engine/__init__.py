@@ -6,6 +6,8 @@ from .fit import (  # noqa: F401
     FitResult,
     LockstepState,
     bind_data,
+    bind_objective,
+    block_objective,
     effective_tolerance,
     finish_lockstep,
     fit_loop,
@@ -14,6 +16,7 @@ from .fit import (  # noqa: F401
     init_lockstep_state,
     kernel_route,
     make_fit_function,
+    returns_objective,
     run_lockstep_segment,
     shared_span_pool,
     tolerance_floor,

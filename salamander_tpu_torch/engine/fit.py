@@ -26,6 +26,15 @@ later full span is the replay of one CUDA graph captured from it: the
 graph reads and writes the loop state's tensors in place. Every other
 route runs its spans eagerly. A capture or replay that fails raises.
 
+A block's objective comes from the block update's own launch where the
+block is on the kernel route and returns it (:func:`returns_objective`)
+and the loop's objective is one it reproduces (bound by
+:func:`bind_objective` from a function that :func:`block_objective`
+marks): the block is asked for it in the objective's dtype (float64 where
+the objective is promoted). Every other loop calls its objective function
+after the block. The initial objective and the remainder tail are the
+same either way.
+
 History is a NaN-padded tensor of max_iterations // conv_test_freq entries
 (the reference's `of_values[1:]`).
 
@@ -35,8 +44,11 @@ capture_end), each host read of the loop state ``engine.host_read``.
 ``engine.host_syncs`` counts those reads (one may fetch several scalars
 once the device is done) and the synchronize before a capture;
 ``engine.lane_steps`` the lanes in the batch times the steps of every
-block run, from shapes; and, while recording, ``engine.lane_steps_live``
-the lanes' own iteration counts, read once at a fit's end.
+block run, from shapes; ``engine.block_evals`` the blocks run (each
+evaluates the objective once) and ``engine.block_evals_in_kernel`` those
+whose objective came from the block update's launch; and, while
+recording, ``engine.lane_steps_live`` the lanes' own iteration counts,
+read once at a fit's end.
 """
 
 from __future__ import annotations
@@ -137,15 +149,67 @@ def kernel_route(block_update_fn):
     return block_update_fn
 
 
+def returns_objective(block_update_fn):
+    """Mark a kernel-route block update that, called with the keyword
+    ``objective=dtype``, returns ``(params, value)``: the params it writes
+    and their objective in that dtype, computed by its own launch (a (R,)
+    tensor for batched params, a scalar otherwise). Returns the
+    function."""
+    block_update_fn.returns_objective = True
+    return block_update_fn
+
+
+def block_objective(objective_fn, holds: Callable[[dict], bool]):
+    """Mark objective_fn(params, data) as the objective a block update
+    that returns_objective computes, for the data where holds(data): the
+    mark lets bind_objective's loops take each block's objective from the
+    block. Returns the function."""
+    objective_fn.block_objective = holds
+    return objective_fn
+
+
+def bind_objective(objective_fn, data) -> Callable[[dict], torch.Tensor]:
+    """objective(params) = objective_fn(params, data), marked as one a
+    block update that returns_objective reproduces where objective_fn is
+    marked (block_objective) and its mark holds for `data`."""
+    def objective(params):
+        return objective_fn(params, data)
+
+    holds = getattr(objective_fn, "block_objective", None)
+    objective.block_objective = holds is not None and bool(holds(data))
+    return objective
+
+
 def bind_data(block_update_fn, data) -> BlockUpdate:
     """block(params, n_steps) = block_update_fn(params, data, n_steps),
-    keeping the kernel-route mark."""
-    def block(params, n_steps):
-        return block_update_fn(params, data, n_steps)
+    keeping the kernel-route and returns_objective marks."""
+    def block(params, n_steps, **objective):
+        return block_update_fn(params, data, n_steps, **objective)
 
     if getattr(block_update_fn, "kernel_route", False):
         kernel_route(block)
+    if getattr(block_update_fn, "returns_objective", False):
+        returns_objective(block)
     return block
+
+
+def _objective_in_block(block_update_fn, objective_fn) -> bool:
+    """Whether each block's objective comes from the block update: a
+    kernel-route block that returns it, and a loop objective it
+    reproduces (bind_objective). Decided before the loop."""
+    return bool(getattr(block_update_fn, "kernel_route", False)
+                and getattr(block_update_fn, "returns_objective", False)
+                and getattr(objective_fn, "block_objective", False))
+
+
+def _advance(block_update_fn, objective_fn, in_block: bool, params,
+             n_steps: int, dtype):
+    """(params after a block, their objective): from the block's own
+    launch where in_block, else objective_fn of the params."""
+    if in_block:
+        return block_update_fn(params, n_steps, objective=dtype)
+    params = block_update_fn(params, n_steps)
+    return params, objective_fn(params)
 
 
 @contextlib.contextmanager
@@ -236,11 +300,13 @@ class _Spans:
     counts (ops.cuda_klnmf). release() ends the graph's use: it is reset,
     or within shared_span_pool() kept for the next capture's pool."""
 
-    def __init__(self, step, graphed: bool, lane_steps: int = 0):
+    def __init__(self, step, graphed: bool, lane_steps: int = 0,
+                 in_block: bool = False):
         profiling.end_prelude()  # the fit's first span is next
         self.step = step
         self.graphed = graphed
         self.lane_steps = lane_steps  # lanes x steps of one block
+        self.in_block = in_block  # the blocks' objective from the launch
         self.warm = False
         self.graph = None
         self.device = None
@@ -249,6 +315,9 @@ class _Spans:
 
     def run(self, state, n_blocks: int):
         profiling.count("engine.lane_steps", self.lane_steps * n_blocks)
+        profiling.count("engine.block_evals", n_blocks)
+        if self.in_block:
+            profiling.count("engine.block_evals_in_kernel", n_blocks)
         with profiling.span("engine.span"):
             return self._run(state, n_blocks)
 
@@ -417,11 +486,12 @@ def fit_loop(
     of0 = objective_fn(params0)
     tol = _effective_tol(config, of0.dtype, params0)
     device = of0.device
+    in_block = _objective_in_block(advance, objective_fn)
 
     def step(state: _LoopState) -> _LoopState:
-        params = advance(state.params, freq)
+        params, of_value = _advance(advance, objective_fn, in_block,
+                                    state.params, freq, of0.dtype)
         iteration = state.iteration + freq
-        of_value = objective_fn(params)
         rel_change = torch.abs(state.of_prev - of_value) / torch.abs(
             state.of_prev)
         done = ((rel_change < tol) & (iteration >= min_iterations)) | (
@@ -448,7 +518,7 @@ def fit_loop(
         iteration=torch.zeros((), dtype=torch.int32, device=device),
         done=torch.zeros((), dtype=torch.bool, device=device),
     )
-    spans = _Spans(step, _graphed(advance, params0), freq)
+    spans = _Spans(step, _graphed(advance, params0), freq, in_block)
     blocks = 0
     try:
         while blocks < full_blocks:
@@ -502,6 +572,19 @@ def _masked_advance(block_update_fn: BlockUpdate, params, frozen, n_steps):
     return _select(frozen, params, block_update_fn(params, n_steps))
 
 
+def _masked_block(block_update_fn: BlockUpdate, frozen) -> BlockUpdate:
+    """block_update_fn with the frozen lanes restored after it. Asked for
+    the objective, it returns the advanced lanes' values: a frozen lane's
+    is never read (its history and of_prev keep their values)."""
+    def block(params, n_steps, **objective):
+        if not objective:
+            return _masked_advance(block_update_fn, params, frozen, n_steps)
+        new, of_value = block_update_fn(params, n_steps, **objective)
+        return _select(frozen, params, new), of_value
+
+    return block
+
+
 def init_lockstep_state(
     objective_fn: Callable[[dict], torch.Tensor],
     params0: dict,
@@ -533,14 +616,15 @@ def _lockstep_step(objective_fn, config: FitConfig,
     freq = int(config.conv_test_freq)
     max_iterations = int(config.max_iterations)
     min_iterations = int(config.min_iterations)
+    in_block = _objective_in_block(block_update_fn, objective_fn)
 
     def step(state: LockstepState) -> LockstepState:
         done_prev = state.done
-        params = _masked_advance(block_update_fn, state.params, done_prev,
-                                 freq)
+        params, of_value = _advance(  # of_value (R,)
+            _masked_block(block_update_fn, done_prev), objective_fn,
+            in_block, state.params, freq, state.of_prev.dtype)
         iteration = state.iteration + freq
 
-        of_value = objective_fn(params)  # (R,)
         rel_change = torch.abs(state.of_prev - of_value) / torch.abs(
             state.of_prev
         )
@@ -604,7 +688,8 @@ def run_lockstep_segment(
     spans = _Spans(_lockstep_step(objective_fn, config, block_update_fn,
                                   tol),
                    _graphed(block_update_fn, state.params),
-                   int(state.done.shape[0]) * int(config.conv_test_freq))
+                   int(state.done.shape[0]) * int(config.conv_test_freq),
+                   _objective_in_block(block_update_fn, objective_fn))
     try:
         while blocks < full_blocks:
             n_blocks = _span_blocks(blocks, full_blocks)
@@ -684,7 +769,7 @@ def make_fit_function(
 
     def run(params0, data):
         update = lambda p: update_fn(p, data)
-        objective = lambda p: objective_fn(p, data)
+        objective = bind_objective(objective_fn, data)
         if block_update_fn is None:
             block = _plain_block(update)
         else:

@@ -29,7 +29,12 @@ import pandas as pd
 import torch
 
 from .. import containers, tools as tl
-from ..engine import FitConfig, effective_tolerance, make_fit_function
+from ..engine import (
+    FitConfig,
+    block_objective,
+    effective_tolerance,
+    make_fit_function,
+)
 from ..engine.transfer import params_to_numpy
 from ..engine.tree import (
     by_leaf_name,
@@ -238,6 +243,10 @@ def promote_objective(objective_fn, params0):
             cast_floating(data, torch.float64),
         )
 
+    # a block update that returns the objective is asked for it in float64
+    holds = getattr(objective_fn, "block_objective", None)
+    if holds is not None:
+        block_objective(objective_fn_f64, holds)
     return objective_fn_f64
 
 

@@ -7,7 +7,11 @@ leading restart axis: W (R, V, K) and H (R, K, D) advance by ``n_steps``
 joint updates against one X (V, D), or against each lane's own X (R, V, D)
 (a bootstrap resample per lane: the JAX kernel under ``vmap`` over X too).
 ``n_steps`` is a run-time argument, so one binary serves the fit loop's
-full blocks and its remainder tail.
+full blocks and its remainder tail. Asked for it (``objective=`` a dtype,
+also a run-time argument), a launch also returns each lane's convergence
+objective of the W', H' it writes (ops.klnmf.kl_divergence, in float32 or
+in float64 as models.signature_nmf.promote_objective evaluates it), from
+one more pass over X after the last step.
 
 Two kernels compute the block. The resident kernel keeps a lane's X, W and
 H in shared memory for every step, on a thread block cluster of C CTAs per
@@ -44,8 +48,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..engine.fit import kernel_route
-from .klnmf import update_WH
+from ..engine.fit import kernel_route, returns_objective
+from .klnmf import kl_divergence, update_WH
 
 K_MAX = 32          # MU_BLOCK_K_MAX in csrc/mu_block.cu
 THREADS = 256       # MU_BLOCK_THREADS
@@ -59,6 +63,8 @@ SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "mu_block.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
 _VARIANT_CODES = {None: 0, "resident": 1, "streamed": 2}
+# the objective a launch returns: mu_block_launch's objective_mode
+_OBJECTIVE_CODES = {None: 0, torch.float32: 1, torch.float64: 2}
 
 
 class LaunchPlan(NamedTuple):
@@ -362,7 +368,7 @@ def _library():
     lib = ctypes.CDLL(str(build()))
     pointer, integer = ctypes.c_void_p, ctypes.c_int
     lib.mu_block_launch.argtypes = [pointer] * 6 + [integer] * 7 + [
-        ctypes.c_longlong, pointer]
+        ctypes.c_longlong, integer, pointer, pointer]
     lib.mu_block_launch.restype = integer
     lib.mu_block_error_string.argtypes = [integer]
     lib.mu_block_error_string.restype = ctypes.c_char_p
@@ -404,13 +410,23 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def fused_mu_block_reference(X, W, H, n_steps: int):
+def block_objective_of(X, W, H, dtype):
+    """The objective a launch returns: ops.klnmf.kl_divergence of W, H
+    against X, its operands cast to `dtype` (promote_objective's float64,
+    or the parameters' own)."""
+    return kl_divergence(X.to(dtype), W.to(dtype), H.to(dtype))
+
+
+def fused_mu_block_reference(X, W, H, n_steps: int, objective=None):
     """Plain PyTorch version: n_steps joint updates (ops.klnmf.update_WH)
     of W (R, V, K) and H (R, K, D) against X (V, D) or (R, V, D), which
-    broadcasts."""
+    broadcasts; with `objective` a dtype, also each lane's objective of the
+    result (block_objective_of)."""
     for _ in range(int(n_steps)):
         W, H = update_WH(X, W, H)
-    return W, H
+    if objective is None:
+        return W, H
+    return W, H, block_objective_of(X, W, H, objective)
 
 
 def _check_kernel_inputs(X, W, H):
@@ -431,18 +447,26 @@ def _check_kernel_inputs(X, W, H):
         raise ValueError("fused_mu_block takes contiguous tensors")
 
 
-def _launch(X, W, H, n_steps: int, plan: LaunchPlan):
+def _launch(X, W, H, n_steps: int, plan: LaunchPlan, objective=None):
     R, V, K = W.shape
     D = X.shape[-1]
     x_stride = V * D if X.dim() == 3 else 0
     W_out = torch.empty_like(W)
     H_out = torch.empty_like(H)
+    values = None
+    if objective is not None:
+        if objective not in _OBJECTIVE_CODES or int(n_steps) < 1:
+            raise ValueError("a launch returns the objective in float32 or "
+                             f"float64 after >= 1 step, not {objective} "
+                             f"after {n_steps}")
+        values = torch.empty(R, dtype=objective, device=X.device)
     workspace = None
     if plan.variant == "streamed" and plan.cluster > 1:
-        # the lanes' arrival counters (zeroed), then two rounds of the
-        # CTAs' numerators (mu_block_launch)
-        workspace = torch.zeros(-(-R // 4) * 4 + 2 * R * plan.cluster * V * K,
-                                dtype=torch.float32, device=X.device)
+        # the lanes' arrival counters (zeroed), two rounds of the CTAs'
+        # numerators, and the CTAs' objective sums (mu_block_launch)
+        workspace = torch.zeros(
+            -(-R // 4) * 4 + 2 * R * plan.cluster * (V * K + 1),
+            dtype=torch.float32, device=X.device)
     lib = _library()
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
@@ -451,7 +475,8 @@ def _launch(X, W, H, n_steps: int, plan: LaunchPlan):
             H_out.data_ptr(),
             None if workspace is None else workspace.data_ptr(),
             R, V, K, D, int(n_steps), _VARIANT_CODES[plan.variant],
-            plan.cluster, x_stride, stream,
+            plan.cluster, x_stride, _OBJECTIVE_CODES[objective],
+            None if values is None else values.data_ptr(), stream,
         )
     if status != 0:
         message = lib.mu_block_error_string(status).decode()
@@ -462,7 +487,7 @@ def _launch(X, W, H, n_steps: int, plan: LaunchPlan):
         _captured.append(launch)  # counted at each replay of the graph
     else:
         count_replay([launch])
-    return W_out, H_out
+    return (W_out, H_out) if values is None else (W_out, H_out, values)
 
 
 # the launches made while a stream was capturing a CUDA graph, since the
@@ -496,9 +521,12 @@ def launch_plan(X, W) -> LaunchPlan:
     return plan_launch(R, V, K, X.shape[-1], _sm_count(X.device.index))
 
 
-def fused_mu_block(X, W, H, n_steps: int):
+def fused_mu_block(X, W, H, n_steps: int, objective=None):
     """Advance W (R, V, K) and H (R, K, D) by n_steps joint multiplicative
     updates against X (V, D), or against each lane's own X (R, V, D).
+    With `objective` torch.float32 or torch.float64 (and n_steps >= 1),
+    return (W', H', objective (R,) of that dtype): the launch's epilogue
+    computes each lane's block_objective_of(X, W', H', objective).
 
     CPU tensors run fused_mu_block_reference. CUDA tensors launch the
     kernel that plan_launch picks from the shapes, on the current stream,
@@ -510,9 +538,9 @@ def fused_mu_block(X, W, H, n_steps: int):
     is counted at each replay of the graph (count_replay).
     """
     if all(t.device.type == "cpu" for t in (X, W, H)):
-        return fused_mu_block_reference(X, W, H, n_steps)
+        return fused_mu_block_reference(X, W, H, n_steps, objective)
     _check_kernel_inputs(X, W, H)
-    return _launch(X, W, H, n_steps, launch_plan(X, W))
+    return _launch(X, W, H, n_steps, launch_plan(X, W), objective)
 
 
 fused_mu_block.launches = 0
@@ -521,7 +549,7 @@ fused_mu_block.launches_by_x = {"shared": 0, "per_lane": 0}
 
 
 def _fused_mu_block_variant(X, W, H, n_steps: int, variant: str,
-                            cluster: int = 1):
+                            cluster: int = 1, objective=None):
     """fused_mu_block through a named kernel ("resident" with clusters of
     `cluster`, or "streamed" with each lane split over `cluster` CTAs) on
     CUDA tensors, whatever the plan: for holding each kernel against the
@@ -544,7 +572,7 @@ def _fused_mu_block_variant(X, W, H, n_steps: int, variant: str,
         plan = LaunchPlan("streamed", cluster, THREADS, shared)
     else:
         raise ValueError(f"unknown kernel {variant!r}")
-    return _launch(X, W, H, n_steps, plan)
+    return _launch(X, W, H, n_steps, plan, objective)
 
 
 def _kernels_taking(R: int, V: int, K: int, D: int, n_sms: int):
@@ -561,20 +589,33 @@ def _kernels_taking(R: int, V: int, K: int, D: int, n_sms: int):
     return names
 
 
-def fused_block_update(params, data, n_steps: int):
+def fused_block_update(params, data, n_steps: int, objective=None):
     """Engine block update through the kernel: params {"W", "H"} with or
     without a leading restart axis, data {"X"} shared (V, D) or per lane
-    (R, V, D)."""
-    W, H = params["W"], params["H"]
+    (R, V, D). With `objective` a dtype, returns (params, their objective
+    in that dtype): (R,) from the launch, or a scalar for a single fit. On
+    the CPU the plain block runs and the objective is that of the plain
+    ops, on the caller's shapes."""
+    W, H, X = params["W"], params["H"], data["X"]
     single = W.dim() == 2
     if single:
         W, H = W.unsqueeze(0), H.unsqueeze(0)
-    W, H = fused_mu_block(data["X"], W.contiguous(), H.contiguous(), n_steps)
+    on_card = not all(t.device.type == "cpu" for t in (X, W, H))
+    out = fused_mu_block(X, W.contiguous(), H.contiguous(), n_steps,
+                         objective if on_card else None)
+    W, H = out[:2]
     if single:
         W, H = W.squeeze(0), H.squeeze(0)
-    return {"W": W, "H": H}
+    if objective is None:
+        return {"W": W, "H": H}
+    if on_card:
+        value = out[2].squeeze(0) if single else out[2]
+    else:
+        value = block_objective_of(X, W, H, objective)
+    return {"W": W, "H": H}, value
 
 
 # one launch a block, no host read: the engine captures its spans as CUDA
-# graphs
+# graphs, and takes each block's objective from its launch
 kernel_route(fused_block_update)
+returns_objective(fused_block_update)

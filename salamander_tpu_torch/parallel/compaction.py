@@ -36,6 +36,7 @@ from ..engine.fit import (
     _effective_tol,
     _host_read,
     bind_data,
+    bind_objective,
     finish_lockstep,
     fit_loop_lockstep,
     init_lockstep_state,
@@ -157,10 +158,7 @@ class CompactingRunner:
         full_blocks = (int(config.max_iterations)
                        // int(config.conv_test_freq))
 
-        def objective_on(lane_data):
-            return lambda params: self.objective_fn(params, lane_data)
-
-        objective = objective_on(data)
+        objective = bind_objective(self.objective_fn, data)
         state = init_lockstep_state(objective, params0, config)
         _effective_tol(config, state.of_prev.dtype, params0)  # warn once
         initial_objective = state.of_prev
@@ -173,7 +171,7 @@ class CompactingRunner:
             target = self._next_bucket(bucket)
             floor = 0 if target is None else target
             state = run_lockstep_segment(
-                objective_on(data_bucket), config,
+                bind_objective(self.objective_fn, data_bucket), config,
                 self.make_block_update(state.params, data_bucket),
                 state, alive_floor=floor,
             )
@@ -215,9 +213,7 @@ def lockstep_fit(objective_fn, config: FitConfig,
                  make_block_update: BlockBuilder, params0, data):
     """The monolithic twin of CompactingRunner.run: one lockstep loop over
     all lanes (finished lanes frozen). Returns (FitResult, final_loss)."""
-    def objective(params):
-        return objective_fn(params, data)
-
+    objective = bind_objective(objective_fn, data)
     result = fit_loop_lockstep(objective, params0, config,
                                make_block_update(params0, data))
     return result, objective(result.params)

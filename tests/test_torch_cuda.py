@@ -527,3 +527,133 @@ def test_span_graphs_reuse_one_memory_pool(cuda_device):
     torch.cuda.empty_cache()
     after = torch.cuda.memory_reserved()
     assert after - before < one_temporary, (before, reserved, after)
+
+
+# ---- the objective epilogue: a launch returns the objective of W', H' ----
+
+
+def sparse_problem(device, V, K, D, R, per_lane, seed=0):
+    """Counts with many zeros (Poisson of gamma(0.5) rates: about a fifth
+    of the entries), one X (V, D) or one per lane (R, V, D), random W and
+    H."""
+    rng = np.random.default_rng(seed)
+    X = rng.poisson(rng.gamma(0.5, 20.0, (R if per_lane else 1, V, D)))
+    X = X.astype(np.float32) if per_lane else X[0].astype(np.float32)
+    _, W, H = make_problem(V, K, D, R, seed=seed)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (X, W, H))
+
+
+# (V, K, D, R, one X per lane): the resident kernel at C = 1 (R = 100)
+# and 8 (R = 1) and every cluster kernels_taking holds, the streamed one
+# at splits above 1 (the cohort shapes through the ring), K in 2, 5, 10, 12
+OBJECTIVE_SHAPES = [
+    (96, 5, 192, 100, False),
+    (96, 5, 192, 1, False),
+    (96, 2, 192, 4, True),
+    (96, 10, 192, 20, False),
+    (96, 12, 192, 4, True),
+    (83, 5, 17, 3, False),
+    (96, 12, 10000, 20, False),
+    (96, 5, 20000, 10, True),
+    (96, 2, 20000, 10, True),
+    (96, 10, 20000, 10, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V, K, D, R, per_lane", OBJECTIVE_SHAPES)
+def test_objective_epilogue_on_card(cuda_device, V, K, D, R, per_lane):
+    """Each kernel that takes the shapes, asked for the objective, writes
+    the W' and H' it writes unasked, bit for bit, and each lane's
+    objective of them: float32 against make_step_functions' objective of
+    the launch's own W', H' at rtol 2e-6, float64 against
+    promote_objective's at rtol 1e-12, on counts with zeros."""
+    from salamander_tpu_torch.models.signature_nmf import promote_objective
+    from salamander_tpu_torch.ops.klnmf import make_step_functions
+
+    X, W, H = sparse_problem(cuda_device, V, K, D, R, per_lane,
+                             seed=V + K + D + R)
+    assert bool((X == 0).any())
+    _, objective_fn = make_step_functions()
+    modes = ((torch.float32, objective_fn, 2e-6),
+             (torch.float64, promote_objective(objective_fn, {"W": W}),
+              1e-12))
+    names = kernels_taking(X, W)
+    if R in (1, 100):
+        assert ("resident", 8 if R == 1 else 1) in names
+    if D >= 10000:
+        assert any(v == "streamed" and c > 1 for v, c in names)
+    for variant, cluster in names:
+        for steps in (1, 10):
+            plain = cuda_klnmf._fused_mu_block_variant(X, W, H, steps,
+                                                       variant, cluster)
+            for dtype, objective, rtol in modes:
+                W_k, H_k, value = cuda_klnmf._fused_mu_block_variant(
+                    X, W, H, steps, variant, cluster, objective=dtype)
+                torch.cuda.synchronize()
+                assert torch.equal(W_k, plain[0]), (variant, cluster)
+                assert torch.equal(H_k, plain[1]), (variant, cluster)
+                assert value.dtype == dtype and value.shape == (R,)
+                expected = objective({"W": W_k, "H": H_k}, {"X": X})
+                torch.testing.assert_close(value, expected, rtol=rtol,
+                                           atol=0, msg=lambda m: (
+                                               f"{variant} {cluster} "
+                                               f"{dtype} {steps}: {m}"))
+    with pytest.raises(ValueError, match="after >= 1 step"):
+        cuda_klnmf.fused_mu_block(X, W, H, 0, objective=torch.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["pcawg", "cohort"])
+def test_graphed_block_objective_keeps_the_iterations(cuda_device, shape):
+    """A graphed lockstep fit whose blocks take their float64 objective
+    from the launch stops every lane at the iteration, and with the W, H
+    and evaluations, of the eager fit whose objective is the plain ops'
+    (PCAWG SBS at K = 5, R = 100; ten Poisson resamples of a 96 x 20,000
+    catalog at K = 5, the streamed kernel with a per-lane X); the
+    histories agree to 1e-12."""
+    from salamander_tpu_torch import datasets, profiling
+    from salamander_tpu_torch.engine import (
+        FitConfig,
+        bind_objective,
+        fit_loop_lockstep,
+    )
+    from salamander_tpu_torch.engine import fit as fit_module
+
+    if shape == "pcawg":
+        params0, data = graph_problem(cuda_device, 5, 100)
+        config = FitConfig(200, 3000, 10, 1e-7)
+    else:
+        rng = np.random.default_rng(11)
+        X0 = datasets.synthetic_catalog(96, 20_000, 5, seed=11)
+        X = rng.poisson(X0, (10,) + X0.shape).astype(np.float32)
+        params0, data = graph_problem(cuda_device, 5, 10, X=X, seed=11)
+        config = FitConfig(200, 2000, 10, 1e-7)
+    _, objective_fn, block = kernel_fns(params0)
+
+    def run(objective):
+        before = dict(profiling.counters)
+        result = fit_loop_lockstep(objective, params0, config, block(data))
+        torch.cuda.synchronize()
+        return result, {name: profiling.counters.get(name, 0)
+                        - before.get(name, 0) for name in
+                        ("engine.block_evals",
+                         "engine.block_evals_in_kernel")}
+
+    for key in fit_module.graph_counts:
+        fit_module.graph_counts[key] = 0
+    fused, fused_counts = run(bind_objective(objective_fn, data))
+    assert fit_module.graph_counts["replays"] >= 1
+    with fit_module._eager_spans():
+        plain, plain_counts = run(lambda p: objective_fn(p, data))
+    assert fused_counts["engine.block_evals_in_kernel"] == \
+        fused_counts["engine.block_evals"] > 0
+    assert plain_counts["engine.block_evals_in_kernel"] == 0
+    assert torch.equal(fused.n_iterations, plain.n_iterations)
+    assert torch.equal(fused.n_evals, plain.n_evals)
+    assert len(set(fused.n_iterations.tolist())) > 1  # lanes stop apart
+    for key in fused.params:
+        assert torch.equal(fused.params[key], plain.params[key]), key
+    torch.testing.assert_close(fused.history, plain.history, rtol=1e-12,
+                               atol=0, equal_nan=True)

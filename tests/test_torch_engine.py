@@ -254,3 +254,208 @@ def test_verbose_prints_at_each_verbosity_boundary(problem, capsys):
                capsys.readouterr().out.splitlines()]
     # iterations only visit multiples of 7: print where a block crossed 30
     assert printed == ["iteration: 35", "iteration: 63", "iteration: 91"]
+
+
+# ---------------------------------------------------------------------- #
+# the block's own objective (the kernel route's launch returns it)
+# ---------------------------------------------------------------------- #
+
+
+def counting(objective_fn, calls):
+    """objective_fn(params, data) that records each call, keeping its
+    block_objective mark."""
+    def objective(params, data):
+        calls.append(1)
+        return objective_fn(params, data)
+
+    holds = getattr(objective_fn, "block_objective", None)
+    if holds is not None:
+        engine.block_objective(objective, holds)
+    return objective
+
+
+def fake_kernel_block(update_fn, asked, returns=True):
+    """A kernel-route block update built from the plain ops: asked for the
+    objective (the dtype recorded in `asked`), it returns the params'
+    klnmf_objective in that dtype, as cuda_klnmf.fused_block_update does
+    on a card."""
+    def block(params, data, n_steps, objective=None):
+        for _ in range(n_steps):
+            params = update_fn(params, data)
+        if objective is None:
+            return params
+        asked.append(objective)
+        return params, torch_ops.klnmf_objective(
+            data["X"].to(objective), params["W"].to(objective),
+            params["H"].to(objective))
+
+    engine.kernel_route(block)
+    return engine.returns_objective(block) if returns else block
+
+
+def counter_deltas(run):
+    before = dict(engine.fit.profiling.counters)
+    result = run()
+    names = ("engine.block_evals", "engine.block_evals_in_kernel")
+    return result, {name: engine.fit.profiling.counters.get(name, 0)
+                    - before.get(name, 0) for name in names}
+
+
+def float32_problem(problem, lanes):
+    X, W, H = problem
+    params = {"W": torch.from_numpy(W).float(),
+              "H": torch.from_numpy(H).float()}
+    if not lanes:
+        params = {key: value[0] for key, value in params.items()}
+    return params, {"X": torch.from_numpy(X).float()}
+
+
+def run_loop(lanes, update_fn, objective_fn, block, params, data, config):
+    """fit_loop (through make_fit_function) or fit_loop_lockstep (through
+    compaction.lockstep_fit), and the lockstep loop's final done flags."""
+    from salamander_tpu_torch.parallel.compaction import lockstep_fit
+
+    if not lanes:
+        result = engine.make_fit_function(
+            update_fn, objective_fn, config,
+            block_update_fn=block)(params, data)
+        return result, None
+    result, _ = lockstep_fit(objective_fn, config,
+                             lambda p, d: engine.bind_data(block, d),
+                             params, data)
+    objective = engine.bind_objective(objective_fn, data)
+    state = engine.init_lockstep_state(objective, params, config)
+    state = engine.run_lockstep_segment(
+        objective, config, engine.bind_data(block, data), state)
+    return result, state.done
+
+
+@pytest.mark.parametrize("promote", [False, True])
+@pytest.mark.parametrize("lanes", [False, True])
+@pytest.mark.parametrize("config", CONFIGS)
+def test_block_objective_equals_objective_fn(problem, config, lanes,
+                                             promote):
+    """A kernel-route block that returns its objective gives the loop the
+    params, history, n_evals, n_iterations and done of the objective_fn
+    route, unbatched and in lockstep, promoted to float64 or not: the
+    objective function then runs once (the initial objective; lockstep_fit
+    adds the final losses), and every block is counted in the kernel."""
+    from salamander_tpu_torch.models.signature_nmf import promote_objective
+
+    params, data = float32_problem(problem, lanes)
+    update_fn, objective_fn = torch_ops.make_step_functions()
+    if promote:
+        objective_fn = promote_objective(objective_fn, params)
+    routes = {}
+    for in_kernel in (False, True):
+        calls, asked = [], []
+        block = fake_kernel_block(update_fn, asked, returns=in_kernel)
+        routes[in_kernel] = counter_deltas(lambda: run_loop(
+            lanes, update_fn, counting(objective_fn, calls), block, params,
+            data, config)) + (len(calls), asked)
+    (plain, plain_done), plain_counts, plain_calls, _ = routes[False]
+    (fused, fused_done), counts, calls, asked = routes[True]
+
+    assert fused.history.dtype == (torch.float64 if promote
+                                   else torch.float32)
+    for key in ("W", "H"):
+        assert torch.equal(fused.params[key], plain.params[key])
+    assert torch.equal(nan_to_sentinel_t(fused.history),
+                       nan_to_sentinel_t(plain.history))
+    assert torch.equal(torch.as_tensor(fused.n_evals),
+                       torch.as_tensor(plain.n_evals))
+    assert torch.equal(torch.as_tensor(fused.n_iterations),
+                       torch.as_tensor(plain.n_iterations))
+    if lanes:
+        assert torch.equal(fused_done, plain_done)
+    blocks = plain_counts["engine.block_evals"]
+    assert blocks >= 1 and counts["engine.block_evals"] == blocks
+    assert counts["engine.block_evals_in_kernel"] == blocks
+    assert plain_counts["engine.block_evals_in_kernel"] == 0
+    assert asked == [fused.history.dtype] * blocks
+    # the initial objectives (and lockstep_fit's final losses) alone
+    assert calls == (3 if lanes else 1)
+    assert plain_calls == calls + blocks
+
+
+def nan_to_sentinel_t(history):
+    return torch.where(torch.isnan(history), -1.0, history)
+
+
+def masked_klnmf(params):
+    W, H, mask = torch_ops.pad_rank(params["W"], params["H"],
+                                    params["W"].shape[-1] + 2)
+    return torch_ops.make_masked_step_functions(), {
+        "W": W, "H": H, "mask": mask.expand(W.shape[:1] + mask.shape)}
+
+
+def masked_mvnmf(params):
+    from salamander_tpu_torch.ops import mvnmf as mv_ops
+
+    W, H, mask = torch_ops.pad_rank(params["W"], params["H"],
+                                    params["W"].shape[-1] + 1)
+    return mv_ops.make_masked_step_functions(1.0, 1.0), {
+        "W": W, "H": H, "gamma": torch.ones(W.shape[0], dtype=W.dtype),
+        "mask": mask.expand(W.shape[:1] + mask.shape)}
+
+
+FALLBACKS = {
+    # a kernel-route block that returns no objective
+    "no_block_objective": lambda params, data: (
+        torch_ops.make_step_functions(), params, data, False),
+    "weighted": lambda params, data: (
+        torch_ops.make_step_functions(), params,
+        {**data, "weights_kl": torch.linspace(
+            0.5, 1.5, data["X"].shape[-1], dtype=data["X"].dtype)}, True),
+    "rank_masked": lambda params, data: (
+        *masked_klnmf(params), data, True),
+    "mvnmf": lambda params, data: (*masked_mvnmf(params), data, True),
+}
+
+
+@pytest.mark.parametrize("case", FALLBACKS)
+def test_objective_fn_where_the_block_cannot_give_it(problem, case):
+    """The loop calls its objective_fn after every block where the block
+    returns no objective or the objective is not the one it reproduces:
+    weighted, rank-masked, MvNMF. No block is counted in the kernel."""
+    from salamander_tpu_torch.parallel.compaction import lockstep_fit
+
+    params, data = float32_problem(problem, True)
+    params = {key: value.double() for key, value in params.items()}
+    data = {"X": data["X"].double()}
+    (update_fn, objective_fn), params, data, returns = FALLBACKS[case](
+        params, data)
+    calls, asked = [], []
+    block = fake_kernel_block(update_fn, asked, returns)
+    (result, _), counts = counter_deltas(lambda: lockstep_fit(
+        counting(objective_fn, calls), CONFIGS[0],
+        lambda p, d: engine.bind_data(block, d), params, data))
+    blocks = counts["engine.block_evals"]
+    assert blocks >= 1 and counts["engine.block_evals_in_kernel"] == 0
+    assert asked == []
+    assert len(calls) == 2 + blocks
+    assert int(result.n_evals.max()) <= blocks
+
+
+def test_the_mark_follows_the_objective():
+    """make_step_functions marks its objective unless a sample axis
+    completes its sums; promote_objective keeps the mark; bind_objective
+    keeps it for unweighted data only; bind_data keeps a block's marks."""
+    from salamander_tpu_torch.models.signature_nmf import promote_objective
+
+    _, objective_fn = torch_ops.make_step_functions()
+    _, sharded = torch_ops.make_step_functions(reduce_samples=lambda x: x)
+    _, masked = torch_ops.make_masked_step_functions()
+    promoted = promote_objective(objective_fn,
+                                 {"W": torch.ones(2, dtype=torch.float32)})
+    X = torch.ones(3, 4)
+    for fn, expected in ((objective_fn, True), (promoted, True),
+                         (sharded, False), (masked, False)):
+        assert engine.bind_objective(fn, {"X": X}).block_objective is \
+            expected
+    assert not engine.bind_objective(
+        promoted, {"X": X, "weights_lhalf": torch.ones(4)}).block_objective
+    block = engine.bind_data(fake_kernel_block(lambda p, d: p, []), {})
+    assert block.kernel_route and block.returns_objective
+    plain = engine.bind_data(lambda p, d, n: p, {})
+    assert not getattr(plain, "returns_objective", False)

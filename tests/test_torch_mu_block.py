@@ -82,6 +82,38 @@ def test_cpu_call_runs_plain_version_without_counting():
     assert cuda_klnmf.fused_mu_block.launches == before
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("layout", ["single", "shared", "per_lane"])
+def test_block_update_returns_the_loop_objective(layout, dtype):
+    """Asked for the objective, the block update (plain on the CPU) returns
+    the params it returns unasked and, bit for bit, the engine objective of
+    them: make_step_functions' own in float32, promote_objective's in
+    float64; fused_mu_block returns it per lane."""
+    from salamander_tpu_torch.models.signature_nmf import promote_objective
+    from salamander_tpu_torch.ops import klnmf as torch_klnmf
+
+    X, W, H = (torch.from_numpy(a) for a in make_problem(16, 3, 40, R=3))
+    if layout == "per_lane":
+        X = torch.stack([X + lane for lane in range(3)])
+    params = {"W": W[0], "H": H[0]} if layout == "single" else \
+        {"W": W, "H": H}
+    data = {"X": X}
+    _, objective_fn = torch_klnmf.make_step_functions()
+    if dtype == torch.float64:
+        objective_fn = promote_objective(objective_fn, params)
+    plain = cuda_klnmf.fused_block_update(params, data, 4)
+    fused, value = cuda_klnmf.fused_block_update(params, data, 4,
+                                                 objective=dtype)
+    assert all(torch.equal(fused[key], plain[key]) for key in plain)
+    expected = objective_fn(plain, data)
+    assert value.dtype == dtype and value.shape == expected.shape
+    assert torch.equal(value, expected)
+    if layout != "single":
+        *block, per_lane = cuda_klnmf.fused_mu_block(X, W, H, 4, dtype)
+        assert torch.equal(per_lane, expected)
+        assert all(torch.equal(a, b) for a, b in zip(block, plain.values()))
+
+
 @pytest.mark.parametrize("steps", [1, 10])
 def test_per_lane_plain_block_matches_vmapped_pallas(steps):
     """X (R, V, D), one count matrix per lane: the plain version against the
