@@ -46,7 +46,7 @@ import numpy as np
 import pandas as pd
 import torch
 
-from .. import containers, tools as tl
+from .. import containers, profiling, tools as tl
 from ..engine import FitConfig, effective_tolerance, make_fit_function
 from ..engine.transfer import params_to_numpy
 from ..initialization.initialize import EPSILON, initialize_mmcorrnmf
@@ -438,6 +438,7 @@ class MultimodalCorrNMF:
         dim = self.dim_embeddings
 
         def update_fn(params, data):
+            profiling.count("mmcorrnmf.cycles")
             mods = {name: dict(params["mods"][name]) for name in mod_names}
             U = params["sample_embeddings"]
             variance = params["variance"]
@@ -551,12 +552,16 @@ class MultimodalCorrNMF:
             }
 
         def objective_fn(params, data):
+            with profiling.span("mmcorrnmf.objective"):
+                return elbo(params, data)
+
+        def elbo(params, data):
             U = params["sample_embeddings"]
             variance = params["variance"]
-            elbo = 0.0
+            value = 0.0
             for name in mod_names:
                 m = params["mods"][name]
-                elbo = elbo + ops.elbo_corrnmf(
+                value = value + ops.elbo_corrnmf(
                     data["X"][name], m["signatures"], m["exposures"],
                     m["signature_embeddings"], U, variance,
                     penalize_sample_embeddings=False,
@@ -564,10 +569,9 @@ class MultimodalCorrNMF:
                 )
             sample_sq, n_obs = sum_samples(reduce_samples,
                                            *ops.variance_sums(U))
-            elbo = elbo - 0.5 * dim * n_obs * torch.log(
+            value = value - 0.5 * dim * n_obs * torch.log(
                 2 * torch.pi * variance)
-            elbo = elbo - sample_sq / (2 * variance)
-            return elbo
+            return value - sample_sq / (2 * variance)
 
         return update_fn, objective_fn
 

@@ -13,20 +13,31 @@ through, and X may stay unbatched.
 
 The embedding M-step solves every row with damped Newton and a vectorized
 41-candidate Armijo backtracking (the first candidate that passes is taken;
-2^-40 always passes). The (m, m) Newton systems are factored by batched
-``torch.linalg.cholesky_ex`` (ops/mvnmf.py ``_cholesky``: a row whose
+2^-40 always passes). In float64 the test compares two whole objectives,
+as the JAX package does; below float64 it reads each candidate's change
+of the objective term by term (expm1 of the rates' exponents), since at
+cohort sizes the difference of two whole objectives lies below float32's
+resolution (_armijo_by_change). The (m, m) Newton systems are factored by
+batched ``torch.linalg.cholesky_ex`` (ops/mvnmf.py ``_cholesky``: a row whose
 Hessian fails to factor is factored again with EPSILON * diag added, with
-no host sync), where the JAX package unrolls Cramer and Cholesky solves to
-keep tiny linalg calls off its accelerator. Every Newton product runs in
-IEEE float32 or float64: under reduced precision the Hessian, a rank-k sum
-plus I/variance with rates ~1e4-1e5, goes indefinite (the JAX package saw
-it on its accelerator, salamander_tpu/ops/corrnmf.py:36-46).
+no host sync) and solved by two triangular solves, where the JAX package
+unrolls Cramer and Cholesky solves to keep tiny linalg calls off its
+accelerator. Every Newton product runs in IEEE float32 or float64: under
+reduced precision the Hessian, a rank-k sum plus I/variance with rates
+~1e4-1e5, goes indefinite (the JAX package saw it on its accelerator,
+salamander_tpu/ops/corrnmf.py:36-46).
 
 The signature side (up to 100 Newton steps) stops, as the JAX package's
 early-exit loop does, when every row is done: the host checks once per
 step, and done rows are frozen with ``torch.where``, so extra masked steps
 give the early-exit result. The sample side (3 steps, the reference's
 scipy maxiter) runs its steps unconditionally.
+
+Spans and counters (profiling.py): a solve is the span
+``corrnmf.signature_newton`` or ``corrnmf.sample_newton``; the counters
+``corrnmf.newton_steps.signature`` and ``corrnmf.newton_steps.sample`` add
+the steps each solve ran (one step advances every row of every lane), and
+``ops.host_syncs`` each early-exit read of the done flags.
 
 reduce_samples (ops/klnmf.py): under a sample-sharded mesh each rank holds
 a block of the samples (rows of X, the sample scalings and embeddings),
@@ -35,8 +46,9 @@ sample penalty and sample count, the signature scalings' two sums, the
 variance's sample sum and count, and, in the signature-side Newton solve
 (whose "other" rows are the samples), the linear term, the gradient,
 Hessian and objective sums of each step (one call) and the Armijo
-candidates' sums (a second). Every branch then reads reduced values, so
-every rank takes it. The sample-side solve is rank-local and calls nothing.
+candidates' sums, or their changes of the rates below float64 (a second).
+Every branch then reads reduced values, so every rank takes it. The
+sample-side solve is rank-local and calls nothing.
 """
 
 from __future__ import annotations
@@ -46,6 +58,7 @@ import math
 import numpy as np
 import torch
 
+from .. import profiling
 from .klnmf import EPSILON, poisson_llh, sum_samples
 from .mvnmf import _cholesky
 from .precision import mm, omm
@@ -242,9 +255,34 @@ def hessian_embedding(embedding, embeddings_other, scaling, scalings_other,
 
 def _solve_spd(hess, grad):
     """Solve hess @ x = grad for (..., m, m) SPD systems by a Cholesky
-    factor that never raises (ops/mvnmf.py _cholesky's diagonal floor)."""
-    return torch.cholesky_solve(grad.unsqueeze(-1),
-                                _cholesky(hess)).squeeze(-1)
+    factor that never raises (ops/mvnmf.py _cholesky's diagonal floor) and
+    two triangular solves. Not torch.cholesky_solve: on a card its batched
+    route waits for the device on every call (4.4 ms a call at (8, 20,000)
+    6 x 6 systems against 0.2 ms for the two solves on an NVIDIA H100,
+    PERF.md section 6), which paced the multimodal cycle by the host."""
+    L = _cholesky(hess)
+    y = torch.linalg.solve_triangular(L, grad.unsqueeze(-1), upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True).squeeze(-1)
+
+
+def _armijo_by_change(b, direction, rates, embeddings_other, linear_term,
+                      var_rows, ts, slope, reduce_samples):
+    """The Armijo test of every candidate t (..., N, 41) on f(b + t d) -
+    f(b) read term by term: a rate's change is rate * expm1(t <d, o>), the
+    quadratic's (2 t <b, d> + t^2 |d|^2) / (2 variance). Two whole
+    objectives, each a sum of M rates, differ by less than float32's
+    resolution at cohort sizes (M = 20,000): compared as such they took
+    wrong steps and stopped rows short of their optimum."""
+    along = omm(direction, embeddings_other.mT)           # (..., N, M)
+    (rate_change,) = sum_samples(reduce_samples, (
+        rates.unsqueeze(-2)
+        * torch.expm1(ts.unsqueeze(-1) * along.unsqueeze(-2))).sum(-1))
+    # change - 1e-4 t slope = rate_change + t * linear + t^2 * quadratic
+    linear = ((b / var_rows - linear_term) * direction).sum(-1, keepdim=True)
+    quadratic = (direction * direction).sum(-1, keepdim=True) / (
+        2.0 * var_rows)
+    return rate_change + ts * (linear - 1e-4 * slope.unsqueeze(-1)
+                               + ts * quadratic) <= 0.0
 
 
 def _newton_step(b, done, embeddings_other, offsets, linear_term, variance,
@@ -275,20 +313,25 @@ def _newton_step(b, done, embeddings_other, offsets, linear_term, variance,
     eye = torch.eye(b.shape[-1], dtype=b.dtype, device=b.device)
     hess = rate_hess + eye / var_rows.unsqueeze(-1)       # (..., N, m, m)
     direction = -_solve_spd(hess, grad)
-    f0 = (-(linear_term * b).sum(-1) + rate_sum
-          + (b * b).sum(-1) / (2.0 * variance))           # (..., N)
     slope = (grad * direction).sum(-1)
-
-    candidates = b.unsqueeze(-2) + ts.unsqueeze(-1) * direction.unsqueeze(-2)
-    (cand_rates,) = sum_samples(reduce_samples, torch.exp(
-        omm(candidates, embeddings_other.mT.unsqueeze(-3))
-        + offsets.unsqueeze(-2)).sum(-1))
-    f_cand = (
-        -omm(candidates, linear_term.unsqueeze(-1)).squeeze(-1)
-        + cand_rates
-        + (candidates * candidates).sum(-1) / (2.0 * var_rows)
-    )                                                     # (..., N, 41)
-    ok = f_cand <= f0.unsqueeze(-1) + 1e-4 * ts * slope.unsqueeze(-1)
+    if torch.finfo(b.dtype).bits < 64:
+        ok = _armijo_by_change(b, direction, rates, embeddings_other,
+                               linear_term, var_rows, ts, slope,
+                               reduce_samples)
+    else:
+        f0 = (-(linear_term * b).sum(-1) + rate_sum
+              + (b * b).sum(-1) / (2.0 * variance))       # (..., N)
+        candidates = (b.unsqueeze(-2)
+                      + ts.unsqueeze(-1) * direction.unsqueeze(-2))
+        (cand_rates,) = sum_samples(reduce_samples, torch.exp(
+            omm(candidates, embeddings_other.mT.unsqueeze(-3))
+            + offsets.unsqueeze(-2)).sum(-1))
+        f_cand = (
+            -omm(candidates, linear_term.unsqueeze(-1)).squeeze(-1)
+            + cand_rates
+            + (candidates * candidates).sum(-1) / (2.0 * var_rows)
+        )                                                 # (..., N, 41)
+        ok = f_cand <= f0.unsqueeze(-1) + 1e-4 * ts * slope.unsqueeze(-1)
     ok[..., -1] = True  # the step floor accepts 2^-40 regardless
     t = ts[ok.to(torch.int8).argmax(-1)]                  # first that passes
     update = t.unsqueeze(-1) * direction
@@ -308,7 +351,8 @@ def _clamp_away_from_zero(embeddings):
 
 def update_embeddings(embeddings0, embeddings_other, scalings, scalings_other,
                       variance, aux_mat, max_iter: int = 100,
-                      xtol_total=None, reduce_samples=None):
+                      xtol_total=None, reduce_samples=None,
+                      side: str | None = None):
     """Batched Newton update of N embedding rows at once.
 
     embeddings0:      (..., N, m) initial values (rows optimized
@@ -328,7 +372,29 @@ def update_embeddings(embeddings0, embeddings_other, scalings, scalings_other,
                       aux_mat and offsets) are this rank's block of the
                       samples: the signature side under a sample-sharded
                       mesh (module docstring).
+    side:             "signature" or "sample": the span and counter the
+                      solve is recorded under (module docstring); None
+                      names it by its loop, an early-exit one the
+                      signature side's and an unrolled one the sample
+                      side's.
     """
+    early_exit = max_iter > _UNROLL_NEWTON_LIMIT
+    if side is None:
+        side = "signature" if early_exit else "sample"
+    with profiling.span(f"corrnmf.{side}_newton"):
+        b, steps = _newton_solve(
+            embeddings0, embeddings_other, scalings, scalings_other,
+            variance, aux_mat, max_iter, xtol_total, reduce_samples,
+            early_exit)
+    profiling.count(f"corrnmf.newton_steps.{side}", steps)
+    return b
+
+
+def _newton_solve(embeddings0, embeddings_other, scalings, scalings_other,
+                  variance, aux_mat, max_iter, xtol_total, reduce_samples,
+                  early_exit):
+    """update_embeddings' loop: (the rows clamped away from zero, the
+    steps run)."""
     dim = embeddings0.shape[-1]
     if xtol_total is None:
         xtol_total = dim * XTOL
@@ -346,14 +412,17 @@ def update_embeddings(embeddings0, embeddings_other, scalings, scalings_other,
                              device=embeddings0.device)
     b = embeddings0
     done = torch.zeros(b.shape[:-1], dtype=torch.bool, device=b.device)
-    early_exit = max_iter > _UNROLL_NEWTON_LIMIT
+    steps = 0
     for step in range(int(max_iter)):
         b, done, linear_term = _newton_step(
             b, done, embeddings_other, offsets, linear_term, variance, ts,
             xtol_total, reduce_samples, step == 0)
-        if early_exit and bool(done.all()):  # one host sync per step
-            break
-    return _clamp_away_from_zero(b)
+        steps += 1
+        if early_exit:
+            profiling.count("ops.host_syncs")
+            if bool(done.all()):  # one host sync per step
+                break
+    return _clamp_away_from_zero(b), steps
 
 
 def update_embeddings_newton_cg(embeddings0, embeddings_other, scalings,

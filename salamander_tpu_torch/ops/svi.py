@@ -353,7 +353,7 @@ def make_svi_batch_step(
                 sig_emb, u_batch, sig_scal, tau_batch + log_scale,
                 variance, scale * aux_batch,
                 max_iter=config.signature_newton_iters,
-                reduce_samples=reduce_samples,
+                reduce_samples=reduce_samples, side="signature",
             )
             sig_emb = (1.0 - rho) * sig_emb + rho * sig_emb_star
 
@@ -877,7 +877,7 @@ def make_mm_svi_batch_step(
                 m["signature_scalings"], b["tau"] + log_scale,
                 variance, scale * b["aux"],
                 max_iter=config.signature_newton_iters,
-                reduce_samples=reduce_samples,
+                reduce_samples=reduce_samples, side="signature",
             )
             m["signature_embeddings"] = (
                 (1.0 - rho) * m["signature_embeddings"] + rho * sig_emb_star

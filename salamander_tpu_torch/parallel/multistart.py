@@ -18,6 +18,9 @@ Under a (restarts, samples) mesh (parallel/mesh.py) every rank draws the
 whole params0, runs its block of the lanes (and of the samples, whose sums
 the family's step functions complete with reduce_samples) and gathers the
 rest, so every rank absorbs the same best restart.
+
+A call of fit_best_of is the root span ``multistart.fit_best_of`` of the
+program's record (profiling.py).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from .. import profiling
 from ..engine import FitResult, bind_data, effective_tolerance
 from ..engine.transfer import params_to_numpy
 from ..engine.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
@@ -244,6 +248,7 @@ def _concat_results(parts):
     return result, torch.cat([part[1] for part in parts])
 
 
+@profiling.entry("multistart.fit_best_of")
 def fit_best_of(
     model,
     data_container,
