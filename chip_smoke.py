@@ -71,7 +71,9 @@ check raises, so the script exits non-zero and prints no result):
    dim_embeddings=2) over a fixed 50-cycle window, unpadded, padded and
    packed, and padded one point per call, one run each; best ELBO per rank
    at rtol 1e-4.
-Phases 9-11 run plain PyTorch ops (neither family reaches the kernel).
+Phases 9 and 11 launch no MU kernel: their sample side's unrolled Newton
+solve is the corrnmf_newton kernel (one launch a solve), the rest plain
+PyTorch ops; phase 10 runs plain ops only.
 12. extract_signatures(PCAWG SBS, range(2, 11), n_bootstraps=20, seed=0)
    grouped (each rank's lanes through the kernel with a per-lane X) once
    with graphed and once with eager spans, and padded (one
@@ -84,7 +86,8 @@ Phases 9-11 run plain PyTorch ops (neither family reaches the kernel).
 14. bootstrap_stability(KLNMF(5).fit(PCAWG SBS), 20) through the kernel
    (per-lane X) and the plain block, best loss at rtol 1e-4; then
    bootstrap_exposures(PCAWG SBS, COSMIC-79, 50).
-15. MultimodalCorrNMF in float32, plain PyTorch ops (no kernel launches):
+15. MultimodalCorrNMF in float32, no MU kernel (the joint sample side's
+   Newton solve is the corrnmf_newton kernel, the rest plain PyTorch ops):
    ([5, 4, 3], dim_embeddings=3, min 100, max 1000).fit on PCAWG breast
    {sbs 96, indel 83, sv 32} x 192 (np.random.seed(0)): wall, EM cycles,
    cycles/s, final ELBO; the ELBO trace never falls by more than float32
@@ -101,8 +104,8 @@ Phases 9-11 run plain PyTorch ops (neither family reaches the kernel).
    take most of the device time.
 
 16. Stochastic (minibatch) fitting and host streaming (ops/svi.py), float32
-   on the card, plain PyTorch ops: the phase launches no hand kernel, and
-   that is checked. (a) fit_minibatch resident against streaming at one
+   on the card: the phase launches no MU kernel, and each batch's sample
+   side is the corrnmf_newton kernel; both are checked. (a) fit_minibatch resident against streaming at one
    seed for KLNMF (weights_kl and weights_lhalf), CorrNMFDet(5, m=2) and
    MultimodalCorrNMF([5, 4, 3], m=3) on the PCAWG data, batch_size 48 and
    50 (50 divides no epoch), 100 steps, eval_freq 25: every absorbed
@@ -210,13 +213,22 @@ Phases 9-11 run plain PyTorch ops (neither family reaches the kernel).
    samples again in float64 on the card: none over the budget, mean
    support within 0.2 of the float32 run's, the share of equal supports.
 
-Each of phases 4-20 runs with the kernel's launch counts (in all, by
-kernel and by shared or per-lane X) and the engine's CUDA graph counts
-(captures, replays) set to 0 just before it and read just after: every
-kernel path of phases 4-6, 8, 12, 14, 17 (fit, scan, extract), 18, 19
-and 20a replays graphs, every plain-op and sample-sharded path none. A replay
-counts the launches its graph holds. The last two lines are the per-kernel JSON
-record and
+21. The unrolled CorrNMF Newton solve's kernel (csrc/corrnmf_newton.cu)
+   at the multimodal pan-cancer cell's shape, (8, 20,000) rows against 11
+   signatures, m = 6, in float32 and float64: each of its 3 steps held
+   against the plain step under tests/test_torch_cuda.py's limits (that
+   file's helpers), then the solve timed against the plain solve and the
+   bound of its bytes.
+
+Each of phases 4-21 runs with the MU kernel's launch counts (in all, by
+kernel and by shared or per-lane X), the Newton kernel's launches and the
+engine's CUDA graph counts (captures, replays) set to 0 just before it
+and read just after: every MU kernel path of phases 4-6, 8, 12, 14, 17
+(fit, scan, extract), 18, 19 and 20a replays graphs, every path without
+it none; every CorrNMF path run in this process (9, 11, 15, 16, 18a's
+corrnmf fit, 18b's meshless twins, 21) launches the Newton kernel and no
+other path does. A replay counts the launches its graph holds. The last
+two lines are the per-kernel JSON record and
 {"ok": true, "device": {...}}; the card's name and power limit precede
 them.
 """
@@ -1176,38 +1188,59 @@ def elbo_trace_check(trace) -> float:
     return worst
 
 
+@contextmanager
+def newton_counted(corr_ops):
+    """Counts, into the dict it yields, each update_embeddings call
+    ("solves") and each _newton_step call made inside an early-exit
+    (signature-side) solve ("signature_steps"). An unrolled sample-side
+    solve on the card is one kernel launch and calls no _newton_step."""
+    import inspect
+
+    calls = {"solves": 0, "signature_steps": 0}
+    inside = {"early_exit": False}
+    real_step, real_update = corr_ops._newton_step, corr_ops.update_embeddings
+    signature = inspect.signature(real_update)
+
+    def counting_step(*args, **kwargs):
+        calls["signature_steps"] += inside["early_exit"]
+        return real_step(*args, **kwargs)
+
+    def counting_update(*args, **kwargs):
+        bound = signature.bind(*args, **kwargs)
+        bound.apply_defaults()
+        calls["solves"] += 1
+        inside["early_exit"] = (bound.arguments["max_iter"]
+                                > corr_ops._UNROLL_NEWTON_LIMIT)
+        try:
+            return real_update(*args, **kwargs)
+        finally:
+            inside["early_exit"] = False
+
+    corr_ops._newton_step = counting_step
+    corr_ops.update_embeddings = counting_update
+    try:
+        yield calls
+    finally:
+        corr_ops._newton_step = real_step
+        corr_ops.update_embeddings = real_update
+
+
 def phase_corrnmf(torch, sal):
     """CorrNMFDet(5, dim_embeddings=2).fit on PCAWG SBS in float32, then
     fit_best_of(R=16) compacted and monolithic, one run each."""
     from salamander_tpu_torch.ops import corrnmf as corr_ops
 
-    calls = {"steps": 0, "solves": 0}
-    real_step, real_update = corr_ops._newton_step, corr_ops.update_embeddings
-
-    def counting_step(*args):
-        calls["steps"] += 1
-        return real_step(*args)
-
-    def counting_update(*args, **kwargs):
-        calls["solves"] += 1
-        return real_update(*args, **kwargs)
-
     hyper = dict(n_signatures=5, dim_embeddings=2, min_iterations=100,
                  tol=1e-7, device="cuda", dtype="float32")
     np.random.seed(0)
     model = sal.CorrNMFDet(max_iterations=1000, **hyper)
-    corr_ops._newton_step = counting_step
-    corr_ops.update_embeddings = counting_update
-    try:
+    with newton_counted(corr_ops) as calls:
         _, seconds = timed(torch, lambda: model.fit(sbs_adata(sal)))
-    finally:
-        corr_ops._newton_step = real_step
-        corr_ops.update_embeddings = real_update
     cycles = model.history["n_iterations"]
     trace = model.history["objective_function"]
     final = float(trace[-1])
     check(calls["solves"] == 2 * cycles, "one Newton solve per side and cycle")
-    signature_steps = (calls["steps"] - 3 * cycles) / cycles
+    signature_steps = calls["signature_steps"] / cycles
     worst = elbo_trace_check(trace)
     check(np.isfinite(final), "non-finite ELBO")
     check(bool(np.isfinite(model.asignatures.X).all()
@@ -1550,25 +1583,15 @@ def print_busy(tag: str, label: str, busy, unit: str = "cycle") -> None:
 def phase_multimodal(torch, sal):
     """MultimodalCorrNMF: the PCAWG breast fit, its best-of-16 in both
     layouts, the 100,000-sample cohort best-of-4, the joint bootstrap and
-    the cycle's device busy share. Float32 on the card, plain ops."""
+    the cycle's device busy share. Float32 on the card."""
     from salamander_tpu_torch.ops import corrnmf as corr_ops
 
     hyper = dict(ns_signatures=[5, 4, 3], dim_embeddings=3,
                  min_iterations=100, device="cuda", dtype="float32")
-    calls = {"steps": 0}
-    real_step = corr_ops._newton_step
-
-    def counting_step(*args):
-        calls["steps"] += 1
-        return real_step(*args)
-
     np.random.seed(0)
     model = sal.MultimodalCorrNMF(max_iterations=1000, **hyper)
-    corr_ops._newton_step = counting_step
-    try:
+    with newton_counted(corr_ops) as calls:
         _, seconds = timed(torch, lambda: model.fit(pcawg_mdata(sal)))
-    finally:
-        corr_ops._newton_step = real_step
     cycles = model.history["n_iterations"]
     trace = model.history["objective_function"]
     final = float(trace[-1])
@@ -1583,7 +1606,10 @@ def phase_multimodal(torch, sal):
         check(bool(np.isfinite(model.asignatures[name].X).all()
                    and np.isfinite(model.mdata[name].obsm["exposures"]).all()),
               f"non-finite {name} parameters")
-    signature_steps = (calls["steps"] - 3 * cycles) / cycles
+    check(calls["solves"] == (len(model.mod_names) + 1) * cycles,
+          "one Newton solve per modality's signatures and one joint sample "
+          "solve a cycle")
+    signature_steps = calls["signature_steps"] / cycles
     print(f"[15] MultimodalCorrNMF([5, 4, 3], dim_embeddings=3).fit on "
           f"PCAWG sbs/indel/sv x {model.mdata.n_obs}: {cycles} EM cycles, "
           f"{seconds:.3f} s, {cycles / seconds:.1f} cycles/s, final ELBO "
@@ -3438,6 +3464,52 @@ def phase_cell_8b(torch, sal):
     return {"peak": peak, "reckoned": per_sample * D}
 
 
+NEWTON_CELL = (8, 20_000, (6, 5), 6)   # lanes, samples, ns, m
+NEWTON_BYTES_PER_S = HBM_RATE
+
+
+def card_test_helpers():
+    """tests/test_torch_cuda.py as a module (it imports neither jax nor the
+    JAX package): the Newton kernel's step-by-step limits and inputs."""
+    spec = util.spec_from_file_location(
+        "chip_smoke_card_tests", ROOT / "tests" / "test_torch_cuda.py")
+    module = util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_newton_kernel(torch):
+    """21: the Newton kernel at the multimodal cell's shape in both dtypes,
+    each step held against the plain step, then timed against the plain
+    solve beside the bound of its bytes."""
+    from salamander_tpu_torch.ops import cuda_corrnmf
+
+    helpers = card_test_helpers()
+    lanes, N, ns, m = NEWTON_CELL
+    timings = []
+    for dtype in (torch.float32, torch.float64):
+        args = helpers.cohort_solve_args("cuda", dtype, lanes=(lanes,), N=N,
+                                         ns=ns, m=m)
+        helpers.assert_steps_held(args, "[21] cell shape")
+        kernel_ms = time_ms(torch, lambda: cuda_corrnmf.newton_solve(*args,
+                                                                     3), 20)
+        plain_ms = time_ms(torch, lambda: (
+            cuda_corrnmf.newton_solve_reference(*args, 3)), 5)
+        size = torch.finfo(dtype).bits // 8
+        M = sum(ns)
+        # aux and the row scalings read once, the rows in and out
+        bound_ms = 1e3 * size * lanes * N * (2 * M + 2 * m) \
+            / NEWTON_BYTES_PER_S
+        print(f"[21] corrnmf_newton {str(dtype).split('.')[-1]} at "
+              f"({lanes}, {N}) rows, M={M}, m={m}, 3 steps: {kernel_ms:.4f} "
+              f"ms a solve against the plain solve's {plain_ms:.4f} ms; "
+              f"bound {bound_ms:.4f} ms of bytes")
+        timings.append({"dtype": str(dtype).split(".")[-1],
+                        "ms": kernel_ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms})
+    return timings
+
+
 def main() -> int:
     import torch
 
@@ -3451,7 +3523,7 @@ def main() -> int:
     from salamander_tpu_torch.initialization.methods import (
         random_init_batch,
     )
-    from salamander_tpu_torch.ops import cuda_klnmf
+    from salamander_tpu_torch.ops import cuda_corrnmf, cuda_klnmf
 
     phase_environment(torch)
     phase_build(cuda_klnmf)
@@ -3460,19 +3532,24 @@ def main() -> int:
 
     X_host = datasets.load_pcawg_sbs().to_numpy().T.copy()
     launches, by_variant, by_x, graphs = {}, {}, {}, {}
+    newton = cuda_corrnmf.newton_solve
+    newton_launches = {}
 
     def drive(path, phase, *args):
         """Run one path with the launch counts and the graph counts set to
         0 just before it and read just after."""
         kernel = cuda_klnmf.fused_mu_block
         reset_counts(kernel)
+        newton.launches = 0
         start = time.perf_counter()
         out = phase(*args)
         graphs[path] = graphs_now()
         print(f"[path] {path}: {time.perf_counter() - start:.1f} s, "
-              f"{kernel.launches} kernel launches, CUDA graphs captured "
+              f"{kernel.launches} MU kernel launches, {newton.launches} "
+              f"Newton kernel launches, CUDA graphs captured "
               f"{graphs[path]['captures']}, replayed "
               f"{graphs[path]['replays']}")
+        newton_launches[path] = newton.launches
         launches[path] = kernel.launches
         by_variant[path] = dict(kernel.launches_by_variant)
         by_x[path] = dict(kernel.launches_by_x)
@@ -3506,13 +3583,26 @@ def main() -> int:
           timings)
     cell_7b = drive("20a cell 7b", phase_cell_7b, torch, sal, cuda_klnmf)
     drive("20b cell 8b", phase_cell_8b, torch, sal)
+    newton_timings = drive("21 corrnmf_newton", phase_newton_kernel, torch)
     check(launches["18b mesh, two ranks over gloo (this process)"] == 0,
           "phase 18b's fits run in its two ranks, not here")
     for path, (count, variants, xs, replays) in ranks.items():
         launches[path], by_variant[path], by_x[path] = count, variants, xs
         graphs[path] = replays
     check(launches["16 SVI and streaming"] == 0,
-          "the minibatch paths have no hand kernel to launch")
+          "the minibatch paths launch no MU kernel")
+    newton_paths = ("9 CorrNMFDet", "11 rank_scan_corrnmf",
+                    "15 MultimodalCorrNMF", "16 SVI and streaming",
+                    "18a CLI fit --model corrnmf --mesh auto",
+                    "18b mesh, two ranks over gloo (this process)",
+                    "21 corrnmf_newton")
+    for path, count in newton_launches.items():
+        if path in newton_paths:
+            check(count > 0, f"{path}: a CorrNMF path did not launch the "
+                  "Newton kernel")
+        else:
+            check(count == 0, f"{path}: a path without CorrNMF launched "
+                  "the Newton kernel")
     for command in ("assign", "assign --dense", "bootstrap"):
         check(launches[f"17b CLI {command}"] == 0,
               f"CLI {command} runs plain ops: it has no kernel to launch")
@@ -3520,7 +3610,9 @@ def main() -> int:
     mesh_kernel = [f"18b mesh (2, 1) rank {rank}" for rank in range(2)]
     mesh_extract = [f"18b mesh (2, 1) extract rank {rank}"
                     for rank in range(2)]
-    plain_paths = ["7 MvNMF", "9 CorrNMFDet", "10 ARDNMF",
+    # paths that launch no MU kernel (the CorrNMF ones launch the Newton
+    # kernel outside any graph)
+    no_mu_paths = ["7 MvNMF", "9 CorrNMFDet", "10 ARDNMF",
                    "11 rank_scan_corrnmf", "13 assignment",
                    "15 MultimodalCorrNMF", "16 SVI and streaming",
                    "17b CLI assign", "17b CLI assign --dense",
@@ -3530,12 +3622,12 @@ def main() -> int:
                 "18a CLI assign --mesh auto",
                 "18a CLI fit --model corrnmf --mesh auto"):
             check(launches[path] == 0,
-                  f"{path}: a sample-sharded path or plain-op command "
-                  "launches no kernel")
-            plain_paths.append(path)
-    for path in plain_paths:
+                  f"{path}: a sample-sharded path or a command without "
+                  "KLNMF launches no MU kernel")
+            no_mu_paths.append(path)
+    for path in no_mu_paths:
         check(graphs[path]["replays"] == 0,
-              f"{path}: a plain-op or sample-sharded path replayed a graph")
+              f"{path}: a path without the MU kernel replayed a graph")
     for path in ("4 KLNMF.fit", "5 fit_klnmf_restarts",
                  "6 fit_best_of KLNMF", "8 rank_scan_klnmf",
                  "12 extract_signatures", "14 bootstrap", *cli_kernel,
@@ -3572,6 +3664,7 @@ def main() -> int:
         check(by_x[path]["per_lane"] > 0,
               f"path {path} launched no kernel with a per-lane X")
     print(f"kernel launches by path: {launches}")
+    print(f"Newton kernel launches by path: {newton_launches}")
     print(f"kernel launches by path and kernel: {by_variant}")
     print(f"kernel launches by path, shared or per-lane X: {by_x}")
     print(f"CUDA graphs captured and replayed by path: {graphs}")
@@ -3614,6 +3707,19 @@ def main() -> int:
         "bound_by": headline["bound_by"],
         "library_ms": None,
         "timings": list(timings.values()),
+    }, {
+        "name": "corrnmf_newton",
+        "route": "cuda",
+        "source": "salamander_tpu_torch/csrc/corrnmf_newton.cu",
+        "replaces": None,
+        "launches": sum(newton_launches.values()),
+        "launches_by_path": newton_launches,
+        "max_abs_err": None,
+        "ms": {t["dtype"]: t["ms"] for t in newton_timings},
+        "plain_ms": {t["dtype"]: t["plain_ms"] for t in newton_timings},
+        "bound_ms": {t["dtype"]: t["bound_ms"] for t in newton_timings},
+        "bound_by": "bytes",
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

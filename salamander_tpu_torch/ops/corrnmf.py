@@ -31,12 +31,26 @@ The signature side (up to 100 Newton steps) stops, as the JAX package's
 early-exit loop does, when every row is done: the host checks once per
 step, and done rows are frozen with ``torch.where``, so extra masked steps
 give the early-exit result. The sample side (3 steps, the reference's
-scipy maxiter) runs its steps unconditionally.
+scipy maxiter) runs its steps unconditionally: an unrolled solve
+(max_iter <= _UNROLL_NEWTON_LIMIT). On a card an unrolled solve is one
+launch of the kernel csrc/corrnmf_newton.cu (ops/cuda_corrnmf.py): a
+thread per row runs every step of these plain ops in registers, the
+factor with its floor and the first passing Armijo candidate in the same
+arithmetic, and leaves its loop once the row is done. The route is decided
+from what the call shows before it runs (cuda_corrnmf.unsupported_reason:
+a card, float32 or float64, m up to cuda_corrnmf.DIM_MAX, at most
+cuda_corrnmf.OTHERS_MAX others a row, no reduce_samples): the sample side
+of every fit, but not a minibatch signature side against a batch of more
+samples than that. Every other unrolled solve, and every solve on the CPU,
+runs the plain steps below.
 
 Spans and counters (profiling.py): a solve is the span
 ``corrnmf.signature_newton`` or ``corrnmf.sample_newton``; the counters
 ``corrnmf.newton_steps.signature`` and ``corrnmf.newton_steps.sample`` add
-the steps each solve ran (one step advances every row of every lane), and
+the steps each solve ran (one step advances every row of every lane; an
+unrolled solve counts its max_iter steps on either route),
+``corrnmf.newton_solves.signature`` and ``.sample`` each unrolled solve,
+``corrnmf.newton_solves_in_kernel`` each solve the kernel ran, and
 ``ops.host_syncs`` each early-exit read of the done flags.
 
 reduce_samples (ops/klnmf.py): under a sample-sharded mesh each rank holds
@@ -48,7 +62,8 @@ variance's sample sum and count, and, in the signature-side Newton solve
 Hessian and objective sums of each step (one call) and the Armijo
 candidates' sums, or their changes of the rates below float64 (a second).
 Every branch then reads reduced values, so every rank takes it. The
-sample-side solve is rank-local and calls nothing.
+sample-side solve is rank-local and calls nothing (so on a card it takes
+the kernel, whose others are all on the rank).
 """
 
 from __future__ import annotations
@@ -59,6 +74,7 @@ import numpy as np
 import torch
 
 from .. import profiling
+from . import cuda_corrnmf
 from .klnmf import EPSILON, poisson_llh, sum_samples
 from .mvnmf import _cholesky
 from .precision import mm, omm
@@ -285,6 +301,34 @@ def _armijo_by_change(b, direction, rates, embeddings_other, linear_term,
                                + ts * quadratic) <= 0.0
 
 
+def _armijo_by_objective(b, direction, rate_sum, embeddings_other, offsets,
+                         linear_term, variance, ts, slope, reduce_samples):
+    """The Armijo test of every candidate t (..., N, 41) in float64: two
+    whole objectives, f(b + t d) <= f(b) + 1e-4 t slope, as the JAX
+    package compares them; rate_sum is f(b)'s sum of rates, completed."""
+    var_rows = variance.unsqueeze(-1)                   # (..., 1, 1)
+    f0 = (-(linear_term * b).sum(-1) + rate_sum
+          + (b * b).sum(-1) / (2.0 * variance))           # (..., N)
+    candidates = b.unsqueeze(-2) + ts.unsqueeze(-1) * direction.unsqueeze(-2)
+    (cand_rates,) = sum_samples(reduce_samples, torch.exp(
+        omm(candidates, embeddings_other.mT.unsqueeze(-3))
+        + offsets.unsqueeze(-2)).sum(-1))
+    f_cand = (
+        -omm(candidates, linear_term.unsqueeze(-1)).squeeze(-1)
+        + cand_rates
+        + (candidates * candidates).sum(-1) / (2.0 * var_rows)
+    )                                                     # (..., N, 41)
+    return f_cand <= f0.unsqueeze(-1) + 1e-4 * ts * slope.unsqueeze(-1)
+
+
+def _first_passing(ok, ts):
+    """Each row's step (..., N): the first candidate of ts whose test
+    passes, the serial backtracking's pick; the step floor 2^-40 (the
+    last) is accepted regardless. Writes ok's last column."""
+    ok[..., -1] = True
+    return ts[ok.to(torch.int8).argmax(-1)]
+
+
 def _newton_step(b, done, embeddings_other, offsets, linear_term, variance,
                  ts, xtol_total, reduce_samples=None,
                  complete_linear: bool = False):
@@ -319,22 +363,10 @@ def _newton_step(b, done, embeddings_other, offsets, linear_term, variance,
                                linear_term, var_rows, ts, slope,
                                reduce_samples)
     else:
-        f0 = (-(linear_term * b).sum(-1) + rate_sum
-              + (b * b).sum(-1) / (2.0 * variance))       # (..., N)
-        candidates = (b.unsqueeze(-2)
-                      + ts.unsqueeze(-1) * direction.unsqueeze(-2))
-        (cand_rates,) = sum_samples(reduce_samples, torch.exp(
-            omm(candidates, embeddings_other.mT.unsqueeze(-3))
-            + offsets.unsqueeze(-2)).sum(-1))
-        f_cand = (
-            -omm(candidates, linear_term.unsqueeze(-1)).squeeze(-1)
-            + cand_rates
-            + (candidates * candidates).sum(-1) / (2.0 * var_rows)
-        )                                                 # (..., N, 41)
-        ok = f_cand <= f0.unsqueeze(-1) + 1e-4 * ts * slope.unsqueeze(-1)
-    ok[..., -1] = True  # the step floor accepts 2^-40 regardless
-    t = ts[ok.to(torch.int8).argmax(-1)]                  # first that passes
-    update = t.unsqueeze(-1) * direction
+        ok = _armijo_by_objective(b, direction, rate_sum, embeddings_other,
+                                  offsets, linear_term, variance, ts, slope,
+                                  reduce_samples)
+    update = _first_passing(ok, ts).unsqueeze(-1) * direction
     b_new = torch.where(done.unsqueeze(-1), b, b + update)
     done_new = done | (update.abs().sum(-1) < xtol_total)
     return b_new, done_new, linear_term
@@ -381,12 +413,24 @@ def update_embeddings(embeddings0, embeddings_other, scalings, scalings_other,
     early_exit = max_iter > _UNROLL_NEWTON_LIMIT
     if side is None:
         side = "signature" if early_exit else "sample"
+    in_kernel = not early_exit and cuda_corrnmf.unsupported_reason(
+        embeddings0, embeddings_other, scalings, scalings_other, variance,
+        aux_mat, max_iter, reduce_samples) is None
     with profiling.span(f"corrnmf.{side}_newton"):
-        b, steps = _newton_solve(
-            embeddings0, embeddings_other, scalings, scalings_other,
-            variance, aux_mat, max_iter, xtol_total, reduce_samples,
-            early_exit)
+        if in_kernel:
+            b, steps = cuda_corrnmf.solve_in_kernel(
+                embeddings0, embeddings_other, scalings, scalings_other,
+                variance, aux_mat, max_iter, xtol_total), int(max_iter)
+        else:
+            b, steps = _newton_solve(
+                embeddings0, embeddings_other, scalings, scalings_other,
+                variance, aux_mat, max_iter, xtol_total, reduce_samples,
+                early_exit)
     profiling.count(f"corrnmf.newton_steps.{side}", steps)
+    if not early_exit:
+        profiling.count(f"corrnmf.newton_solves.{side}")
+    if in_kernel:
+        profiling.count("corrnmf.newton_solves_in_kernel")
     return b
 
 

@@ -1,0 +1,298 @@
+"""The unrolled CorrNMF Newton solve as one CUDA kernel: the source
+csrc/corrnmf_newton.cu, its route, build and binding, and its plain
+PyTorch version.
+
+``ops/corrnmf.py::update_embeddings`` runs a solve whose step cap is at
+most ``_UNROLL_NEWTON_LIMIT`` (the sample side's 3 steps) as that many
+masked steps with no early-exit read. On a card this module runs those
+steps in one launch: a thread per row of every lane, all of its damped
+Newton steps, the m x m Cholesky factor with its diagonal floor and the
+Armijo candidates in registers, in the arithmetic of ``_newton_step``
+(the source's note says which sums change order).
+
+Build: nvcc compiles the source for sm_90a into a shared library with a
+plain C interface, at first use, under ``build/`` at the root of the
+checkout (named by a hash of the source), and ``ctypes`` loads it. The
+library is built and loaded only when a solve launches; nothing is built
+or imported when this module is imported.
+
+Routing is decided before a launch, never on failure:
+:func:`unsupported_reason` is None where a solve runs the kernel, and
+update_embeddings then calls :func:`solve_in_kernel`. :func:`newton_solve`
+runs the plain version for tensors on the CPU and launches the kernel for
+tensors on a card, or raises where the kernel does not take the call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+from pathlib import Path
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import corrnmf
+from .cuda_klnmf import BUILD_DIR, _nvcc, _run_all
+
+DIM_MAX = 10    # CORRNMF_NEWTON_DIM_MAX in csrc/corrnmf_newton.cu
+# CORRNMF_NEWTON_DIM_MIN: m = 1 launches at 2 with a zero column (exact)
+_DIM_MIN = 2
+THREADS = 128   # CORRNMF_NEWTON_THREADS
+# The most others a row the kernel takes. A thread loops over its row's M
+# others serially (M exps a candidate), while the plain steps spread them
+# over the card, so the kernel's time grows with M and the plain steps'
+# hardly does. On an H100 (4 steps, 5 or 20 rows, one lane or 8, float32
+# and float64; scripts/time_corrnmf_route.py) the kernel took at most 0.37
+# of the plain time at M <= 256, 0.80 at 512, and up to 1.6 times it at
+# 1,024 and 16 times at 20,000: a minibatch signature side (K rows against
+# a batch of samples) at batch_size 20,000 ran 4 times slower through it.
+OTHERS_MAX = 256
+_MAX_LANES = 65535  # the grid's y dimension
+
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "corrnmf_newton.cu"
+
+_DTYPE_CODES = {torch.float32: 1, torch.float64: 2}
+
+
+def unsupported_reason(embeddings0, embeddings_other, scalings,
+                       scalings_other, variance, aux_mat, max_iter: int,
+                       reduce_samples=None):
+    """Why the kernel does not run this solve (update_embeddings'
+    arguments), or None if it does.
+
+    It takes an unrolled solve (max_iter <= _UNROLL_NEWTON_LIMIT) of
+    float32 or float64 rows of dimension 1..DIM_MAX against at most
+    OTHERS_MAX others, all on this rank (no reduce_samples), with every
+    tensor on one card.
+    The variance is taken in the rows' dtype and on their card, as the
+    plain path takes it."""
+    tensors = (embeddings0, embeddings_other, scalings, scalings_other,
+               aux_mat)
+    if reduce_samples is not None:
+        return ("the others are a rank's block of the samples: their sums "
+                "are completed across ranks a step (reduce_samples)")
+    if int(max_iter) > corrnmf._UNROLL_NEWTON_LIMIT:
+        return (f"max_iter={int(max_iter)} is an early-exit solve (above "
+                f"{corrnmf._UNROLL_NEWTON_LIMIT})")
+    if any(t.dtype not in _DTYPE_CODES for t in tensors) or \
+            len({t.dtype for t in tensors}) != 1:
+        return "the kernel takes float32 or float64, one dtype for all"
+    dim = embeddings0.shape[-1]
+    if not 1 <= dim <= DIM_MAX:
+        return f"m={dim} outside the compiled 1..{DIM_MAX}"
+    if not embeddings0.numel() or not embeddings_other.shape[-2]:
+        return "no rows or no others"
+    if embeddings_other.shape[-2] > OTHERS_MAX:
+        return (f"{embeddings_other.shape[-2]} others a row, above the "
+                f"{OTHERS_MAX} at which the kernel's serial loop over them "
+                "outruns the plain steps")
+    if not all(t.is_cuda for t in tensors):
+        return "the tensors are not on a CUDA device"
+    if len({t.device for t in tensors}) != 1:
+        return "the tensors lie on more than one device"
+    return None
+
+
+def build() -> Path:
+    """Compile csrc/corrnmf_newton.cu for sm_90a (once per source
+    version) and return the shared library's path; ptxas's register and
+    spill report is kept beside it with the suffix '.log'."""
+    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+    library = BUILD_DIR / f"corrnmf_newton-{digest}.so"
+    if library.exists():
+        return library
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    partial = library.with_name(f"{library.name}.{os.getpid()}.partial")
+    (output,) = _run_all([[
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+        "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-shared", "-o",
+        str(partial), str(SOURCE)]])
+    library.with_suffix(".log").write_text(output)
+    os.replace(partial, library)  # atomic: concurrent builds agree
+    return library
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = ctypes.CDLL(str(build()))
+    pointer, integer, wide = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.corrnmf_newton_launch.argtypes = (
+        [integer, integer] + [pointer] * 3 + [wide] * 3 + [pointer] * 2
+        + [wide] * 3 + [pointer] * 3 + [integer] * 4 + [pointer])
+    lib.corrnmf_newton_launch.restype = integer
+    lib.corrnmf_newton_error_string.argtypes = [integer]
+    lib.corrnmf_newton_error_string.restype = ctypes.c_char_p
+    for name in ("dim_min", "dim_max", "threads"):
+        getattr(lib, f"corrnmf_newton_{name}").argtypes = []
+        getattr(lib, f"corrnmf_newton_{name}").restype = integer
+    if (lib.corrnmf_newton_dim_min(), lib.corrnmf_newton_dim_max(),
+            lib.corrnmf_newton_threads()) != (_DIM_MIN, DIM_MAX, THREADS):
+        raise RuntimeError("csrc/corrnmf_newton.cu and ops/cuda_corrnmf.py "
+                           "disagree on the compiled m or the threads")
+    return lib
+
+
+def newton_solve_reference(embeddings0, embeddings_other, scalings,
+                           scalings_other, variance, aux_mat, max_iter: int,
+                           xtol_total=None):
+    """Plain PyTorch version: ops/corrnmf.py's unrolled loop of max_iter
+    masked _newton_step calls, then _clamp_away_from_zero."""
+    b, _ = corrnmf._newton_solve(
+        embeddings0, embeddings_other, scalings, scalings_other, variance,
+        aux_mat, max_iter, xtol_total, None, False)
+    return b
+
+
+def _lanes(tensor, lanes, trailing):
+    """`tensor` broadcast to lanes + trailing, its lanes flattened into one
+    axis (a view where the strides allow)."""
+    return tensor.expand(lanes + trailing).reshape((-1,) + trailing)
+
+
+def _on_card(value, dtype, device):
+    """A tensor or a Python number as a tensor of dtype on device; a number
+    is filled there, with no copy from the host (which would wait for the
+    card)."""
+    if isinstance(value, torch.Tensor):
+        return value.to(dtype=dtype, device=device)
+    return torch.full((), float(value), dtype=dtype, device=device)
+
+
+class Operands(NamedTuple):
+    """What a launch hands the kernel (the layout in the source): the
+    lanes' broadcast shape; b0 (L, N, m), others (L, M, m), scal_other
+    (L, M), variance and xtol (L,), contiguous; the row scalings and aux
+    as (L, N, M) views (the scalings with an others' stride of 0 where a
+    row has one scaling), read by their strides."""
+    lanes: tuple
+    b0: torch.Tensor
+    others: torch.Tensor
+    scalings: torch.Tensor
+    scal_other: torch.Tensor
+    aux: torch.Tensor
+    variance: torch.Tensor
+    xtol: torch.Tensor
+
+
+def kernel_operands(embeddings0, embeddings_other, scalings, scalings_other,
+                    variance, aux_mat, xtol_total=None) -> Operands:
+    """The launch's operands from update_embeddings' arguments, broadcast
+    over their lanes as the plain steps broadcast them; raises on shapes
+    that disagree."""
+    dtype, device = embeddings0.dtype, embeddings0.device
+    N, dim = embeddings0.shape[-2:]
+    M = embeddings_other.shape[-2]
+    if tuple(embeddings_other.shape[-1:]) != (dim,) or \
+            tuple(aux_mat.shape[-2:]) != (N, M) or \
+            scalings_other.shape[-1] != M:
+        raise ValueError(
+            f"shapes disagree: embeddings0 {tuple(embeddings0.shape)}, "
+            f"embeddings_other {tuple(embeddings_other.shape)}, aux_mat "
+            f"{tuple(aux_mat.shape)}, scalings_other "
+            f"{tuple(scalings_other.shape)}")
+    # _newton_solve's rule: (..., N) one scaling a row, else (..., N, M)
+    per_other = scalings.dim() != embeddings0.dim() - 1
+    if (per_other and tuple(scalings.shape[-2:]) != (N, M)) or \
+            (not per_other and scalings.shape[-1] != N):
+        raise ValueError(f"scalings {tuple(scalings.shape)} fit neither "
+                         f"({N},) nor ({N}, {M}) rows")
+    variance = _on_card(variance, dtype, device)
+    if xtol_total is None:
+        xtol_total = dim * corrnmf.XTOL
+    xtol_total = _on_card(xtol_total, dtype, device)
+    if not per_other:
+        scalings = scalings.unsqueeze(-1).expand(scalings.shape + (M,))
+    # numpy's rule, not torch.broadcast_shapes: that imports torch._refs at
+    # its first call, seconds of a process's set-up
+    lanes = np.broadcast_shapes(
+        embeddings0.shape[:-2], embeddings_other.shape[:-2],
+        scalings.shape[:-2], scalings_other.shape[:-1], aux_mat.shape[:-2],
+        variance.shape, xtol_total.shape)
+    return Operands(
+        lanes=tuple(lanes),
+        b0=_lanes(embeddings0, lanes, (N, dim)).contiguous(),
+        others=_lanes(embeddings_other, lanes, (M, dim)).contiguous(),
+        scalings=_lanes(scalings, lanes, (N, M)),
+        scal_other=_lanes(scalings_other, lanes, (M,)).contiguous(),
+        aux=_lanes(aux_mat, lanes, (N, M)),
+        variance=_lanes(variance, lanes, ()).contiguous(),
+        xtol=_lanes(xtol_total, lanes, ()).contiguous())
+
+
+def padded_dim(operands: Operands, dim: int) -> Operands:
+    """The operands with b0 and the others zero-padded to `dim` columns:
+    a zero column adds exact zeros to every sum, its gradient is 0 and its
+    Hessian row I / variance, so it stays 0 and the other columns' steps
+    are those of the unpadded rows."""
+    extra = dim - operands.b0.shape[-1]
+    return operands._replace(
+        b0=torch.nn.functional.pad(operands.b0, (0, extra)),
+        others=torch.nn.functional.pad(operands.others, (0, extra)))
+
+
+def _launch(operands: Operands, max_iter: int):
+    """One launch on the operands' card and current stream; the rows of
+    the lanes' broadcast shape."""
+    dim = operands.b0.shape[-1]
+    o = padded_dim(operands, _DIM_MIN) if dim < _DIM_MIN else operands
+    L, N, kernel_dim = o.b0.shape
+    M = o.others.shape[1]
+    if L > _MAX_LANES:
+        raise ValueError(f"{L} lanes exceed the grid's {_MAX_LANES}")
+    out = torch.empty_like(o.b0)
+    lib = _library()
+    with torch.cuda.device(o.b0.device):
+        stream = torch.cuda.current_stream(o.b0.device).cuda_stream
+        status = lib.corrnmf_newton_launch(
+            _DTYPE_CODES[o.b0.dtype], kernel_dim, o.b0.data_ptr(),
+            o.others.data_ptr(), o.scalings.data_ptr(), *o.scalings.stride(),
+            o.scal_other.data_ptr(), o.aux.data_ptr(), *o.aux.stride(),
+            o.variance.data_ptr(), o.xtol.data_ptr(), out.data_ptr(), L, N,
+            M, int(max_iter), stream)
+    if status != 0:
+        message = lib.corrnmf_newton_error_string(status).decode()
+        raise RuntimeError(f"corrnmf_newton_launch failed: {message} "
+                           f"({status})")
+    newton_solve.launches += 1
+    return out[..., :dim].reshape(o.lanes + (N, dim))
+
+
+def newton_solve(embeddings0, embeddings_other, scalings, scalings_other,
+                 variance, aux_mat, max_iter: int, xtol_total=None):
+    """The unrolled Newton solve of update_embeddings (its arguments, with
+    no reduce_samples): the rows after max_iter damped Newton steps,
+    clamped away from zero, of the lanes' broadcast shape.
+
+    CPU tensors run newton_solve_reference. CUDA tensors launch the kernel
+    on the current stream, or raise ValueError where it does not take the
+    call (unsupported_reason). Each launch adds one to
+    ``newton_solve.launches``."""
+    tensors = (embeddings0, embeddings_other, scalings, scalings_other,
+               aux_mat)
+    if all(t.device.type == "cpu" for t in tensors):
+        return newton_solve_reference(
+            embeddings0, embeddings_other, scalings, scalings_other,
+            variance, aux_mat, max_iter, xtol_total)
+    reason = unsupported_reason(embeddings0, embeddings_other, scalings,
+                                scalings_other, variance, aux_mat, max_iter)
+    if reason is not None:
+        raise ValueError(f"newton_solve cannot launch: {reason}")
+    return solve_in_kernel(embeddings0, embeddings_other, scalings,
+                           scalings_other, variance, aux_mat, max_iter,
+                           xtol_total)
+
+
+def solve_in_kernel(embeddings0, embeddings_other, scalings, scalings_other,
+                    variance, aux_mat, max_iter: int, xtol_total=None):
+    """newton_solve's launch, for a call that unsupported_reason has
+    already taken (update_embeddings routes before it calls)."""
+    return _launch(kernel_operands(embeddings0, embeddings_other, scalings,
+                                   scalings_other, variance, aux_mat,
+                                   xtol_total), max_iter)
+
+
+newton_solve.launches = 0

@@ -1,9 +1,10 @@
 """Tests that need an NVIDIA GPU: the port's CUDA kernels (resident at
 every cluster size, and streamed at every split it is tested at) against
 their plain PyTorch version, with one X shared by all lanes and with one X
-per lane, at PCAWG size and at cohort size; and the engine's spans of the
+per lane, at PCAWG size and at cohort size; the engine's spans of the
 kernel route captured as CUDA graphs against the same spans run eagerly,
-bit for bit. They skip without a card.
+bit for bit; and the unrolled CorrNMF Newton solve's kernel against its
+plain steps, step by step. They skip without a card.
 
 This file imports neither jax nor salamander_tpu, so it also runs where JAX
 is not installed: on the card, run
@@ -657,3 +658,358 @@ def test_graphed_block_objective_keeps_the_iterations(cuda_device, shape):
         assert torch.equal(fused.params[key], plain.params[key]), key
     torch.testing.assert_close(fused.history, plain.history, rtol=1e-12,
                                atol=0, equal_nan=True)
+
+
+# ---- the unrolled CorrNMF Newton solve (ops/cuda_corrnmf.py) ----
+
+
+def cohort_solve_args(device, dtype, lanes=(8,), N=20_000, ns=(6, 5), m=6,
+                      seed=0):
+    """update_embeddings' arguments of the multimodal sample side at the
+    pan-cancer cell's shape: (lanes, N) rows against sum(ns) signatures,
+    one sample scaling a modality repeated over its signatures, aux the
+    transposed view of compute_aux's (lanes, M, N) output."""
+    rng = np.random.default_rng(seed)
+    M = sum(ns)
+    other = rng.normal(0.0, 0.5, lanes + (M, m))
+    truth = rng.normal(0.0, 0.5, lanes + (N, m))
+    tau = rng.normal(6.0, 1.0, lanes + (N, len(ns)))
+    row_scal = np.concatenate([np.repeat(tau[..., [i]], k, -1)
+                               for i, k in enumerate(ns)], -1)
+    other_scal = rng.normal(-1.5, 0.5, lanes + (M,))
+    rates = np.exp(row_scal + other_scal[..., None, :]
+                   + truth @ np.swapaxes(other, -1, -2))
+    aux = rng.poisson(rates).astype(np.float64)
+    start = truth + rng.normal(0.0, 0.2, truth.shape)
+    variance = rng.uniform(0.2, 0.4, lanes) if lanes else 0.3
+
+    def card(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    return (card(start), card(other), card(row_scal), card(other_scal),
+            card(variance) if lanes else variance,
+            card(np.swapaxes(aux, -1, -2)).mT)
+
+
+def plain_step_terms(b, args):
+    """The plain step's Armijo test at rows b (update_embeddings'
+    arguments `args` but the rows): each candidate's value, which passes
+    at <= 0, in _newton_step's arithmetic (float32: _armijo_by_change's
+    change read term by term; float64: f(b + t d) - f(b) - 1e-4 t slope),
+    and the rounding scale of that value (the sum of its terms'
+    magnitudes), each (..., N, 41); the Newton direction (..., N, m); and
+    the first-order rounding of that direction over machine epsilon
+    (..., N): ||H^-1|| (||g's terms|| + ||H|| ||d||), the gradient's terms
+    being the magnitudes of -aux O, the rates' sum and b / variance."""
+    from salamander_tpu_torch.ops import corrnmf
+
+    _, other, scal, other_scal, variance, aux = args
+    dtype = b.dtype
+    var_rows = torch.as_tensor(variance, dtype=dtype, device=b.device)
+    var_rows = var_rows.unsqueeze(-1).unsqueeze(-1)
+    offsets = (scal.unsqueeze(-1) if scal.dim() == b.dim() - 1 else scal) \
+        + other_scal.unsqueeze(-2)
+    linear_term = aux @ other
+    rates = torch.exp(offsets + b @ other.mT)
+    grad = -linear_term + rates @ other + b / var_rows
+    eye = torch.eye(b.shape[-1], dtype=dtype, device=b.device)
+    hess = (rates.unsqueeze(-1) * other.unsqueeze(-3)).mT \
+        @ other.unsqueeze(-3) + eye / var_rows.unsqueeze(-1)
+    direction = -corrnmf._solve_spd(hess, grad)
+    # on the host: cusolver's batched eigensolver refuses 160,000 matrices
+    eigen = torch.linalg.eigvalsh(hess.double().cpu()).abs().to(
+        b.device, dtype)
+    grad_terms = linear_term.abs() + rates @ other.abs() \
+        + (b / var_rows).abs()
+    noise = (grad_terms.norm(dim=-1) + eigen[..., -1]
+             * direction.norm(dim=-1)) / eigen[..., 0]
+    slope = (grad * direction).sum(-1, keepdim=True)
+    ts = 0.5 ** torch.arange(corrnmf._N_BACKTRACK, dtype=dtype,
+                             device=b.device)
+    if dtype == torch.float32:
+        terms = rates.unsqueeze(-2) * torch.expm1(
+            ts.unsqueeze(-1) * (direction @ other.mT).unsqueeze(-2))
+        linear = ((b / var_rows - linear_term) * direction).sum(
+            -1, keepdim=True)
+        quadratic = (direction * direction).sum(-1, keepdim=True) / (
+            2.0 * var_rows)
+        value = terms.sum(-1) + ts * (linear - 1e-4 * slope
+                                      + ts * quadratic)
+        scale = terms.abs().sum(-1) + ts * (linear.abs() + 1e-4 * slope.abs()
+                                            + ts * quadratic)
+        return value, scale, direction, noise
+
+    def objective(x):                                   # (..., N, 41)
+        return ((-(x * linear_term.unsqueeze(-2)).sum(-1)),
+                torch.exp(x @ other.mT.unsqueeze(-3)
+                          + offsets.unsqueeze(-2)).sum(-1),
+                (x * x).sum(-1) / (2.0 * var_rows))
+
+    candidates = b.unsqueeze(-2) + ts.unsqueeze(-1) * direction.unsqueeze(-2)
+    f0 = sum(objective(b.unsqueeze(-2)))
+    parts = objective(candidates)
+    value = sum(parts) - (f0 + 1e-4 * ts * slope)
+    return (value, sum(part.abs() for part in parts) + f0.abs(), direction,
+            noise)
+
+
+def first_passing_index(value):
+    """Each row's candidate index k (t = 2^-k): the first that passes, or
+    the floor's 40."""
+    passes = value <= 0
+    passes[..., -1] = True
+    return passes.to(torch.int8).argmax(-1)
+
+
+def step_against_plain(state, args, xtol):
+    """One step of the kernel and of the plain solve from the same rows.
+    Returns, per row: whether the two took other Armijo candidates; the
+    largest difference over the row's largest entry before or after the
+    step (a step's rows are sums b + t d, rounded relative to both); the
+    summed difference (the done test's measure); whether the row is at
+    its optimum to the solve's resolution (the plain step's whole Newton
+    step, summed, below the stop threshold, so that every candidate
+    leaves it done); |value| / scale of the plain test at the earlier of
+    the two candidates (0 where the plain step's terms are all 0); and
+    the first-order rounding over epsilon (plain_step_terms) of the
+    direction relative to it, and of the row relative to its largest
+    entry before or after the step."""
+    from salamander_tpu_torch.ops import cuda_corrnmf
+    from salamander_tpu_torch.ops.corrnmf import XTOL
+
+    rest = (state, *args[1:])
+    kernel = cuda_corrnmf.newton_solve(*rest, 1, xtol)
+    plain = cuda_corrnmf.newton_solve_reference(*rest, 1, xtol)
+    at = (plain - state).abs().argmax(-1, keepdim=True)
+    moved = ((kernel - state).gather(-1, at).squeeze(-1),
+             (plain - state).gather(-1, at).squeeze(-1))
+    shift = torch.log2((moved[0] / moved[1]).abs()).round()
+    apart = (moved[0] != moved[1]) & (shift != 0)
+    diff = (kernel - plain).abs()
+    row_rel = diff.amax(-1) / torch.maximum(plain.abs().amax(-1),
+                                            state.abs().amax(-1))
+    threshold = state.shape[-1] * XTOL if xtol is None else xtol
+    value, scale, direction, noise = plain_step_terms(state, args)
+    done = direction.abs().sum(-1) < torch.as_tensor(
+        threshold, dtype=state.dtype, device=state.device).unsqueeze(-1)
+    k_plain = first_passing_index(value)
+    k_kernel = (k_plain - shift.nan_to_num(0, 64, -64).long()).clamp(0, 40)
+    earlier = torch.minimum(k_plain, k_kernel).unsqueeze(-1)
+    value, scale = value.gather(-1, earlier), scale.gather(-1, earlier)
+    margin = torch.where(scale > 0, value.abs() / scale, 0.0).squeeze(-1)
+    top = torch.maximum(plain.abs().amax(-1), state.abs().amax(-1))
+    return (apart, row_rel, diff.sum(-1), done, margin,
+            noise / direction.norm(dim=-1),
+            (noise + state.abs().amax(-1)) / top)
+
+
+# A row's Armijo pick sits within rounding of the boundary where the test
+# value at a candidate is rounding-sized, as for rows near their optimum.
+# The kernel sums over the others (and over m) in another order, so such a
+# row may take another candidate. So the kernel's steps are held against
+# the plain steps one step at a time from the plain solve's own rows:
+# - a row at its optimum (its whole Newton step, summed, below the stop
+#   threshold, so any candidate leaves it done; each solve's direction,
+#   and so its Armijo pick, is the rounding of a gradient whose terms
+#   cancel) differs by less than DONE_SPREAD = 4 thresholds, summed as the
+#   done test sums;
+# - a moving row that takes another candidate lies, at the earlier of the
+#   two candidates, within BOUNDARY_ULPS = 16 times its direction's
+#   first-order rounding (plain_step_terms: the gradient's terms, whose sum
+#   cancels near the optimum, and the Hessian, carried through its
+#   inverse), relative to the direction, of the test's scale from the
+#   boundary: the test value moves with the direction;
+# - every other row agrees, over its largest entry, to ROW_ULPS = 16 times
+#   the rounding of its step (the direction's and the row's own), the
+#   factor covering sums of a dozen terms in any order.
+# Read on an NVIDIA H100 at the cell's shape (8 x 20,000 rows): no row took
+# another candidate in steps 1-2; in step 3, 1,415 rows were at their
+# optimum (apart by up to 0.21 thresholds in float32) and one moving
+# float32 row took another candidate, 6.5e-6 of its scale from the
+# boundary; the other rows agree to at most 0.33 times their rounding in
+# both dtypes. Over all the cases here: 2.1 thresholds and 0.75 times.
+ROW_ULPS = 16.0
+BOUNDARY_ULPS = 16.0
+DONE_SPREAD = 4.0
+
+
+def assert_steps_held(args, label, xtol=None, steps=3, row_rtol=None):
+    """The kernel's whole solve (one launch, counted) is finite, and each
+    of its steps is held against the plain step (DONE_SPREAD;
+    BOUNDARY_ULPS; ROW_ULPS, or a relative row_rtol where given). Returns
+    the whole solve's rows."""
+    from salamander_tpu_torch.ops import cuda_corrnmf
+    from salamander_tpu_torch.ops.corrnmf import XTOL
+
+    dtype = args[0].dtype
+    eps = torch.finfo(dtype).eps
+    launches = cuda_corrnmf.newton_solve.launches
+    got = cuda_corrnmf.newton_solve(*args, steps, xtol)
+    assert cuda_corrnmf.newton_solve.launches == launches + 1
+    assert torch.isfinite(got).all()
+    threshold = args[0].shape[-1] * XTOL if xtol is None else xtol
+    threshold = torch.as_tensor(threshold, dtype=dtype,
+                                device=got.device).unsqueeze(-1)
+    for step in range(steps):
+        state = cuda_corrnmf.newton_solve_reference(*args, step, xtol)
+        (apart, row_rel, diff, done, margin, direction_noise,
+         row_noise) = step_against_plain(state, args, xtol)
+        moving_apart, moving = ~done & apart, ~done & ~apart
+        ulps = margin / (eps * direction_noise)
+        row_ulps = row_rel / (eps * row_noise)
+
+        def largest(values):
+            return float(values.max()) if values.numel() else 0.0
+
+        print(f"{label} {dtype} step {step + 1}: {int(done.sum())} of "
+              f"{done.numel()} rows done, apart by up to "
+              f"{largest((diff / threshold)[done]):.3g} thresholds; "
+              f"{int(moving_apart.sum())} moving rows took another Armijo "
+              f"candidate, within {largest(margin[moving_apart]):.3g} of "
+              f"their scale from the boundary "
+              f"({largest(ulps[moving_apart]):.3g} times the direction's "
+              f"rounding); the other moving rows' "
+              f"largest difference {largest(row_rel[moving]):.3g} "
+              f"({largest(row_ulps[moving]):.3g} times its rounding)")
+        assert largest((diff / threshold)[done]) < DONE_SPREAD
+        assert largest(ulps[moving_apart]) <= BOUNDARY_ULPS
+        if row_rtol is None:
+            assert largest(row_ulps[moving]) <= ROW_ULPS
+        else:
+            assert largest(row_rel[moving]) <= row_rtol
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_newton_kernel_at_the_cell_shape(cuda_device, dtype):
+    """(8, 20,000) rows against 11 signatures, m = 6, in both dtypes."""
+    args = cohort_solve_args(cuda_device, dtype)
+    assert_steps_held(args, "cell shape")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [5, 1])
+def test_newton_kernel_one_fit_without_lanes(cuda_device, dtype, m):
+    """One fit: no lane axes, a 0-d variance tensor, one scaling a row;
+    m = 1 launches with a zero column."""
+    start, other, scal, other_scal, _, aux = cohort_solve_args(
+        cuda_device, dtype, lanes=(), N=3000, ns=(5,), m=m, seed=1)
+    variance = torch.tensor(0.3, dtype=dtype, device=cuda_device)
+    args = (start, other, scal[:, 0].contiguous(), other_scal, variance,
+            aux)
+    assert_steps_held(args, f"one fit, m = {m}")
+
+
+def recorded_unrolled_solves(monkeypatch, run):
+    """run(), recording the arguments of every unrolled solve that goes
+    through ops.corrnmf.update_embeddings; also the kernel's launches
+    and the counted solves in it."""
+    from salamander_tpu_torch import profiling
+    from salamander_tpu_torch.ops import corrnmf, cuda_corrnmf
+
+    calls = []
+    original = corrnmf.update_embeddings
+
+    def recording(*args, **kwargs):
+        if kwargs.get("max_iter", 100) <= corrnmf._UNROLL_NEWTON_LIMIT:
+            calls.append((args, kwargs.get("xtol_total")))
+        return original(*args, **kwargs)
+
+    monkeypatch.setattr(corrnmf, "update_embeddings", recording)
+    launches = cuda_corrnmf.newton_solve.launches
+    in_kernel = profiling.counters.get("corrnmf.newton_solves_in_kernel", 0)
+    run()
+    torch.cuda.synchronize()
+    return (calls, cuda_corrnmf.newton_solve.launches - launches,
+            profiling.counters.get("corrnmf.newton_solves_in_kernel", 0)
+            - in_kernel)
+
+
+@pytest.mark.cuda
+def test_newton_kernel_corrnmf_det_sample_side(cuda_device, monkeypatch):
+    """A CorrNMFDet fit on the card runs its sample side in the kernel
+    (one launch a cycle); the last one held against the plain solve."""
+    from salamander_tpu_torch import AnnData, CorrNMFDet, datasets
+
+    X = datasets.synthetic_catalog(96, 2000, 4, seed=3).T
+    model = CorrNMFDet(n_signatures=4, dim_embeddings=3,
+                       init_method="random", min_iterations=20,
+                       max_iterations=20, device="cuda")
+    calls, launches, in_kernel = recorded_unrolled_solves(
+        monkeypatch, lambda: model.fit(AnnData(np.asarray(X, np.float64)),
+                                       init_kwargs={"seed": 7}))
+    assert len(calls) >= 20 and launches == in_kernel == len(calls)
+    args, xtol = calls[-1]
+    assert_steps_held(args, "CorrNMFDet", xtol)
+
+
+@pytest.mark.cuda
+def test_newton_kernel_m_padded_scan_lanes(cuda_device, monkeypatch):
+    """The padded scan's lanes of dimensions 1..3 share one m = 3 batch
+    with a per-lane stop threshold: the kernel takes their sample side,
+    and each lane's padded dimensions stay exactly 0."""
+    from salamander_tpu_torch import datasets
+    from salamander_tpu_torch.engine import FitConfig
+    from salamander_tpu_torch.ops.corrnmf import XTOL
+    from salamander_tpu_torch.parallel.corrnmf_scan import rank_scan_corrnmf
+
+    X = datasets.synthetic_catalog(96, 500, 3, seed=4).T
+    calls, launches, in_kernel = recorded_unrolled_solves(
+        monkeypatch, lambda: rank_scan_corrnmf(
+            np.asarray(X, np.float64), [3], dim_embeddings_range=[1, 2, 3],
+            n_restarts=2, config=FitConfig(10, 10, 10, 1e-7),
+            init_method="random", build_models=False, device="cuda"))
+    padded = [(args, xtol) for args, xtol in calls
+              if isinstance(xtol, torch.Tensor)]
+    assert padded and launches == in_kernel == len(calls)
+    args, xtol = padded[-1]
+    got = assert_steps_held(args, "m-padded", xtol)
+    active = torch.round(xtol / XTOL).long()        # (lanes,)
+    assert (active < got.shape[-1]).any()
+    dims = torch.arange(got.shape[-1], device=got.device)
+    pad = (dims >= active.reshape(active.shape + (1,))).unsqueeze(-2)
+    assert got.masked_select(pad.expand_as(got)).eq(0).all()
+
+
+@pytest.mark.cuda
+def test_newton_kernel_floor_rows(cuda_device):
+    """Rows whose Hessian fails to factor and take the diagonal floor, one
+    step in float64: one other o = (2, 1), zero scalings and start, and an
+    infinite variance, so the Hessian is exactly o o^T = [[4, 2], [2, 1]]
+    and its second pivot exactly 0 in any order of the arithmetic. The
+    floored system, [[4, 2], [2, 1]] + EPSILON diag, has a condition of
+    about 4e7 and the gradient lies along o exactly (integer counts), so
+    the two solves agree to 1e-7 (the condition times float64's 1.1e-16,
+    with room) where they take the same Armijo candidate. (Not float32:
+    there the floored system's condition times 6e-8 leaves no digit to
+    compare.)"""
+    rng = np.random.default_rng(5)
+    lanes, N = 2, 4000
+    dtype = torch.float64
+
+    def card(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=cuda_device)
+
+    aux = rng.poisson(rng.uniform(0.5, 4.0, (lanes, 1, N)))
+    args = (card(np.zeros((lanes, N, 2))),
+            card(np.broadcast_to([[2.0, 1.0]], (lanes, 1, 2))),
+            card(np.zeros((lanes, N))), card(np.zeros((lanes, 1))),
+            card(np.full(lanes, np.inf)), card(aux).mT)
+    hess = card(np.broadcast_to([[4.0, 2.0], [2.0, 1.0]], (lanes, N, 2, 2)))
+    assert torch.linalg.cholesky_ex(hess).info.ne(0).all()
+    assert_steps_held(args, "floor rows", steps=1, row_rtol=1e-7)
+
+
+@pytest.mark.cuda
+def test_newton_kernel_refuses_what_it_does_not_take(cuda_device):
+    from salamander_tpu_torch.ops import cuda_corrnmf
+
+    args = cohort_solve_args(cuda_device, torch.float32, N=256)
+    with pytest.raises(ValueError, match="early-exit"):
+        cuda_corrnmf.newton_solve(*args, 5)
+    with pytest.raises(ValueError, match="one dtype"):
+        cuda_corrnmf.newton_solve(args[0].double(), *args[1:], 3)

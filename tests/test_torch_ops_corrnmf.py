@@ -335,3 +335,302 @@ def test_pad_rank_validates_and_batches(X):
     single = T.pad_rank_corrnmf(params, 4, 3)
     for key in padded:
         assert torch.equal(padded[key][1], single[key]), key
+
+
+# ---------------------------------------------------------------------------
+# the unrolled solve's kernel (ops/cuda_corrnmf.py): its route, and its
+# per-row algorithm (csrc/corrnmf_newton.cu) held against the plain steps
+# ---------------------------------------------------------------------------
+
+from salamander_tpu_torch import profiling  # noqa: E402
+from salamander_tpu_torch.ops import cuda_corrnmf  # noqa: E402
+
+
+def solve_args(lanes=(), N=12, M=5, m=3, dtype=torch.float64, seed=0,
+               per_other=False):
+    """update_embeddings' arguments for random rows (the sample side: N
+    rows against M signatures), aux given transposed as the models give
+    it; the rows near the objective's minimum, so Newton steps matter."""
+    rng = np.random.default_rng(seed)
+    other = rng.normal(0.0, 0.6, lanes + (M, m))
+    truth = rng.normal(0.0, 0.6, lanes + (N, m))
+    row_scal = rng.normal(5.0, 0.5, lanes + ((N, M) if per_other else (N,)))
+    other_scal = rng.normal(-1.0, 0.5, lanes + (M,))
+    offset = (row_scal if per_other else row_scal[..., None]) \
+        + other_scal[..., None, :]
+    aux = np.exp(offset + truth @ np.swapaxes(other, -1, -2)) \
+        * rng.gamma(20.0, 1 / 20.0, lanes + (N, M))
+    start = truth + rng.normal(0.0, 0.3, truth.shape)
+    variance = rng.uniform(0.5, 2.0, lanes) if lanes else 1.3
+
+    def as_t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype)
+
+    return (as_t(start), as_t(other), as_t(row_scal), as_t(other_scal),
+            as_t(variance) if lanes else variance,
+            as_t(np.swapaxes(aux, -1, -2)).mT)
+
+
+@pytest.mark.parametrize("change, reason", [
+    ({}, "not on a CUDA device"),
+    ({"reduce_samples": lambda *parts: parts}, "reduce_samples"),
+    ({"max_iter": T._UNROLL_NEWTON_LIMIT + 1}, "early-exit"),
+    ({"m": cuda_corrnmf.DIM_MAX + 1}, "outside the compiled"),
+    ({"M": cuda_corrnmf.OTHERS_MAX + 1}, "others a row, above"),
+    ({"dtype": torch.float16}, "float32 or float64"),
+    ({"dtype": torch.bfloat16}, "float32 or float64"),
+])
+def test_kernel_route_refusals(change, reason):
+    """Each refusal of the kernel's route names its reason; CPU tensors,
+    which every other case here also is, are the last check, so each
+    other reason shows on the CPU."""
+    args = solve_args(m=change.get("m", 3), M=change.get("M", 5),
+                      dtype=change.get("dtype", torch.float64))
+    max_iter = change.get("max_iter", 3)
+    found = cuda_corrnmf.unsupported_reason(
+        *args, max_iter, change.get("reduce_samples"))
+    assert reason in found
+
+
+def test_kernel_route_refuses_mixed_dtypes():
+    start, *rest = solve_args()
+    assert "one dtype" in cuda_corrnmf.unsupported_reason(
+        start.float(), *rest, 3)
+
+
+@pytest.mark.parametrize("lanes", [(), (2,)])
+def test_cpu_unrolled_solve_runs_the_plain_steps(lanes):
+    """On the CPU update_embeddings runs the plain steps: no launch, one
+    unrolled solve counted and none in the kernel, and newton_solve's CPU
+    route equals the plain loop bit for bit."""
+    args = solve_args(lanes)
+    launches = cuda_corrnmf.newton_solve.launches
+    before = dict(profiling.counters)
+    got = T.update_embeddings(*args, max_iter=3)
+
+    def added(name):
+        return profiling.counters.get(name, 0) - before.get(name, 0)
+
+    assert cuda_corrnmf.newton_solve.launches == launches
+    assert added("corrnmf.newton_solves.sample") == 1
+    assert added("corrnmf.newton_solves_in_kernel") == 0
+    assert added("corrnmf.newton_steps.sample") == 3
+    plain, _ = T._newton_solve(*args, 3, None, None, False)
+    assert torch.equal(got, plain)
+    assert torch.equal(cuda_corrnmf.newton_solve(*args, 3), plain)
+    assert cuda_corrnmf.newton_solve.launches == launches
+
+
+def first_passing(passes):
+    """The sequential search: the first t = 2^0, 2^-1, ... whose test
+    passes, 2^-40 accepted regardless (the kernel's loop)."""
+    t = 1.0
+    for _ in range(T._N_BACKTRACK - 1):
+        if passes(t):
+            return t
+        t *= 0.5
+    return t
+
+
+def row_sum(values, dt):
+    """A sum over the others in their order, in the working dtype."""
+    total = dt(0.0)
+    for value in values:
+        total = dt(total + value)
+    return total
+
+
+def sequential_t(b, d, rates, along, linear_term, variance, slope, offsets,
+                 others, dt):
+    """One row's Armijo pick by the sequential search, each candidate's
+    test as the kernel writes it (float32: the change read term by term;
+    float64: two whole objectives)."""
+    var = dt(variance)
+    if dt is np.float32:
+        linear = row_sum((b / var - linear_term) * d, dt)
+        quadratic = dt(row_sum(d * d, dt) / (dt(2.0) * var))
+        base = dt(linear - dt(1e-4) * slope)
+        return first_passing(lambda t: dt(
+            row_sum(rates * np.expm1(dt(t) * along), dt)
+            + dt(t) * (base + dt(t) * quadratic)) <= 0)
+
+    def objective(x):
+        return (-row_sum(linear_term * x, dt)
+                + row_sum(np.exp(others @ x + offsets), dt)
+                + row_sum(x * x, dt) / (dt(2.0) * var))
+
+    f0 = objective(b)
+    return first_passing(
+        lambda t: objective(b + dt(t) * d) <= f0 + dt(1e-4) * dt(t) * slope)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sequential_search_picks_the_vectorised_step(dtype):
+    """The kernel's sequential first-pass search picks, row by row, the
+    step that _newton_step's vectorised test and argmax (_first_passing)
+    pick: on random rows near their optimum, on rows whose direction is
+    turned uphill (only the floor 2^-40 passes), and on rows whose
+    Hessian fails to factor and takes the diagonal floor (others all
+    along one axis and a variance so large that the Hessian is rank 1 to
+    rounding)."""
+    dt = np.float32 if dtype == torch.float32 else np.float64
+    N, M, m = 48, 7, 4
+    b, others, scal, other_scal, variance, aux = solve_args(
+        N=N, M=M, m=m, dtype=dtype, seed=3)
+    # each row a lane of one row, so that each may have its own variance
+    b, scal, aux = b[:, None], scal[:, None], aux[:, None]
+    far = slice(12, 24)    # rows far from their optimum backtrack
+    b[far] += torch.linspace(-2.0, 2.0, m, dtype=dtype)
+    variance = torch.full((N, 1), variance, dtype=dtype)
+    axis = torch.linspace(0.5, 1.5, m, dtype=dtype)
+    others = others.expand(N, M, m).clone()
+    flat = slice(32, 48)   # floor rows: rank-1 Hessians
+    others[flat] = others[flat, :, :1] * axis
+    variance[flat] = 1e30 if dtype == torch.float32 else 1e300
+    var_rows = variance.unsqueeze(-1)
+    offsets = scal.unsqueeze(-1) + other_scal.unsqueeze(-2)
+    linear_term = aux @ others
+    rates = torch.exp(offsets + b @ others.mT)             # (N, 1, M)
+    grad = -linear_term + rates @ others + b / var_rows
+    hess = ((rates.mT * others).mT @ others).unsqueeze(-3) \
+        + torch.eye(m, dtype=dtype) / var_rows.unsqueeze(-1)
+    assert torch.linalg.cholesky_ex(hess).info[flat].ne(0).any()
+    direction = -T._solve_spd(hess, grad)
+    uphill = slice(24, 32)
+    direction[uphill] = -direction[uphill]
+    slope = (grad * direction).sum(-1)
+    ts = 0.5 ** torch.arange(T._N_BACKTRACK, dtype=dtype)
+    if dtype == torch.float32:
+        ok = T._armijo_by_change(b, direction, rates, others, linear_term,
+                                 var_rows, ts, slope, None)
+    else:
+        ok = T._armijo_by_objective(b, direction, rates.sum(-1), others,
+                                    offsets, linear_term, variance, ts,
+                                    slope, None)
+    vectorised = T._first_passing(ok, ts)[:, 0].numpy()
+    along = direction @ others.mT
+    sequential = np.array([sequential_t(
+        b[n, 0].numpy(), direction[n, 0].numpy(), rates[n, 0].numpy(),
+        along[n, 0].numpy(), linear_term[n, 0].numpy(),
+        variance[n, 0].item(), dt(slope[n, 0].item()),
+        offsets[n, 0].numpy(), others[n].numpy(), dt) for n in range(N)])
+    np.testing.assert_array_equal(sequential, vectorised)
+    assert (vectorised[uphill] == 0.5 ** 40).all()
+    assert (vectorised[:24] > 0.5 ** 40).all()
+    assert ((vectorised[far] < 1.0) & (vectorised[far] > 0.5 ** 40)).any()
+
+
+def emulated_kernel(operands, max_iter):
+    """csrc/corrnmf_newton.cu's loop, row by row in numpy scalars of the
+    working dtype, on the operands the wrapper hands the launch
+    (cuda_corrnmf.kernel_operands): the linear term once; per step the
+    rates, gradient and Hessian, the Cholesky factor with
+    ops/mvnmf.py::_cholesky's floor, two triangular solves, the
+    sequential Armijo search, the update and the done test; then the
+    clamp."""
+    o = operands
+    dt = np.float32 if o.b0.dtype == torch.float32 else np.float64
+    L, N, m = o.b0.shape
+    M = o.others.shape[1]
+    eps = dt(EPSILON)
+    scal, aux = o.scalings.numpy(), o.aux.numpy()
+    out = np.empty_like(o.b0.numpy())
+
+    def factor(h):
+        a, ok = h.copy(), True
+        for j in range(m):
+            pivot = a[j, j] - row_sum(a[j, :j] * a[j, :j], dt)
+            ok = ok and pivot > 0
+            a[j, j] = np.sqrt(pivot)
+            for i in range(j + 1, m):
+                a[i, j] = (a[i, j] - row_sum(a[i, :j] * a[j, :j], dt)) \
+                    / a[j, j]
+        return a, ok
+
+    for lane in range(L):
+        var, xtol = dt(o.variance[lane].item()), dt(o.xtol[lane].item())
+        others = o.others[lane].numpy()
+        for n in range(N):
+            offsets = (scal[lane, n] + o.scal_other[lane].numpy()).astype(dt)
+            lin = np.zeros(m, dt)
+            for i in range(M):
+                lin = lin + aux[lane, n, i] * others[i]
+            b = o.b0[lane, n].numpy().copy()
+            for _ in range(max_iter):
+                rates = np.array([np.exp(offsets[i] + others[i] @ b)
+                                  for i in range(M)], dt)
+                grad = np.zeros(m, dt)
+                hess = np.zeros((m, m), dt)
+                for i in range(M):
+                    grad = grad + rates[i] * others[i]
+                    hess = hess + np.outer(rates[i] * others[i], others[i])
+                grad = (-lin + grad) + b / var
+                hess = hess + np.eye(m, dtype=dt) / var
+                chol, ok = factor(hess)
+                if not ok:
+                    chol, _ = factor(hess + np.diag(eps * np.diag(hess)))
+                d = np.zeros(m, dt)
+                for j in range(m):
+                    d[j] = (grad[j] - row_sum(chol[j, :j] * d[:j], dt)) \
+                        / chol[j, j]
+                for j in reversed(range(m)):
+                    d[j] = (d[j] - row_sum(chol[j + 1:, j] * d[j + 1:], dt)) \
+                        / chol[j, j]
+                d = -d
+                t = dt(sequential_t(b, d, rates, others @ d, lin, var,
+                                    row_sum(grad * d, dt), offsets, others,
+                                    dt))
+                update = t * d
+                b = b + update
+                if row_sum(np.abs(update), dt) < xtol:
+                    break
+            b[(b > 0) & (b < eps)] = eps
+            b[(b < 0) & (b > -eps)] = -eps
+            out[lane, n] = b
+    return torch.as_tensor(out).reshape(o.lanes + (N, m))
+
+
+@pytest.mark.parametrize("case", [
+    "one fit", "lanes", "per-other scalings", "m-padded lanes", "float32"])
+def test_kernel_algorithm_matches_the_plain_steps(case):
+    """The kernel's per-row algorithm (emulated_kernel), on the operands
+    the wrapper would launch with, against the plain unrolled solve: a
+    fit without lane axes (0-d variance, one scaling a row, aux a
+    transposed view), lanes with their own variances, the multimodal
+    (N, M) scalings, an m-padded scan lane pair with a per-lane stop
+    threshold whose padded dimensions stay exactly 0, and float32. rtol
+    1e-9 in float64 (sums over M and m in another order); in float32 rtol
+    2e-5 with an absolute floor of 2e-6 of the largest entry (the same
+    rounding, ~1e-7, carried through three solves, and entries near 0)."""
+    dtype = torch.float32 if case == "float32" else torch.float64
+    lanes = () if case == "one fit" else (2,)
+    args = list(solve_args(lanes, dtype=dtype, seed=7,
+                           per_other=case == "per-other scalings"))
+    xtol = None
+    if case == "m-padded lanes":
+        args[0][..., -1] = 0.0
+        args[1][..., -1] = 0.0
+        xtol = torch.tensor([2.0, 2.0], dtype=dtype) * T.XTOL
+    operands = cuda_corrnmf.kernel_operands(*args, xtol)
+    assert operands.aux.data_ptr() == args[5].data_ptr()  # no copy
+    got = emulated_kernel(operands, 3)
+    want = cuda_corrnmf.newton_solve_reference(*args, 3, xtol)
+    assert got.shape == want.shape
+    if dtype == torch.float32:
+        close(got, want, rtol=2e-5, atol=2e-6 * float(want.abs().max()))
+    else:
+        close(got, want, rtol=1e-9)
+    if case == "m-padded lanes":
+        assert got[..., -1].eq(0).all() and want[..., -1].eq(0).all()
+
+
+def test_m1_launches_exactly_at_two_columns():
+    """The kernel is compiled for m >= 2; m = 1 launches with a zero
+    column (cuda_corrnmf.padded_dim). The padded rows' first column is the
+    unpadded rows' bit for bit, and the zero column stays 0."""
+    args = solve_args((2,), m=1, seed=9)
+    operands = cuda_corrnmf.kernel_operands(*args)
+    one = emulated_kernel(operands, 3)
+    two = emulated_kernel(cuda_corrnmf.padded_dim(operands, 2), 3)
+    assert torch.equal(two[..., :1], one)
+    assert two[..., 1].eq(0).all()
