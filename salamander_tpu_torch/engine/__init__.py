@@ -1,22 +1,17 @@
 """The fit engine: the shared convergence loop, its state on the device,
-driven span by span (CUDA graphs on the kernel route)."""
+driven span by span (CUDA graphs for a capturable block)."""
 
 from .fit import (  # noqa: F401
     FitConfig,
     FitResult,
     LockstepState,
-    bind_data,
-    bind_objective,
-    block_objective,
     effective_tolerance,
     finish_lockstep,
     fit_loop,
     fit_loop_lockstep,
     graph_counts,
     init_lockstep_state,
-    kernel_route,
     make_fit_function,
-    returns_objective,
     run_lockstep_segment,
     shared_span_pool,
     tolerance_floor,

@@ -20,20 +20,21 @@ span (is the fit done; are more lanes alive than the floor), where the
 JAX package runs one `lax.while_loop` with no host round-trip. A span
 never runs past the last full block, and no span before `min_iterations`
 is tested (no problem can converge there) unless `stop_on_nonfinite` is
-set. On the kernel route (a block update marked with :func:`kernel_route`,
-every parameter on a card) the first full span runs eagerly and every
-later full span is the replay of one CUDA graph captured from it: the
-graph reads and writes the loop state's tensors in place. Every other
-route runs its spans eagerly. A capture or replay that fails raises.
+set. Where the block update's class says its spans may be captured
+(``capturable``: one kernel launch a block, no host read, no collective,
+as ops.cuda_klnmf.KernelBlock) and every parameter lies on a card, the
+first full span runs eagerly and every later full span is the replay of
+one CUDA graph captured from it: the graph reads and writes the loop
+state's tensors in place. Every other block runs its spans eagerly. A
+capture or replay that fails raises.
 
-A block's objective comes from the block update's own launch where the
-block is on the kernel route and returns it (:func:`returns_objective`)
-and the loop's objective is one it reproduces (bound by
-:func:`bind_objective` from a function that :func:`block_objective`
-marks): the block is asked for it in the objective's dtype (float64 where
-the objective is promoted). Every other loop calls its objective function
-after the block. The initial objective and the remainder tail are the
-same either way.
+A block's objective comes from the block update's own launch where its
+class says it gives one (``gives_objective``): the block is asked for it
+in the dtype of the loop's objective (float64 where the objective is
+promoted). Every other loop calls its objective function after the
+block. The initial objective and the remainder tail are the same either
+way. Which block a fit runs is the caller's choice (a KLNMF fit's:
+ops.cuda_klnmf.klnmf_block); the engine reads only these two facts.
 
 History is a NaN-padded tensor of max_iterations // conv_test_freq entries
 (the reference's `of_values[1:]`).
@@ -70,7 +71,7 @@ from .tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 # saves in host reads
 SPAN = 4
 
-# CUDA graphs captured and replayed by the kernel route's spans
+# CUDA graphs captured and replayed by the spans of capturable blocks
 graph_counts = {"captures": 0, "replays": 0}
 
 _EAGER_SPANS = False  # set by _eager_spans(): no span is captured
@@ -141,65 +142,10 @@ class FitResult(NamedTuple):
 BlockUpdate = Callable[[dict, int], dict]
 
 
-def kernel_route(block_update_fn):
-    """Mark a block update as the kernel route: one fused kernel launch a
-    block, no host read, no collective. Its spans are captured as CUDA
-    graphs where every parameter lies on a card. Returns the function."""
-    block_update_fn.kernel_route = True
-    return block_update_fn
-
-
-def returns_objective(block_update_fn):
-    """Mark a kernel-route block update that, called with the keyword
-    ``objective=dtype``, returns ``(params, value)``: the params it writes
-    and their objective in that dtype, computed by its own launch (a (R,)
-    tensor for batched params, a scalar otherwise). Returns the
-    function."""
-    block_update_fn.returns_objective = True
-    return block_update_fn
-
-
-def block_objective(objective_fn, holds: Callable[[dict], bool]):
-    """Mark objective_fn(params, data) as the objective a block update
-    that returns_objective computes, for the data where holds(data): the
-    mark lets bind_objective's loops take each block's objective from the
-    block. Returns the function."""
-    objective_fn.block_objective = holds
-    return objective_fn
-
-
-def bind_objective(objective_fn, data) -> Callable[[dict], torch.Tensor]:
-    """objective(params) = objective_fn(params, data), marked as one a
-    block update that returns_objective reproduces where objective_fn is
-    marked (block_objective) and its mark holds for `data`."""
-    def objective(params):
-        return objective_fn(params, data)
-
-    holds = getattr(objective_fn, "block_objective", None)
-    objective.block_objective = holds is not None and bool(holds(data))
-    return objective
-
-
-def bind_data(block_update_fn, data) -> BlockUpdate:
-    """block(params, n_steps) = block_update_fn(params, data, n_steps),
-    keeping the kernel-route and returns_objective marks."""
-    def block(params, n_steps, **objective):
-        return block_update_fn(params, data, n_steps, **objective)
-
-    if getattr(block_update_fn, "kernel_route", False):
-        kernel_route(block)
-    if getattr(block_update_fn, "returns_objective", False):
-        returns_objective(block)
-    return block
-
-
-def _objective_in_block(block_update_fn, objective_fn) -> bool:
-    """Whether each block's objective comes from the block update: a
-    kernel-route block that returns it, and a loop objective it
-    reproduces (bind_objective). Decided before the loop."""
-    return bool(getattr(block_update_fn, "kernel_route", False)
-                and getattr(block_update_fn, "returns_objective", False)
-                and getattr(objective_fn, "block_objective", False))
+def _objective_in_block(block_update_fn) -> bool:
+    """Whether each block's objective comes from the block update: its
+    class says it gives one. Decided before the loop."""
+    return bool(getattr(block_update_fn, "gives_objective", False))
 
 
 def _advance(block_update_fn, objective_fn, in_block: bool, params,
@@ -214,8 +160,8 @@ def _advance(block_update_fn, objective_fn, in_block: bool, params,
 
 @contextlib.contextmanager
 def _eager_spans():
-    """Run every span eagerly, the kernel route's too: for holding graphed
-    spans against eager ones on a card."""
+    """Run every span eagerly, a capturable block's too: for holding
+    graphed spans against eager ones on a card."""
     global _EAGER_SPANS
     before, _EAGER_SPANS = _EAGER_SPANS, True
     try:
@@ -226,10 +172,9 @@ def _eager_spans():
 
 def _graphed(block_update_fn, params) -> bool:
     """Whether a loop's spans are captured: decided before the loop from
-    the route. The kernel route has no sample axis (cuda_klnmf refuses a
-    sample-sharded block), so its blocks hold no collective."""
+    the block's class (``capturable``) and the params' device."""
     return (not _EAGER_SPANS
-            and getattr(block_update_fn, "kernel_route", False)
+            and getattr(block_update_fn, "capturable", False)
             and all(leaf.is_cuda for leaf in tree_leaves(params)))
 
 
@@ -416,8 +361,9 @@ def _tested(blocks: int, config: FitConfig) -> bool:
 
 
 def _plain_block(update_fn) -> BlockUpdate:
+    """The plain block: n_steps calls of update_fn(params)."""
     def block(params, n_steps: int):
-        for _ in range(n_steps):
+        for _ in range(int(n_steps)):
             params = update_fn(params)
         return params
 
@@ -486,7 +432,7 @@ def fit_loop(
     of0 = objective_fn(params0)
     tol = _effective_tol(config, of0.dtype, params0)
     device = of0.device
-    in_block = _objective_in_block(advance, objective_fn)
+    in_block = _objective_in_block(advance)
 
     def step(state: _LoopState) -> _LoopState:
         params, of_value = _advance(advance, objective_fn, in_block,
@@ -616,7 +562,7 @@ def _lockstep_step(objective_fn, config: FitConfig,
     freq = int(config.conv_test_freq)
     max_iterations = int(config.max_iterations)
     min_iterations = int(config.min_iterations)
-    in_block = _objective_in_block(block_update_fn, objective_fn)
+    in_block = _objective_in_block(block_update_fn)
 
     def step(state: LockstepState) -> LockstepState:
         done_prev = state.done
@@ -689,7 +635,7 @@ def run_lockstep_segment(
                                   tol),
                    _graphed(block_update_fn, state.params),
                    int(state.done.shape[0]) * int(config.conv_test_freq),
-                   _objective_in_block(block_update_fn, objective_fn))
+                   _objective_in_block(block_update_fn))
     try:
         while blocks < full_blocks:
             n_blocks = _span_blocks(blocks, full_blocks)
@@ -757,25 +703,22 @@ def make_fit_function(
     config: FitConfig,
     verbose: bool = False,
     verbosity_freq: int = 1000,
-    block_update_fn: Callable[[dict, dict, int], dict] | None = None,
+    block_update_fn: BlockUpdate | None = None,
 ):
     """Build a single-problem fit function `(params0, data) -> FitResult`.
 
     update_fn/objective_fn take (params, data). block_update_fn(params,
-    data, n_steps), when given, advances a whole block in one call (the
-    fused kernel); otherwise a block is n_steps calls of update_fn.
-    Batched multi-start fits call fit_loop_lockstep directly.
+    n_steps), when given, advances a whole block in one call and is bound
+    to the data the fit runs on (a KLNMF fit's: the kernel's block where
+    ops.cuda_klnmf.klnmf_block gives it); otherwise a block is n_steps
+    calls of update_fn. Batched multi-start fits call fit_loop_lockstep
+    directly.
     """
 
     def run(params0, data):
-        update = lambda p: update_fn(p, data)
-        objective = bind_objective(objective_fn, data)
-        if block_update_fn is None:
-            block = _plain_block(update)
-        else:
-            block = bind_data(block_update_fn, data)
-        return fit_loop(update, objective, params0, config, verbose=verbose,
-                        verbosity_freq=verbosity_freq,
-                        block_update_fn=block)
+        return fit_loop(lambda p: update_fn(p, data),
+                        lambda p: objective_fn(p, data), params0, config,
+                        verbose=verbose, verbosity_freq=verbosity_freq,
+                        block_update_fn=block_update_fn)
 
     return run

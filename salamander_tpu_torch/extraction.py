@@ -183,7 +183,7 @@ def _discovery_fit(params0, data, config: FitConfig, model: str,
 
     masked=False runs unpadded KLNMF lanes (params without "mask"), whose
     blocks take the CUDA kernel with a per-lane X where
-    cuda_klnmf.mu_block_supported holds. Without the runner the same steps
+    ops.cuda_klnmf.klnmf_block gives it. Without the runner the same steps
     run as one monolithic lockstep loop. reduce_samples: the lanes hold
     this rank's block of the samples (plain updates)."""
     from .parallel.compaction import extraction_compacting_runner, lockstep_fit
@@ -234,16 +234,17 @@ def _grouped_fit(params0, data, lane_ranks, config: FitConfig,
 
 def _choose_layout(model: str, dtype, n_given: int, ranks, n_features: int,
                    n_samples: int, device) -> str:
-    """'grouped' where the kernel takes every rank's lanes (a card,
-    KLNMF, float32, no given signatures, shapes a kernel holds), else
-    'padded'. Decided from the arguments, before any launch."""
+    """'grouped' where the kernel takes every rank's KLNMF lanes, else
+    'padded'. Decided from the arguments, before any launch, by the
+    kernel's own rule (ops.cuda_klnmf.unsupported_fit_reason, which its
+    route asks for every block). A sample-sharded mesh keeps the grouped
+    layout, whose blocks then run the plain update."""
     from .ops import cuda_klnmf
 
-    if (torch.device(device).type == "cuda" and model == "klnmf"
-            and dtype == torch.float32 and n_given == 0
-            and all(cuda_klnmf.plan_launch(1, n_features, k, n_samples,
-                                           1).variant is not None
-                    for k in ranks)):
+    on_card = torch.device(device).type == "cuda"
+    if model == "klnmf" and all(cuda_klnmf.unsupported_fit_reason(
+            {dtype}, on_card, n_given, 1, n_features, k, n_samples) is None
+            for k in ranks):
         return "grouped"
     return "padded"
 

@@ -97,13 +97,9 @@ class KLNMF(StandardNMF):
 
     def _block_update_fn(self, params, data, given_parameters=None,
                          sample_sharded: bool = False):
-        if cuda_klnmf.mu_block_supported(
-            data["X"], params["W"], params["H"], data,
-            self._n_given_signatures(given_parameters),
-            sample_sharded=sample_sharded,
-        ):
-            return cuda_klnmf.fused_block_update
-        return None
+        return cuda_klnmf.klnmf_block(
+            params, data, self._n_given_signatures(given_parameters),
+            sample_sharded=sample_sharded)
 
     # ------------------------------------------------------------------ #
     # stochastic (minibatch) fitting: online NMF

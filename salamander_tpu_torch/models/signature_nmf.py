@@ -11,8 +11,9 @@ Concrete models implement the engine hooks:
   _build_step(given)           -> (update_fn(params, data),
                                    objective_fn(params, data))
   _block_update_fn(params, data, given)
-                               -> a fused block update, or None for the
-                                  plain update loop
+                               -> the kernel's block update (params, n_steps)
+                                  for this fit, or None for the plain update
+                                  loop (KLNMF's: ops.cuda_klnmf.klnmf_block)
   _absorb_params(params)       -> write fitted arrays back into the containers
 
 Every family's step functions take `reduce_samples`, so every fit shards
@@ -29,12 +30,7 @@ import pandas as pd
 import torch
 
 from .. import containers, tools as tl
-from ..engine import (
-    FitConfig,
-    block_objective,
-    effective_tolerance,
-    make_fit_function,
-)
+from ..engine import FitConfig, effective_tolerance, make_fit_function
 from ..engine.transfer import params_to_numpy
 from ..engine.tree import (
     by_leaf_name,
@@ -243,10 +239,6 @@ def promote_objective(objective_fn, params0):
             cast_floating(data, torch.float64),
         )
 
-    # a block update that returns the objective is asked for it in float64
-    holds = getattr(objective_fn, "block_objective", None)
-    if holds is not None:
-        block_objective(objective_fn_f64, holds)
     return objective_fn_f64
 
 
@@ -399,8 +391,9 @@ class SignatureNMF(ABC):
 
     def _block_update_fn(self, params, data, given_parameters=None,
                          sample_sharded: bool = False):
-        """A fused block update (params, data, n_steps) -> params for this
-        fit, or None to run the plain update loop."""
+        """The kernel's block update (params, n_steps) -> params for a fit
+        of `params` on `data`, bound to `data`, or None to run the plain
+        update loop."""
         return None
 
     @abstractmethod

@@ -27,8 +27,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
 from pathlib import Path
 from typing import NamedTuple
 
@@ -36,7 +34,7 @@ import numpy as np
 import torch
 
 from . import corrnmf
-from .cuda_klnmf import BUILD_DIR, _nvcc, _run_all
+from .cuda_klnmf import NVCC_FLAGS, _run_all, build_library
 
 DIM_MAX = 10    # CORRNMF_NEWTON_DIM_MAX in csrc/corrnmf_newton.cu
 # CORRNMF_NEWTON_DIM_MIN: m = 1 launches at 2 with a zero column (exact)
@@ -100,20 +98,14 @@ def unsupported_reason(embeddings0, embeddings_other, scalings,
 def build() -> Path:
     """Compile csrc/corrnmf_newton.cu for sm_90a (once per source
     version) and return the shared library's path; ptxas's register and
-    spill report is kept beside it with the suffix '.log'."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    library = BUILD_DIR / f"corrnmf_newton-{digest}.so"
-    if library.exists():
-        return library
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    partial = library.with_name(f"{library.name}.{os.getpid()}.partial")
-    (output,) = _run_all([[
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-shared", "-o",
-        str(partial), str(SOURCE)]])
-    library.with_suffix(".log").write_text(output)
-    os.replace(partial, library)  # atomic: concurrent builds agree
-    return library
+    spill report is kept beside it with the suffix '.log'
+    (cuda_klnmf.build_library)."""
+    def compile_into(nvcc, partial):
+        (output,) = _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o",
+                               str(partial), str(SOURCE)]])
+        return output
+
+    return build_library("corrnmf_newton", SOURCE, compile_into)
 
 
 @functools.lru_cache(maxsize=None)

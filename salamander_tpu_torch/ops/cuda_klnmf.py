@@ -28,11 +28,12 @@ checkout (named by a hash of the source, so an edited source builds anew),
 and ``ctypes`` loads it. Nothing is built or imported when this module is
 imported.
 
-Routing is decided before a launch, never on failure:
-:func:`mu_block_supported` says whether a fit's block update may run a
-kernel. :func:`fused_mu_block` runs the plain version for tensors on the
-CPU and launches the planned kernel for tensors on a card; a build or
-launch error raises.
+Routing is decided before a launch, never on failure, and in one place:
+:func:`klnmf_block` gives a KLNMF fit the kernel's block update
+(:class:`KernelBlock`) where :func:`unsupported_reason` is None, else None,
+and the fit runs its plain block. :func:`fused_mu_block` runs the plain
+version for tensors on the CPU and launches the planned kernel for tensors
+on a card; a build or launch error raises.
 """
 
 from __future__ import annotations
@@ -48,7 +49,6 @@ from typing import NamedTuple
 
 import torch
 
-from ..engine.fit import kernel_route, returns_objective
 from .klnmf import kl_divergence, update_WH
 
 K_MAX = 32          # MU_BLOCK_K_MAX in csrc/mu_block.cu
@@ -242,38 +242,56 @@ def unsupported_reason(X, W, H, data=None, n_given_signatures: int = 0,
         return ("the kernel sums the W numerator over all of D: a "
                 "sample-sharded block runs the plain update")
     data = {} if data is None else data
-    if any(t.dtype != torch.float32 for t in (X, W, H)):
-        return "the kernel is float32 only"
     if data.get("weights_kl") is not None or \
             data.get("weights_lhalf") is not None:
         return "the kernel has no loss weights"
-    if n_given_signatures:
-        return "the kernel has no given signatures"
     if mask is not None:
         return "the kernel has no rank mask"
-    n_features, n_signatures = W.shape[-2], W.shape[-1]
     if X.dim() == 3 and (W.dim() != 3 or X.shape[0] != W.shape[0]):
         return "a per-lane X needs one lane of W per lane of X"
     if X.dim() not in (2, 3):
         return "X is (V, D) or (R, V, D)"
+    return unsupported_fit_reason(
+        {X.dtype, W.dtype, H.dtype}, all(t.is_cuda for t in (X, W, H)),
+        n_given_signatures, W.shape[0] if W.dim() == 3 else 1, *W.shape[-2:],
+        H.shape[-1])
+
+
+def unsupported_fit_reason(dtypes, on_card: bool, n_given_signatures: int,
+                           n_lanes: int, n_features: int, n_signatures: int,
+                           n_samples: int):
+    """Why no kernel can run an unweighted, unpadded fit of these
+    properties, or None if one can: its tensors' `dtypes` (a set), whether
+    they lie on a card, its lanes and V, K, D. Whether a kernel takes the
+    shapes does not depend on the number of lanes (plan_launch at one SM),
+    so extraction's layout asks this from the shapes, before any lane
+    exists; unsupported_reason asks it for every block."""
+    if dtypes != {torch.float32}:
+        return "the kernel is float32 only"
+    if n_given_signatures:
+        return "the kernel has no given signatures"
     if n_signatures > K_MAX:
         return f"K={n_signatures} above K_MAX={K_MAX}"
-    n_lanes = W.shape[0] if W.dim() == 3 else 1
-    if plan_launch(n_lanes, n_features, n_signatures, H.shape[-1],
+    if plan_launch(n_lanes, n_features, n_signatures, n_samples,
                    n_sms=1).variant is None:
-        return (f"V={n_features}, K={n_signatures}, D={H.shape[-1]} exceed "
+        return (f"V={n_features}, K={n_signatures}, D={n_samples} exceed "
                 "shared memory in both kernels")
-    if not all(t.is_cuda for t in (X, W, H)):
+    if not on_card:
         return "the tensors are not on a CUDA device"
     return None
 
 
-def mu_block_supported(X, W, H, data=None, n_given_signatures: int = 0,
-                       mask=None, sample_sharded: bool = False):
-    """Whether a fit's block update runs a kernel (see
-    unsupported_reason)."""
-    return unsupported_reason(X, W, H, data, n_given_signatures, mask,
-                              sample_sharded) is None
+def klnmf_block(params, data, n_given_signatures: int = 0, mask=None,
+                sample_sharded: bool = False):
+    """The kernel's block update (params, n_steps) -> params for a KLNMF
+    fit of `params` {"W", "H"} on `data`, a KernelBlock bound to `data`,
+    where unsupported_reason holds none for these tensors; else None, and
+    the fit runs its plain block (its update n_steps times). The one place
+    a KLNMF block's route is decided, before any launch."""
+    if unsupported_reason(data["X"], params["W"], params["H"], data,
+                          n_given_signatures, mask, sample_sharded) is None:
+        return KernelBlock(data)
+    return None
 
 
 def _nvcc() -> str:
@@ -283,8 +301,30 @@ def _nvcc() -> str:
                                      else None)
     if found is None:
         raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build csrc/mu_block.cu")
+                           "build the kernels of csrc/")
     return found
+
+
+# nvcc's flags for every unit of csrc/: sm_90a, with ptxas's report
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def build_library(name: str, source: Path, compile_into) -> Path:
+    """The shared library ``build/<name>-<digest>.so`` of `source`, named
+    by a hash of the source and built once per source version:
+    compile_into(nvcc, partial) writes the library to the path `partial`
+    and returns ptxas's register, spill and shared-memory report, which is
+    kept beside the library with the suffix '.log'."""
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    library = BUILD_DIR / f"{name}-{digest}.so"
+    if library.exists():
+        return library
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    partial = library.with_name(f"{library.name}.{os.getpid()}.partial")
+    library.with_suffix(".log").write_text(compile_into(_nvcc(), partial))
+    os.replace(partial, library)  # atomic: concurrent builds agree
+    return library
 
 
 # the kernels' compile-time ranks, one translation unit each (the resident
@@ -313,32 +353,24 @@ def _run_all(commands):
 def build() -> Path:
     """Compile csrc/mu_block.cu for sm_90a (once per source version) and
     return the shared library's path. The kernels' ranks compile as
-    separate units in parallel and link with the C interface's unit.
-    ptxas's register, spill and shared-memory report is kept beside the
-    library with the suffix '.log'."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    library = BUILD_DIR / f"mu_block-{digest}.so"
-    if library.exists():
-        return library
-    work = BUILD_DIR / f"mu_block-{digest}.{os.getpid()}.parts"
-    work.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c"]
-    parts = [(work / "interface.o", [])] + [
-        (work / f"rank{rank}.o", [f"-DMU_BLOCK_RANK_PART={rank}"])
-        for rank in _RANK_PARTS]
-    outputs = _run_all([[nvcc, *flags, *defines, "-o", str(obj), str(SOURCE)]
-                        for obj, defines in parts])
-    partial = library.with_name(f"{library.name}.{os.getpid()}.partial")
-    _run_all([[nvcc, "-shared", "-o", str(partial),
-               *(str(obj) for obj, _ in parts)]])
-    library.with_suffix(".log").write_text("".join(
-        f"== {obj.stem}\n{output}" for (obj, _), output in zip(parts,
-                                                                outputs)))
-    shutil.rmtree(work)
-    os.replace(partial, library)  # atomic: concurrent builds agree
-    return library
+    separate units in parallel and link with the C interface's unit;
+    their ptxas reports are kept in one '.log' (build_library)."""
+    def compile_into(nvcc, partial):
+        work = partial.with_suffix(".parts")
+        work.mkdir(exist_ok=True)
+        parts = [(work / "interface.o", [])] + [
+            (work / f"rank{rank}.o", [f"-DMU_BLOCK_RANK_PART={rank}"])
+            for rank in _RANK_PARTS]
+        outputs = _run_all([[nvcc, *NVCC_FLAGS, "-c", *defines, "-o",
+                             str(obj), str(SOURCE)]
+                            for obj, defines in parts])
+        _run_all([[nvcc, "-shared", "-o", str(partial),
+                   *(str(obj) for obj, _ in parts)]])
+        shutil.rmtree(work)
+        return "".join(f"== {obj.stem}\n{output}"
+                       for (obj, _), output in zip(parts, outputs))
+
+    return build_library("mu_block", SOURCE, compile_into)
 
 
 # shapes on which _library() holds plan_launch against mu_block_plan:
@@ -589,33 +621,47 @@ def _kernels_taking(R: int, V: int, K: int, D: int, n_sms: int):
     return names
 
 
-def fused_block_update(params, data, n_steps: int, objective=None):
-    """Engine block update through the kernel: params {"W", "H"} with or
-    without a leading restart axis, data {"X"} shared (V, D) or per lane
-    (R, V, D). With `objective` a dtype, returns (params, their objective
-    in that dtype): (R,) from the launch, or a scalar for a single fit. On
+class KernelBlock:
+    """A KLNMF fit's block update through the kernel, bound to its data
+    {"X"}: called as block(params, n_steps), params {"W", "H"} with or
+    without a leading restart axis, X shared (V, D) or per lane (R, V, D).
+    Asked with ``objective=dtype``, it returns (params, their objective in
+    that dtype): (R,) from the launch, or a scalar for a single fit. On
     the CPU the plain block runs and the objective is that of the plain
-    ops, on the caller's shapes."""
-    W, H, X = params["W"], params["H"], data["X"]
-    single = W.dim() == 2
-    if single:
-        W, H = W.unsqueeze(0), H.unsqueeze(0)
-    on_card = not all(t.device.type == "cpu" for t in (X, W, H))
-    out = fused_mu_block(X, W.contiguous(), H.contiguous(), n_steps,
-                         objective if on_card else None)
-    W, H = out[:2]
-    if single:
-        W, H = W.squeeze(0), H.squeeze(0)
-    if objective is None:
-        return {"W": W, "H": H}
-    if on_card:
-        value = out[2].squeeze(0) if single else out[2]
-    else:
-        value = block_objective_of(X, W, H, objective)
-    return {"W": W, "H": H}, value
+    ops, on the caller's shapes.
 
+    Its class says what the engine needs: one launch a block, no host
+    read and no collective, so a fit's spans may be captured as CUDA
+    graphs (`capturable`); and it gives each block's objective
+    (`gives_objective`), which the engine then takes in the dtype of the
+    loop's objective. Only klnmf_block builds one, and only where
+    unsupported_reason is None: unweighted, unmasked, without given
+    signatures or a sample axis. A KLNMF loop's objective there is the
+    unweighted KL divergence, float64 where promote_objective promoted it
+    and float32 where it did not, which is what the launch returns
+    (block_objective_of)."""
 
-# one launch a block, no host read: the engine captures its spans as CUDA
-# graphs, and takes each block's objective from its launch
-kernel_route(fused_block_update)
-returns_objective(fused_block_update)
+    capturable = True
+    gives_objective = True
+
+    def __init__(self, data):
+        self.data = data
+
+    def __call__(self, params, n_steps: int, objective=None):
+        W, H, X = params["W"], params["H"], self.data["X"]
+        single = W.dim() == 2
+        if single:
+            W, H = W.unsqueeze(0), H.unsqueeze(0)
+        on_card = not all(t.device.type == "cpu" for t in (X, W, H))
+        out = fused_mu_block(X, W.contiguous(), H.contiguous(), n_steps,
+                             objective if on_card else None)
+        W, H = out[:2]
+        if single:
+            W, H = W.squeeze(0), H.squeeze(0)
+        if objective is None:
+            return {"W": W, "H": H}
+        if on_card:
+            value = out[2].squeeze(0) if single else out[2]
+        else:
+            value = block_objective_of(X, W, H, objective)
+        return {"W": W, "H": H}, value

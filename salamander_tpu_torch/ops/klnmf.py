@@ -27,7 +27,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..engine.fit import block_objective
 from .precision import mm, omm
 
 EPSILON = float(np.finfo(np.float32).eps)
@@ -257,16 +256,7 @@ def make_step_functions(n_given_signatures: int = 0, reduce_samples=None):
             reduce_samples,
         )
 
-    if reduce_samples is None:
-        # unweighted, it is the KL divergence the kernel route's launch
-        # returns (ops.cuda_klnmf.fused_block_update)
-        block_objective(objective_fn, _unweighted)
     return update_fn, objective_fn
-
-
-def _unweighted(data) -> bool:
-    return data.get("weights_kl") is None and \
-        data.get("weights_lhalf") is None
 
 
 def make_masked_step_functions(n_given_signatures: int = 0,

@@ -27,7 +27,7 @@ import pandas as pd
 import torch
 
 from .. import containers
-from ..engine import FitConfig, bind_data
+from ..engine import FitConfig
 from ..engine.tree import tree_map
 
 _SUPPORTED = ("KLNMF", "MvNMF", "ARDNMF", "CorrNMFDet", "MultimodalCorrNMF")
@@ -173,10 +173,8 @@ def bootstrap_stability(
     objective_fn = promote_objective(objective_fn, params0)
 
     def make_block_update(params, lane_data):
-        fused = clone._block_update_fn(params, lane_data, None)
-        if fused is not None:
-            return bind_data(fused, lane_data)
-        return plain_block_builder(update_fn)(params, lane_data)
+        return (clone._block_update_fn(params, lane_data)
+                or plain_block_builder(update_fn)(params, lane_data))
 
     result, losses = lockstep_fit(objective_fn, config, make_block_update,
                                   params0, data)

@@ -35,8 +35,7 @@ from ..engine.fit import (
     LockstepState,
     _effective_tol,
     _host_read,
-    bind_data,
-    bind_objective,
+    _plain_block,
     finish_lockstep,
     fit_loop_lockstep,
     init_lockstep_state,
@@ -158,7 +157,9 @@ class CompactingRunner:
         full_blocks = (int(config.max_iterations)
                        // int(config.conv_test_freq))
 
-        objective = bind_objective(self.objective_fn, data)
+        def objective(params):
+            return self.objective_fn(params, data)
+
         state = init_lockstep_state(objective, params0, config)
         _effective_tol(config, state.of_prev.dtype, params0)  # warn once
         initial_objective = state.of_prev
@@ -171,8 +172,8 @@ class CompactingRunner:
             target = self._next_bucket(bucket)
             floor = 0 if target is None else target
             state = run_lockstep_segment(
-                bind_objective(self.objective_fn, data_bucket), config,
-                self.make_block_update(state.params, data_bucket),
+                lambda params: self.objective_fn(params, data_bucket),
+                config, self.make_block_update(state.params, data_bucket),
                 state, alive_floor=floor,
             )
             self._report(state, bucket)
@@ -213,7 +214,9 @@ def lockstep_fit(objective_fn, config: FitConfig,
                  make_block_update: BlockBuilder, params0, data):
     """The monolithic twin of CompactingRunner.run: one lockstep loop over
     all lanes (finished lanes frozen). Returns (FitResult, final_loss)."""
-    objective = bind_objective(objective_fn, data)
+    def objective(params):
+        return objective_fn(params, data)
+
     result = fit_loop_lockstep(objective, params0, config,
                                make_block_update(params0, data))
     return result, objective(result.params)
@@ -221,33 +224,25 @@ def lockstep_fit(objective_fn, config: FitConfig,
 
 def klnmf_block_builder(update_fn,
                         sample_sharded: bool = False) -> BlockBuilder:
-    """make_block_update of the KLNMF flavors: the CUDA kernel where
-    cuda_klnmf.mu_block_supported holds for the bucket's tensors, else
-    `update_fn` steps as plain torch ops (the rank-masked and the
+    """make_block_update of the KLNMF flavors: the CUDA kernel's block
+    where ops.cuda_klnmf.klnmf_block gives one for the bucket's tensors,
+    else `update_fn` steps as plain torch ops (the rank-masked and the
     sample-sharded flavors always)."""
-    from ..ops import cuda_klnmf
+    from ..ops.cuda_klnmf import klnmf_block
 
     def make_block_update(params, data):
-        if cuda_klnmf.mu_block_supported(data["X"], params["W"],
-                                         params["H"], data,
-                                         mask=params.get("mask"),
-                                         sample_sharded=sample_sharded):
-            return bind_data(cuda_klnmf.fused_block_update, data)
-        return plain_block_builder(update_fn)(params, data)
+        return (klnmf_block(params, data, mask=params.get("mask"),
+                            sample_sharded=sample_sharded)
+                or plain_block_builder(update_fn)(params, data))
 
     return make_block_update
 
 
 def plain_block_builder(update_fn) -> BlockBuilder:
     """make_block_update that steps a batched-native update_fn(params,
-    data) n_steps times."""
+    data) n_steps times (the engine's plain block)."""
     def make_block_update(params, data):
-        def block(p, n_steps):
-            for _ in range(int(n_steps)):
-                p = update_fn(p, data)
-            return p
-
-        return block
+        return _plain_block(lambda p: update_fn(p, data))
 
     return make_block_update
 
@@ -320,7 +315,7 @@ def extraction_compacting_runner(config: FitConfig, promote: bool,
     masked=True is the rank-masked flavor (the K-padded layout, with
     ``n_given`` frozen leading signatures); masked=False steps unpadded
     KLNMF lanes of one rank, whose blocks take the CUDA kernel with a
-    per-lane X where cuda_klnmf.mu_block_supported holds. `promote`
+    per-lane X where it takes them (klnmf_block_builder). `promote`
     evaluates the convergence objective in float64
     (models.signature_nmf.promote_objective), as the lockstep loop does.
     lam/delta parameterize the MvNMF family only. reduce_samples completes

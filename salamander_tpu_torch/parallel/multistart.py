@@ -6,8 +6,8 @@ per-restart initial parameters are stacked on a leading lane axis, the
 model's own batched-native (update, objective) step functions drive the
 convergence engine, and the best restart (by the model's objective
 direction) is absorbed back into the model's containers. A KLNMF block
-runs through the model's fused block update (the CUDA kernel where
-cuda_klnmf.mu_block_supported holds).
+runs through the model's kernel block (SignatureNMF._block_update_fn:
+the CUDA kernel where ops.cuda_klnmf.klnmf_block gives it).
 
 Every family is batched: KLNMF, MvNMF, ARDNMF, CorrNMFDet and
 MultimodalCorrNMF, whose parameters are a nested dict (engine.tree) and
@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from .. import profiling
-from ..engine import FitResult, bind_data, effective_tolerance
+from ..engine import FitResult, effective_tolerance
 from ..engine.transfer import params_to_numpy
 from ..engine.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from .compaction import (
@@ -396,9 +396,7 @@ def fit_best_of(
         if not is_multimodal:  # only W/H families have a fused block
             fused = model._block_update_fn(params, data_, given_parameters,
                                            sample_sharded=sample_sharded)
-        if fused is not None:
-            return bind_data(fused, data_)
-        return plain_block_builder(update_fn)(params, data_)
+        return fused or plain_block_builder(update_fn)(params, data_)
 
     def run_lanes(part0):
         """One lockstep run over a chunk of lanes: (FitResult, losses),

@@ -123,9 +123,8 @@ def _klnmf_runner(config: FitConfig, mesh, masked: bool):
 
     def make_run(reduce_samples):
         update_fn, objective_fn = make_steps(reduce_samples=reduce_samples)
-        builder = (plain_block_builder(update_fn) if masked else
-                   klnmf_block_builder(update_fn, reduce_samples is not None))
-        return _fit_with(objective_fn, config, builder)
+        return _fit_with(objective_fn, config, klnmf_block_builder(
+            update_fn, reduce_samples is not None))
 
     def run(params0, data):
         result, losses = klnmf_mesh_run(
@@ -142,7 +141,7 @@ def build_klnmf_restart_runner(config: FitConfig, mesh=None):
     Returns a function (params0, data) -> (params, losses, n_iterations)
     where params0 = {"W": (R, V, K), "H": (R, K, D)} and data = {"X": (V, D)}
     plus any 'weights_kl'/'weights_lhalf' entries. The block update is
-    chosen per call from the tensors (cuda_klnmf.mu_block_supported).
+    chosen per call from the tensors (ops.cuda_klnmf.klnmf_block).
     Under a `mesh` every rank passes the whole params0 and data and gets
     the whole result back; it fits its own block of them.
     """
@@ -448,7 +447,7 @@ def rank_scan_klnmf(
     the ranks of a bucket as lanes of one K-padded batch with per-lane
     rank masks (plain PyTorch ops: the CUDA kernel has no rank mask).
     pad_ranks=False runs one unpadded multi-start per rank, through the
-    kernel where cuda_klnmf.mu_block_supported holds. None (default) is
+    kernel where ops.cuda_klnmf.klnmf_block gives it. None (default) is
     False: on PCAWG SBS, range(2, 11) x 20 restarts, the unpadded scan
     took 3.6-3.8 s against 3.9-4.7 s padded and packed and 10.4-14.8 s
     padded one point per call (NVIDIA H100 80GB HBM3, 700 W; PERF.md).

@@ -278,8 +278,8 @@ def graph_problem(device, K, R, X=None, seed=0):
 
 def kernel_fns(params0):
     """(update, objective, block factory) of the kernel route: the float64
-    objective of the fits, the block bound to its data."""
-    from salamander_tpu_torch.engine import bind_data
+    objective of the fits, the kernel's block bound to its data (the one
+    klnmf_block gives these params)."""
     from salamander_tpu_torch.models.signature_nmf import promote_objective
     from salamander_tpu_torch.ops.klnmf import make_step_functions
 
@@ -287,8 +287,8 @@ def kernel_fns(params0):
     objective_fn = promote_objective(objective_fn, params0)
 
     def block(data):
-        fused = bind_data(cuda_klnmf.fused_block_update, data)
-        assert fused.kernel_route
+        fused = cuda_klnmf.klnmf_block(params0, data)
+        assert isinstance(fused, cuda_klnmf.KernelBlock)
         return fused
 
     return update_fn, objective_fn, block
@@ -377,7 +377,7 @@ def test_graphed_klnmf_fit_equals_eager(cuda_device):
     update_fn, objective_fn = model._build_step()
     objective_fn = promote_objective(objective_fn, params0)
     block = model._block_update_fn(params0, data)
-    assert block.kernel_route
+    assert isinstance(block, cuda_klnmf.KernelBlock)
 
     def run():
         return make_fit_function(update_fn, objective_fn,
@@ -446,7 +446,7 @@ def test_graphed_streamed_cooperative_equals_eager(cuda_device):
 
 @pytest.mark.cuda
 def test_plain_route_is_not_captured(cuda_device):
-    """A block without the kernel-route mark runs its spans eagerly on the
+    """A block whose class is not capturable runs its spans eagerly on the
     card: no capture, no replay."""
     from salamander_tpu_torch.engine import FitConfig, fit_loop_lockstep
     from salamander_tpu_torch.engine import fit as fit_module
@@ -468,26 +468,24 @@ def test_plain_route_is_not_captured(cuda_device):
 
 @pytest.mark.cuda
 def test_a_failing_capture_raises(cuda_device):
-    """A block marked as the kernel route that reads the host inside its
-    span cannot be captured: the fit raises, it does not carry on
-    eagerly."""
-    from salamander_tpu_torch.engine import FitConfig, fit_loop, kernel_route
+    """A capturable block that reads the host inside its span cannot be
+    captured: the fit raises, it does not carry on eagerly."""
+    from salamander_tpu_torch.engine import FitConfig, fit_loop
 
     params0, data = graph_problem(cuda_device, 5, 1)
     params0 = {key: value[0] for key, value in params0.items()}
-    update_fn, objective_fn, block = kernel_fns(params0)
-    fused = block(data)
+    update_fn, objective_fn, _ = kernel_fns(params0)
 
-    @kernel_route
-    def reads_the_host(p, n_steps):
-        float(p["W"].sum())  # a device-to-host copy: refused in a capture
-        return fused(p, n_steps)
+    class ReadsTheHost(cuda_klnmf.KernelBlock):
+        def __call__(self, p, n_steps, **objective):
+            float(p["W"].sum())  # a device-to-host copy: refused in a capture
+            return super().__call__(p, n_steps, **objective)
 
     with pytest.raises(RuntimeError):
         fit_loop(lambda p: update_fn(p, data),
                  lambda p: objective_fn(p, data), params0,
                  FitConfig(100, 400, 10, 1e-7),
-                 block_update_fn=reads_the_host)
+                 block_update_fn=ReadsTheHost(data))
 
 
 @pytest.mark.cuda
@@ -615,11 +613,7 @@ def test_graphed_block_objective_keeps_the_iterations(cuda_device, shape):
     catalog at K = 5, the streamed kernel with a per-lane X); the
     histories agree to 1e-12."""
     from salamander_tpu_torch import datasets, profiling
-    from salamander_tpu_torch.engine import (
-        FitConfig,
-        bind_objective,
-        fit_loop_lockstep,
-    )
+    from salamander_tpu_torch.engine import FitConfig, fit_loop_lockstep
     from salamander_tpu_torch.engine import fit as fit_module
 
     if shape == "pcawg":
@@ -633,9 +627,10 @@ def test_graphed_block_objective_keeps_the_iterations(cuda_device, shape):
         config = FitConfig(200, 2000, 10, 1e-7)
     _, objective_fn, block = kernel_fns(params0)
 
-    def run(objective):
+    def run(block_update_fn):
         before = dict(profiling.counters)
-        result = fit_loop_lockstep(objective, params0, config, block(data))
+        result = fit_loop_lockstep(lambda p: objective_fn(p, data), params0,
+                                   config, block_update_fn)
         torch.cuda.synchronize()
         return result, {name: profiling.counters.get(name, 0)
                         - before.get(name, 0) for name in
@@ -644,10 +639,11 @@ def test_graphed_block_objective_keeps_the_iterations(cuda_device, shape):
 
     for key in fit_module.graph_counts:
         fit_module.graph_counts[key] = 0
-    fused, fused_counts = run(bind_objective(objective_fn, data))
+    kernel = block(data)
+    fused, fused_counts = run(kernel)
     assert fit_module.graph_counts["replays"] >= 1
-    with fit_module._eager_spans():
-        plain, plain_counts = run(lambda p: objective_fn(p, data))
+    with fit_module._eager_spans():  # a block that gives no objective
+        plain, plain_counts = run(lambda p, n_steps: kernel(p, n_steps))
     assert fused_counts["engine.block_evals_in_kernel"] == \
         fused_counts["engine.block_evals"] > 0
     assert plain_counts["engine.block_evals_in_kernel"] == 0

@@ -15,7 +15,9 @@ from salamander_tpu import engine as jax_engine
 from salamander_tpu.ops import klnmf as jax_ops
 from salamander_tpu_torch import engine
 from salamander_tpu_torch.engine import FitConfig
+from salamander_tpu_torch.ops import cuda_klnmf
 from salamander_tpu_torch.ops import klnmf as torch_ops
+from salamander_tpu_torch.parallel.compaction import klnmf_block_builder
 
 torch.set_num_threads(1)
 
@@ -178,20 +180,21 @@ def test_segment_alive_floor_resumes_exactly(problem):
 
 
 def test_make_fit_function_with_block_update(problem):
-    """A block update replaces the per-step loop (the fused-kernel hook)."""
+    """A block update replaces the per-step loop (the fused-kernel hook),
+    bound to the fit's data."""
     X, W, H = problem
     update_fn, objective_fn = torch_ops.make_step_functions()
     calls = []
+    config = CONFIGS[1]
+    data = {"X": torch.from_numpy(X)}
+    params = {"W": torch.from_numpy(W[0]), "H": torch.from_numpy(H[0])}
 
-    def block(params, data, n_steps):
+    def block(params, n_steps):
         calls.append(n_steps)
         for _ in range(n_steps):
             params = update_fn(params, data)
         return params
 
-    config = CONFIGS[1]
-    data = {"X": torch.from_numpy(X)}
-    params = {"W": torch.from_numpy(W[0]), "H": torch.from_numpy(H[0])}
     plain = engine.make_fit_function(update_fn, objective_fn, config)(
         params, data)
     fused = engine.make_fit_function(update_fn, objective_fn, config,
@@ -257,40 +260,43 @@ def test_verbose_prints_at_each_verbosity_boundary(problem, capsys):
 
 
 # ---------------------------------------------------------------------- #
-# the block's own objective (the kernel route's launch returns it)
+# the block's own objective (the kernel's launch returns it)
 # ---------------------------------------------------------------------- #
 
 
 def counting(objective_fn, calls):
-    """objective_fn(params, data) that records each call, keeping its
-    block_objective mark."""
+    """objective_fn(params, data) that records each call."""
     def objective(params, data):
         calls.append(1)
         return objective_fn(params, data)
 
-    holds = getattr(objective_fn, "block_objective", None)
-    if holds is not None:
-        engine.block_objective(objective, holds)
     return objective
 
 
-def fake_kernel_block(update_fn, asked, returns=True):
-    """A kernel-route block update built from the plain ops: asked for the
-    objective (the dtype recorded in `asked`), it returns the params'
-    klnmf_objective in that dtype, as cuda_klnmf.fused_block_update does
-    on a card."""
-    def block(params, data, n_steps, objective=None):
+class FakeKernelBlock(cuda_klnmf.KernelBlock):
+    """The kernel's block (its class: capturable, gives its objective) on
+    the plain ops of update_fn: asked for the objective (the dtype
+    recorded in `asked`), it returns the params' KL divergence in that
+    dtype, as the launch does on a card."""
+
+    def __init__(self, update_fn, data, asked):
+        super().__init__(data)
+        self.update_fn, self.asked = update_fn, asked
+
+    def __call__(self, params, n_steps, objective=None):
         for _ in range(n_steps):
-            params = update_fn(params, data)
+            params = self.update_fn(params, self.data)
         if objective is None:
             return params
-        asked.append(objective)
-        return params, torch_ops.klnmf_objective(
-            data["X"].to(objective), params["W"].to(objective),
-            params["H"].to(objective))
+        self.asked.append(objective)
+        return params, cuda_klnmf.block_objective_of(
+            self.data["X"], params["W"], params["H"], objective)
 
-    engine.kernel_route(block)
-    return engine.returns_objective(block) if returns else block
+
+class NoObjectiveBlock(FakeKernelBlock):
+    """FakeKernelBlock whose class gives no objective."""
+
+    gives_objective = False
 
 
 def counter_deltas(run):
@@ -310,7 +316,8 @@ def float32_problem(problem, lanes):
     return params, {"X": torch.from_numpy(X).float()}
 
 
-def run_loop(lanes, update_fn, objective_fn, block, params, data, config):
+def run_loop(lanes, update_fn, objective_fn, make_block, params, data,
+             config):
     """fit_loop (through make_fit_function) or fit_loop_lockstep (through
     compaction.lockstep_fit), and the lockstep loop's final done flags."""
     from salamander_tpu_torch.parallel.compaction import lockstep_fit
@@ -318,15 +325,16 @@ def run_loop(lanes, update_fn, objective_fn, block, params, data, config):
     if not lanes:
         result = engine.make_fit_function(
             update_fn, objective_fn, config,
-            block_update_fn=block)(params, data)
+            block_update_fn=make_block(params, data))(params, data)
         return result, None
-    result, _ = lockstep_fit(objective_fn, config,
-                             lambda p, d: engine.bind_data(block, d),
-                             params, data)
-    objective = engine.bind_objective(objective_fn, data)
+    result, _ = lockstep_fit(objective_fn, config, make_block, params, data)
+
+    def objective(p):
+        return objective_fn(p, data)
+
     state = engine.init_lockstep_state(objective, params, config)
     state = engine.run_lockstep_segment(
-        objective, config, engine.bind_data(block, data), state)
+        objective, config, make_block(params, data), state)
     return result, state.done
 
 
@@ -335,11 +343,12 @@ def run_loop(lanes, update_fn, objective_fn, block, params, data, config):
 @pytest.mark.parametrize("config", CONFIGS)
 def test_block_objective_equals_objective_fn(problem, config, lanes,
                                              promote):
-    """A kernel-route block that returns its objective gives the loop the
-    params, history, n_evals, n_iterations and done of the objective_fn
-    route, unbatched and in lockstep, promoted to float64 or not: the
-    objective function then runs once (the initial objective; lockstep_fit
-    adds the final losses), and every block is counted in the kernel."""
+    """A block whose class gives its objective gives the loop the params,
+    history, n_evals, n_iterations and done of the objective_fn route,
+    unbatched and in lockstep, promoted to float64 or not: the objective
+    function then runs once (the initial objective; lockstep_fit adds the
+    final losses), every block is counted in the kernel, and the block is
+    asked in the loop objective's dtype."""
     from salamander_tpu_torch.models.signature_nmf import promote_objective
 
     params, data = float32_problem(problem, lanes)
@@ -349,10 +358,11 @@ def test_block_objective_equals_objective_fn(problem, config, lanes,
     routes = {}
     for in_kernel in (False, True):
         calls, asked = [], []
-        block = fake_kernel_block(update_fn, asked, returns=in_kernel)
+        kind = FakeKernelBlock if in_kernel else NoObjectiveBlock
         routes[in_kernel] = counter_deltas(lambda: run_loop(
-            lanes, update_fn, counting(objective_fn, calls), block, params,
-            data, config)) + (len(calls), asked)
+            lanes, update_fn, counting(objective_fn, calls),
+            lambda p, d: kind(update_fn, d, asked), params, data,
+            config)) + (len(calls), asked)
     (plain, plain_done), plain_counts, plain_calls, _ = routes[False]
     (fused, fused_done), counts, calls, asked = routes[True]
 
@@ -389,47 +399,56 @@ def masked_klnmf(params):
         "W": W, "H": H, "mask": mask.expand(W.shape[:1] + mask.shape)}
 
 
-def masked_mvnmf(params):
-    from salamander_tpu_torch.ops import mvnmf as mv_ops
-
-    W, H, mask = torch_ops.pad_rank(params["W"], params["H"],
-                                    params["W"].shape[-1] + 1)
-    return mv_ops.make_masked_step_functions(1.0, 1.0), {
-        "W": W, "H": H, "gamma": torch.ones(W.shape[0], dtype=W.dtype),
-        "mask": mask.expand(W.shape[:1] + mask.shape)}
-
-
 FALLBACKS = {
-    # a kernel-route block that returns no objective
-    "no_block_objective": lambda params, data: (
-        torch_ops.make_step_functions(), params, data, False),
+    # (step functions, params, data, sample_sharded, the route's refusal)
     "weighted": lambda params, data: (
         torch_ops.make_step_functions(), params,
         {**data, "weights_kl": torch.linspace(
-            0.5, 1.5, data["X"].shape[-1], dtype=data["X"].dtype)}, True),
+            0.5, 1.5, data["X"].shape[-1], dtype=data["X"].dtype)}, False,
+        "loss weights"),
     "rank_masked": lambda params, data: (
-        *masked_klnmf(params), data, True),
-    "mvnmf": lambda params, data: (*masked_mvnmf(params), data, True),
+        *masked_klnmf(params), data, False, "rank mask"),
+    "sample_sharded": lambda params, data: (
+        torch_ops.make_step_functions(reduce_samples=lambda total: total),
+        params, data, True, "sample-sharded"),
+    # the block's class gives no objective
+    "no_block_objective": lambda params, data: (
+        torch_ops.make_step_functions(), params, data, False, None),
 }
 
 
 @pytest.mark.parametrize("case", FALLBACKS)
 def test_objective_fn_where_the_block_cannot_give_it(problem, case):
-    """The loop calls its objective_fn after every block where the block
-    returns no objective or the objective is not the one it reproduces:
-    weighted, rank-masked, MvNMF. No block is counted in the kernel."""
+    """cuda_klnmf.klnmf_block gives no kernel block for weighted,
+    rank-masked and sample-sharded data, refused for that and not only for
+    the CPU, so klnmf_block_builder gives the plain block; the loop then
+    calls its objective_fn after every block, as it does after a block
+    whose class gives no objective. No block is counted in the kernel."""
     from salamander_tpu_torch.parallel.compaction import lockstep_fit
 
     params, data = float32_problem(problem, True)
-    params = {key: value.double() for key, value in params.items()}
-    data = {"X": data["X"].double()}
-    (update_fn, objective_fn), params, data, returns = FALLBACKS[case](
-        params, data)
-    calls, asked = [], []
-    block = fake_kernel_block(update_fn, asked, returns)
+    assert cuda_klnmf.unsupported_reason(data["X"], params["W"],
+                                         params["H"], data) == \
+        "the tensors are not on a CUDA device"
+    (update_fn, objective_fn), params, data, sharded, refusal = \
+        FALLBACKS[case](params, data)
+    calls, asked, routed = [], [], []
+
+    def make_block(p, d):
+        if refusal is None:
+            return NoObjectiveBlock(update_fn, d, asked)
+        routed.append(cuda_klnmf.klnmf_block(p, d, mask=p.get("mask"),
+                                             sample_sharded=sharded))
+        return klnmf_block_builder(update_fn, sharded)(p, d)
+
+    if refusal is not None:
+        assert refusal in cuda_klnmf.unsupported_reason(
+            data["X"], params["W"], params["H"], data,
+            mask=params.get("mask"), sample_sharded=sharded)
     (result, _), counts = counter_deltas(lambda: lockstep_fit(
-        counting(objective_fn, calls), CONFIGS[0],
-        lambda p, d: engine.bind_data(block, d), params, data))
+        counting(objective_fn, calls), CONFIGS[0], make_block, params,
+        data))
+    assert routed == [None] * (refusal is not None)
     blocks = counts["engine.block_evals"]
     assert blocks >= 1 and counts["engine.block_evals_in_kernel"] == 0
     assert asked == []
@@ -437,25 +456,183 @@ def test_objective_fn_where_the_block_cannot_give_it(problem, case):
     assert int(result.n_evals.max()) <= blocks
 
 
-def test_the_mark_follows_the_objective():
-    """make_step_functions marks its objective unless a sample axis
-    completes its sums; promote_objective keeps the mark; bind_objective
-    keeps it for unweighted data only; bind_data keeps a block's marks."""
-    from salamander_tpu_torch.models.signature_nmf import promote_objective
+# (dtype, given signatures, ranks, V, D, lanes, the kernel's refusal or
+# None where it takes the fit on a card)
+ROUTES = {
+    "float64": (torch.float64, 0, [5], 96, 192, 20, "float32"),
+    "given_signatures": (torch.float32, 1, [5], 96, 192, 20, "given"),
+    "rank_above_k_max": (torch.float32, 0, [cuda_klnmf.K_MAX + 8], 96, 192,
+                         20, "K_MAX"),
+    "shared_memory": (torch.float32, 0, [3], 4096, 20, 1, "shared memory"),
+    "pcawg_extract": (torch.float32, 0, range(2, 11), 96, 192, 20, None),
+    "cell_7b": (torch.float32, 0, range(2, 11), 96, 200_000, 10, None),
+}
 
-    _, objective_fn = torch_ops.make_step_functions()
-    _, sharded = torch_ops.make_step_functions(reduce_samples=lambda x: x)
-    _, masked = torch_ops.make_masked_step_functions()
-    promoted = promote_objective(objective_fn,
-                                 {"W": torch.ones(2, dtype=torch.float32)})
-    X = torch.ones(3, 4)
-    for fn, expected in ((objective_fn, True), (promoted, True),
-                         (sharded, False), (masked, False)):
-        assert engine.bind_objective(fn, {"X": X}).block_objective is \
-            expected
-    assert not engine.bind_objective(
-        promoted, {"X": X, "weights_lhalf": torch.ones(4)}).block_objective
-    block = engine.bind_data(fake_kernel_block(lambda p, d: p, []), {})
-    assert block.kernel_route and block.returns_objective
-    plain = engine.bind_data(lambda p, d, n: p, {})
-    assert not getattr(plain, "returns_objective", False)
+
+def test_the_mark_follows_the_objective():
+    """The kernel's block, whose class marks it as giving the objective,
+    follows the objective it reproduces: klnmf_block, unsupported_reason
+    and extraction._choose_layout give one answer, from one rule. Where
+    the kernel refuses a fit (float64, given signatures, K above K_MAX, a
+    lane no kernel holds): the plain block and the padded layout, on a
+    card or not. At the PCAWG extraction cell's and cell 7b's shapes: the
+    grouped layout on a card, and tensors the route refuses for their
+    device alone, so on the CPU the plain block and the padded layout."""
+    from salamander_tpu_torch import extraction
+
+    for name, (dtype, n_given, ranks, V, D, lanes, refusal) in \
+            ROUTES.items():
+        for on_card in (True, False):
+            layout = extraction._choose_layout(
+                "klnmf", dtype, n_given, ranks, V, D,
+                "cuda" if on_card else "cpu")
+            takes = refusal is None and on_card
+            assert layout == ("grouped" if takes else "padded"), name
+            assert extraction._choose_layout(
+                "mvnmf", dtype, n_given, ranks, V, D,
+                "cuda" if on_card else "cpu") == "padded"
+            for k in ranks:
+                reason = cuda_klnmf.unsupported_fit_reason(
+                    {dtype}, on_card, n_given, lanes, V, k, D)
+                assert (reason is None) == takes, (name, k)
+                if refusal is not None:
+                    assert refusal in reason, (name, k)
+        for k in ranks:  # the CPU's tensors, as zero-stride views
+            params = {"W": torch.zeros((), dtype=dtype).expand(lanes, V, k),
+                      "H": torch.zeros((), dtype=dtype).expand(lanes, k, D)}
+            data = {"X": torch.zeros((), dtype=dtype).expand(lanes, V, D)}
+            reason = cuda_klnmf.unsupported_reason(
+                data["X"], params["W"], params["H"], data, n_given)
+            if refusal is None:
+                assert reason == "the tensors are not on a CUDA device"
+            else:
+                assert refusal in reason, (name, k)
+            assert cuda_klnmf.klnmf_block(params, data, n_given) is None
+
+
+CPU_REFUSAL = "the tensors are not on a CUDA device"
+
+
+def lift_the_cpu_refusal(monkeypatch):
+    """Let the kernel's route take on the CPU every fit it would take on a
+    card: its block (cuda_klnmf.KernelBlock) then runs its plain version
+    and gives its objective from the plain ops."""
+    for name in ("unsupported_reason", "unsupported_fit_reason"):
+        real = getattr(cuda_klnmf, name)
+
+        def refusal(*args, real=real, **kwargs):
+            reason = real(*args, **kwargs)
+            return None if reason == CPU_REFUSAL else reason
+
+        monkeypatch.setattr(cuda_klnmf, name, refusal)
+
+
+def small_counts(seed=0, V=12, D=30, K=3):
+    rng = np.random.default_rng(seed)
+    W = rng.dirichlet(np.ones(V), size=K).T
+    H = rng.gamma(2.0, 40.0, size=(K, D))
+    return rng.poisson(W @ H).astype(np.float64) + 1.0
+
+
+def _klnmf(**kwargs):
+    import salamander_tpu_torch as sal
+
+    return sal.KLNMF(n_signatures=3, min_iterations=20, max_iterations=300,
+                     tol=1e-6, dtype="float32", device="cpu",
+                     **kwargs)
+
+
+def _frame(X):
+    import pandas as pd
+
+    return pd.DataFrame(X.T, index=[f"s{i}" for i in range(X.shape[1])],
+                        columns=[f"v{j}" for j in range(X.shape[0])])
+
+
+def _model_fit(weighted):
+    import salamander_tpu_torch as sal
+
+    X = small_counts()
+    kwargs = {}
+    if weighted:
+        kwargs["fitting_kwargs"] = {"weights_kl": np.linspace(
+            0.5, 1.5, X.shape[1])}
+    model = _klnmf().fit(sal.AnnData(_frame(X)), **kwargs)
+    return (np.asarray(model.history["objective_function"]),
+            model.asignatures.X)
+
+
+def _restarts(compact):
+    import salamander_tpu_torch as sal
+
+    result = sal.fit_klnmf_restarts(
+        small_counts(), 3, 6, seed=0, config=FitConfig(20, 400, 10, 1e-6),
+        compact=compact, device="cpu")
+    return np.asarray(result.losses), np.asarray(result.n_iterations)
+
+
+def _best_of():
+    import salamander_tpu_torch as sal
+
+    summary = sal.fit_best_of(_klnmf(init_method="random"),
+                              sal.AnnData(_frame(small_counts())),
+                              n_restarts=4, base_seed=0)
+    return summary.losses, summary.history
+
+
+def _bootstrap():
+    import salamander_tpu_torch as sal
+
+    model = _klnmf().fit(sal.AnnData(_frame(small_counts())))
+    result = sal.bootstrap_stability(model, n_bootstraps=4, seed=3)
+    return result.losses, result.similarities.to_numpy()
+
+
+def _extract():
+    import salamander_tpu_torch as sal
+
+    result = sal.extract_signatures(
+        _frame(small_counts()), ranks=[2, 3], n_bootstraps=4, seed=0,
+        min_iterations=20, max_iterations=300, tol=1e-6, dtype="float32",
+        fit_final=False, device="cpu")
+    assert result.layout == "grouped"
+    return (result.replicate_losses[2], result.replicate_losses[3],
+            result.replicate_iterations[3])
+
+
+# entry point -> (run, whether its blocks take the kernel's route where
+# the kernel runs)
+ENTRY_POINTS = {
+    "klnmf_fit": (lambda: _model_fit(False), True),
+    "klnmf_fit_weighted": (lambda: _model_fit(True), False),
+    "fit_klnmf_restarts": (lambda: _restarts(False), True),
+    "fit_klnmf_restarts_compacting": (lambda: _restarts(True), True),
+    "fit_best_of": (_best_of, True),
+    "bootstrap_stability": (_bootstrap, True),
+    "extract_signatures": (_extract, True),
+}
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS)
+def test_every_kernel_block_is_paired_with_its_objective(entry,
+                                                         monkeypatch):
+    """Every kernel block a public entry point builds runs beside the loop
+    objective it reproduces: with the CPU's refusal lifted, the blocks
+    klnmf_block gives take their objective from the block (counted in the
+    kernel), and the fit ends bit for bit where the plain route ends it. A
+    weighted fit keeps the plain block and its own objective."""
+    from salamander_tpu_torch import extraction
+
+    run, takes = ENTRY_POINTS[entry]
+    with monkeypatch.context() as plain_route:
+        plain_route.setattr(extraction, "_choose_layout",
+                            lambda *args: "grouped")
+        plain, plain_counts = counter_deltas(run)
+    lift_the_cpu_refusal(monkeypatch)
+    fused, counts = counter_deltas(run)
+    assert plain_counts["engine.block_evals_in_kernel"] == 0
+    in_kernel = counts["engine.block_evals_in_kernel"]
+    assert in_kernel == (counts["engine.block_evals"] if takes else 0)
+    assert counts["engine.block_evals"] >= 1
+    for got, want in zip(fused, plain):
+        np.testing.assert_array_equal(got, want)

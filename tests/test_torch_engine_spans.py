@@ -328,20 +328,22 @@ def test_compacting_runner_spans(problem, span, name, monkeypatch):
 
 @pytest.mark.parametrize("span", SPANS, indirect=True)
 def test_fused_route_on_cpu_takes_the_spans(problem, span, monkeypatch):
-    """KLNMF's fused route (cuda_klnmf.fused_block_update, the plain block
-    fused_mu_block_reference on the CPU) keeps its kernel-route mark
-    through make_fit_function and klnmf_block_builder, runs no graph on
-    the CPU, and takes spans of SPAN blocks up to the last full block."""
+    """KLNMF's fused route on the CPU: klnmf_block gives no kernel block
+    (klnmf_block_builder's block is then the plain one); the kernel's
+    block itself (cuda_klnmf.KernelBlock, whose plain version
+    fused_mu_block_reference runs on the CPU) runs no graph through
+    make_fit_function on the CPU, and takes spans of SPAN blocks up to the
+    last full block."""
     X, W, H = problem
     config = CONFIGS["converge"]
     update_fn, objective_fn = torch_ops.make_step_functions()
     data = {"X": torch.from_numpy(X)}
     params = {"W": torch.from_numpy(W[0]), "H": torch.from_numpy(H[0])}
-    assert engine.bind_data(cuda_klnmf.fused_block_update,
-                            data).kernel_route
+    assert cuda_klnmf.klnmf_block(params, data) is None
     builder = klnmf_block_builder(update_fn)
-    assert not getattr(builder(to_torch({"W": W, "H": H}), data),
-                       "kernel_route", False)  # not on a card: plain
+    assert not isinstance(builder(to_torch({"W": W, "H": H}), data),
+                          cuda_klnmf.KernelBlock)  # not on a card: plain
+    assert cuda_klnmf.KernelBlock.capturable
 
     spans = []
     real = fit_module._Spans.run
@@ -353,7 +355,7 @@ def test_fused_route_on_cpu_takes_the_spans(problem, span, monkeypatch):
     monkeypatch.setattr(fit_module._Spans, "run", recording)
     fused = engine.make_fit_function(
         update_fn, objective_fn, config,
-        block_update_fn=cuda_klnmf.fused_block_update)(params, data)
+        block_update_fn=cuda_klnmf.KernelBlock(data))(params, data)
     monkeypatch.setattr(fit_module._Spans, "run", real)
     plain = at_span_one(monkeypatch, lambda: engine.make_fit_function(
         update_fn, objective_fn, config)(params, data))

@@ -101,9 +101,9 @@ def test_block_update_returns_the_loop_objective(layout, dtype):
     _, objective_fn = torch_klnmf.make_step_functions()
     if dtype == torch.float64:
         objective_fn = promote_objective(objective_fn, params)
-    plain = cuda_klnmf.fused_block_update(params, data, 4)
-    fused, value = cuda_klnmf.fused_block_update(params, data, 4,
-                                                 objective=dtype)
+    block = cuda_klnmf.KernelBlock(data)
+    plain = block(params, 4)
+    fused, value = block(params, 4, objective=dtype)
     assert all(torch.equal(fused[key], plain[key]) for key in plain)
     expected = objective_fn(plain, data)
     assert value.dtype == dtype and value.shape == expected.shape
@@ -191,7 +191,8 @@ def test_routing_decides_before_launch(case, reason):
     in shared memory, on a card, take the kernel."""
     X, W, H, data, n_given = _routing_case(case)
     assert reason in cuda_klnmf.unsupported_reason(X, W, H, data, n_given)
-    assert not cuda_klnmf.mu_block_supported(X, W, H, data, n_given)
+    assert cuda_klnmf.klnmf_block({"W": W, "H": H}, {**data, "X": X},
+                                  n_given) is None
 
 
 def test_shared_bytes_bound():

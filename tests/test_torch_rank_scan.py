@@ -225,7 +225,8 @@ def test_kernel_routing_refuses_rank_masks():
     W, H = torch.ones(2, 16, 4) / 16, torch.ones(2, 4, 20)
     mask = torch.ones(2, 4, dtype=torch.bool)
     assert "rank mask" in cuda_klnmf.unsupported_reason(X, W, H, mask=mask)
-    assert not cuda_klnmf.mu_block_supported(X, W, H, mask=mask)
+    assert cuda_klnmf.klnmf_block({"W": W, "H": H}, {"X": X},
+                                  mask=mask) is None
 
 
 def test_pack_auto_policy():
