@@ -213,21 +213,27 @@ PyTorch ops; phase 10 runs plain ops only.
    samples again in float64 on the card: none over the budget, mean
    support within 0.2 of the float32 run's, the share of equal supports.
 
-21. The unrolled CorrNMF Newton solve's kernel (csrc/corrnmf_newton.cu)
-   at the multimodal pan-cancer cell's shape, (8, 20,000) rows against 11
-   signatures, m = 6, in float32 and float64: each of its 3 steps held
-   against the plain step under tests/test_torch_cuda.py's limits (that
-   file's helpers), then the solve timed against the plain solve and the
-   bound of its bytes.
+21. The CorrNMF Newton solve's two kernels (csrc/corrnmf_newton.cu) at
+   the multimodal pan-cancer cell's shape: (a) the thread kernel, (8,
+   20,000) sample rows against 11 signatures, m = 6, in float32 and
+   float64: each of its 3 steps held against the plain step under
+   tests/test_torch_cuda.py's limits (that file's helpers), then the
+   solve timed against the plain solve and the bound of its bytes; (b)
+   the wide kernel, (8, 6) and (8, 5) signature rows against 20,000
+   samples, m = 6, early exit at 100 steps, in float32 and float64: the
+   rows and each row's steps held against the plain loop
+   (assert_wide_held), then the solve timed against the plain solve.
 
 Each of phases 4-21 runs with the MU kernel's launch counts (in all, by
-kernel and by shared or per-lane X), the Newton kernel's launches and the
-engine's CUDA graph counts (captures, replays) set to 0 just before it
+kernel and by shared or per-lane X), the two Newton kernels' launches and
+the engine's CUDA graph counts (captures, replays) set to 0 just before it
 and read just after: every MU kernel path of phases 4-6, 8, 12, 14, 17
 (fit, scan, extract), 18, 19 and 20a replays graphs, every path without
 it none; every CorrNMF path run in this process (9, 11, 15, 16, 18a's
-corrnmf fit, 18b's meshless twins, 21) launches the Newton kernel and no
-other path does. A replay counts the launches its graph holds. The last
+corrnmf fit, 18b's meshless twins, 21) launches the thread kernel and no
+other path launches either Newton kernel; phase 21 launches the wide
+kernel (the other CorrNMF paths do where a row has more than 256 others:
+their counts are printed). A replay counts the launches its graph holds. The last
 two lines are the per-kernel JSON record and
 {"ok": true, "device": {...}}; the card's name and power limit precede
 them.
@@ -1193,7 +1199,8 @@ def newton_counted(corr_ops):
     """Counts, into the dict it yields, each update_embeddings call
     ("solves") and each _newton_step call made inside an early-exit
     (signature-side) solve ("signature_steps"). An unrolled sample-side
-    solve on the card is one kernel launch and calls no _newton_step."""
+    solve on the card, and a solve of rows with more than 256 others (the
+    wide kernel's), is one kernel launch and calls no _newton_step."""
     import inspect
 
     calls = {"solves": 0, "signature_steps": 0}
@@ -3483,6 +3490,7 @@ def phase_newton_kernel(torch):
     each step held against the plain step, then timed against the plain
     solve beside the bound of its bytes."""
     from salamander_tpu_torch.ops import cuda_corrnmf
+    from salamander_tpu_torch.ops.corrnmf import XTOL
 
     helpers = card_test_helpers()
     lanes, N, ns, m = NEWTON_CELL
@@ -3507,6 +3515,26 @@ def phase_newton_kernel(torch):
         timings.append({"dtype": str(dtype).split(".")[-1],
                         "ms": kernel_ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms})
+    for dtype in (torch.float32, torch.float64):
+        for rows in ns:
+            args = helpers.wide_solve_args("cuda", dtype, lanes=lanes,
+                                           N=rows, M=N, m=m)
+            got = cuda_corrnmf.wide_newton_solve(*args, 100)
+            helpers.assert_wide_held(
+                got, cuda_corrnmf.wide_newton_solve_reference(*args, 100),
+                m * XTOL)
+            kernel_ms = time_ms(torch, lambda: (
+                cuda_corrnmf.wide_newton_solve(*args, 100)), 20)
+            plain_ms = time_ms(torch, lambda: (
+                cuda_corrnmf.wide_newton_solve_reference(*args, 100)), 5)
+            steps = int(got[1].max())
+            print(f"[21] corrnmf_newton_wide {str(dtype).split('.')[-1]} "
+                  f"at ({lanes}, {rows}) rows, M={N}, m={m}, {steps} steps: "
+                  f"{kernel_ms:.4f} ms a solve against the plain solve's "
+                  f"{plain_ms:.4f} ms")
+            timings.append({"dtype": str(dtype).split(".")[-1],
+                            "rows": rows, "wide": True, "ms": kernel_ms,
+                            "plain_ms": plain_ms, "steps": steps})
     return timings
 
 
@@ -3533,23 +3561,25 @@ def main() -> int:
     X_host = datasets.load_pcawg_sbs().to_numpy().T.copy()
     launches, by_variant, by_x, graphs = {}, {}, {}, {}
     newton = cuda_corrnmf.newton_solve
-    newton_launches = {}
+    wide = cuda_corrnmf.wide_newton_solve
+    newton_launches, wide_launches = {}, {}
 
     def drive(path, phase, *args):
         """Run one path with the launch counts and the graph counts set to
         0 just before it and read just after."""
         kernel = cuda_klnmf.fused_mu_block
         reset_counts(kernel)
-        newton.launches = 0
+        newton.launches = wide.launches = 0
         start = time.perf_counter()
         out = phase(*args)
         graphs[path] = graphs_now()
         print(f"[path] {path}: {time.perf_counter() - start:.1f} s, "
               f"{kernel.launches} MU kernel launches, {newton.launches} "
-              f"Newton kernel launches, CUDA graphs captured "
-              f"{graphs[path]['captures']}, replayed "
+              f"Newton kernel launches ({wide.launches} wide), CUDA graphs "
+              f"captured {graphs[path]['captures']}, replayed "
               f"{graphs[path]['replays']}")
         newton_launches[path] = newton.launches
+        wide_launches[path] = wide.launches
         launches[path] = kernel.launches
         by_variant[path] = dict(kernel.launches_by_variant)
         by_x[path] = dict(kernel.launches_by_x)
@@ -3601,8 +3631,10 @@ def main() -> int:
             check(count > 0, f"{path}: a CorrNMF path did not launch the "
                   "Newton kernel")
         else:
-            check(count == 0, f"{path}: a path without CorrNMF launched "
-                  "the Newton kernel")
+            check(count + wide_launches[path] == 0, f"{path}: a path "
+                  "without CorrNMF launched a Newton kernel")
+    check(wide_launches["21 corrnmf_newton"] > 0,
+          "phase 21 did not launch the wide Newton kernel")
     for command in ("assign", "assign --dense", "bootstrap"):
         check(launches[f"17b CLI {command}"] == 0,
               f"CLI {command} runs plain ops: it has no kernel to launch")
@@ -3665,6 +3697,7 @@ def main() -> int:
               f"path {path} launched no kernel with a per-lane X")
     print(f"kernel launches by path: {launches}")
     print(f"Newton kernel launches by path: {newton_launches}")
+    print(f"wide Newton kernel launches by path: {wide_launches}")
     print(f"kernel launches by path and kernel: {by_variant}")
     print(f"kernel launches by path, shared or per-lane X: {by_x}")
     print(f"CUDA graphs captured and replayed by path: {graphs}")
@@ -3715,10 +3748,26 @@ def main() -> int:
         "launches": sum(newton_launches.values()),
         "launches_by_path": newton_launches,
         "max_abs_err": None,
-        "ms": {t["dtype"]: t["ms"] for t in newton_timings},
-        "plain_ms": {t["dtype"]: t["plain_ms"] for t in newton_timings},
-        "bound_ms": {t["dtype"]: t["bound_ms"] for t in newton_timings},
+        "ms": {t["dtype"]: t["ms"] for t in newton_timings
+               if not t.get("wide")},
+        "plain_ms": {t["dtype"]: t["plain_ms"] for t in newton_timings
+                     if not t.get("wide")},
+        "bound_ms": {t["dtype"]: t["bound_ms"] for t in newton_timings
+                     if not t.get("wide")},
         "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "corrnmf_newton_wide",
+        "route": "cuda",
+        "source": "salamander_tpu_torch/csrc/corrnmf_newton.cu",
+        "replaces": None,
+        "launches": sum(wide_launches.values()),
+        "launches_by_path": wide_launches,
+        "max_abs_err": None,
+        "ms": {f"{t['dtype']}, {t['rows']} rows": t["ms"]
+               for t in newton_timings if t.get("wide")},
+        "plain_ms": {f"{t['dtype']}, {t['rows']} rows": t["plain_ms"]
+                     for t in newton_timings if t.get("wide")},
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

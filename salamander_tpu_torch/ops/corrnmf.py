@@ -28,29 +28,37 @@ reduced precision the Hessian, a rank-k sum plus I/variance with rates
 salamander_tpu/ops/corrnmf.py:36-46).
 
 The signature side (up to 100 Newton steps) stops, as the JAX package's
-early-exit loop does, when every row is done: the host checks once per
-step, and done rows are frozen with ``torch.where``, so extra masked steps
-give the early-exit result. The sample side (3 steps, the reference's
-scipy maxiter) runs its steps unconditionally: an unrolled solve
-(max_iter <= _UNROLL_NEWTON_LIMIT). On a card an unrolled solve is one
-launch of the kernel csrc/corrnmf_newton.cu (ops/cuda_corrnmf.py): a
-thread per row runs every step of these plain ops in registers, the
-factor with its floor and the first passing Armijo candidate in the same
-arithmetic, and leaves its loop once the row is done. The route is decided
-from what the call shows before it runs (cuda_corrnmf.unsupported_reason:
-a card, float32 or float64, m up to cuda_corrnmf.DIM_MAX, at most
-cuda_corrnmf.OTHERS_MAX others a row, no reduce_samples): the sample side
-of every fit, but not a minibatch signature side against a batch of more
-samples than that. Every other unrolled solve, and every solve on the CPU,
-runs the plain steps below.
+early-exit loop does, when every row is done; done rows are frozen with
+``torch.where``, so extra masked steps give the early-exit result. The
+sample side (3 steps, the reference's scipy maxiter) runs its steps
+unconditionally: an unrolled solve (max_iter <= _UNROLL_NEWTON_LIMIT).
+
+On a card a solve is one kernel launch where a kernel takes it
+(ops/cuda_corrnmf.py; cuda_corrnmf.route decides once a solve, from what
+the call shows, before it runs): an unrolled solve of rows with at most
+cuda_corrnmf.OTHERS_MAX others (the sample side of every fit) runs the
+thread kernel of csrc/corrnmf_newton.cu, a thread per row; rows with more
+others (the signature side's samples, and a minibatch signature side
+against a larger batch), at any step cap, run its wide kernel, a CTA or a
+cluster of CTAs per row, every step on the card with no host read. Both
+keep these plain ops' arithmetic: the factor with its floor, and the first
+passing Armijo candidate. Every other solve (CPU tensors, reduce_samples,
+m above cuda_corrnmf.DIM_MAX, other dtypes, narrow early-exit solves) runs
+the plain steps below, an early-exit one reading the done flags on the
+host once a step.
 
 Spans and counters (profiling.py): a solve is the span
 ``corrnmf.signature_newton`` or ``corrnmf.sample_newton``; the counters
 ``corrnmf.newton_steps.signature`` and ``corrnmf.newton_steps.sample`` add
-the steps each solve ran (one step advances every row of every lane; an
-unrolled solve counts its max_iter steps on either route),
-``corrnmf.newton_solves.signature`` and ``.sample`` each unrolled solve,
-``corrnmf.newton_solves_in_kernel`` each solve the kernel ran, and
+the steps each solve ran (one step advances every row of every lane: an
+unrolled solve counts its max_iter steps on every route, an early-exit
+one the most steps any row of any lane ran, which the wide kernel's
+route reads from the card, one read counted in ``ops.host_syncs``, only
+while recording), ``corrnmf.newton_solves.signature`` and ``.sample``
+each unrolled solve, ``corrnmf.newton_solves_in_kernel`` each unrolled
+solve a kernel ran, ``corrnmf.newton_solves_wide`` each solve of rows with
+more than cuda_corrnmf.OTHERS_MAX others on any route and
+``corrnmf.newton_solves_wide_in_kernel`` those the wide kernel ran, and
 ``ops.host_syncs`` each early-exit read of the done flags.
 
 reduce_samples (ops/klnmf.py): under a sample-sharded mesh each rank holds
@@ -413,32 +421,51 @@ def update_embeddings(embeddings0, embeddings_other, scalings, scalings_other,
     early_exit = max_iter > _UNROLL_NEWTON_LIMIT
     if side is None:
         side = "signature" if early_exit else "sample"
-    in_kernel = not early_exit and cuda_corrnmf.unsupported_reason(
-        embeddings0, embeddings_other, scalings, scalings_other, variance,
-        aux_mat, max_iter, reduce_samples) is None
+    args = (embeddings0, embeddings_other, scalings, scalings_other,
+            variance, aux_mat, max_iter)
+    route = cuda_corrnmf.route(*args, reduce_samples)
     with profiling.span(f"corrnmf.{side}_newton"):
-        if in_kernel:
-            b, steps = cuda_corrnmf.solve_in_kernel(
-                embeddings0, embeddings_other, scalings, scalings_other,
-                variance, aux_mat, max_iter, xtol_total), int(max_iter)
+        if route == "thread":
+            b, steps = cuda_corrnmf.solve_in_kernel(*args, xtol_total), \
+                int(max_iter)
+        elif route == "wide":
+            b, row_steps = cuda_corrnmf.solve_wide_in_kernel(*args,
+                                                             xtol_total)
+            steps = _steps_on_card(row_steps, max_iter, early_exit)
         else:
-            b, steps = _newton_solve(
-                embeddings0, embeddings_other, scalings, scalings_other,
-                variance, aux_mat, max_iter, xtol_total, reduce_samples,
-                early_exit)
-    profiling.count(f"corrnmf.newton_steps.{side}", steps)
+            b, steps = _newton_solve(*args, xtol_total, reduce_samples,
+                                     early_exit)
+    if steps is not None:
+        profiling.count(f"corrnmf.newton_steps.{side}", steps)
     if not early_exit:
         profiling.count(f"corrnmf.newton_solves.{side}")
-    if in_kernel:
-        profiling.count("corrnmf.newton_solves_in_kernel")
+        if route != "plain":
+            profiling.count("corrnmf.newton_solves_in_kernel")
+    if embeddings_other.shape[-2] > cuda_corrnmf.OTHERS_MAX:
+        profiling.count("corrnmf.newton_solves_wide")
+        if route == "wide":
+            profiling.count("corrnmf.newton_solves_wide_in_kernel")
     return b
+
+
+def _steps_on_card(row_steps, max_iter, early_exit):
+    """The steps a kernel's solve counts, as the plain loop counts them:
+    an unrolled solve its max_iter; an early-exit one the most steps any
+    row ran, read from the card (one host read) only while recording,
+    else None (not counted)."""
+    if not early_exit:
+        return int(max_iter)
+    if not profiling.is_recording():
+        return None
+    profiling.count("ops.host_syncs")
+    return int(row_steps.max())
 
 
 def _newton_solve(embeddings0, embeddings_other, scalings, scalings_other,
                   variance, aux_mat, max_iter, xtol_total, reduce_samples,
-                  early_exit):
+                  early_exit, row_steps: bool = False):
     """update_embeddings' loop: (the rows clamped away from zero, the
-    steps run)."""
+    steps run), the steps each row's (..., N) with `row_steps`."""
     dim = embeddings0.shape[-1]
     if xtol_total is None:
         xtol_total = dim * XTOL
@@ -456,12 +483,16 @@ def _newton_solve(embeddings0, embeddings_other, scalings, scalings_other,
                              device=embeddings0.device)
     b = embeddings0
     done = torch.zeros(b.shape[:-1], dtype=torch.bool, device=b.device)
-    steps = 0
+    steps = torch.zeros(b.shape[:-1], dtype=torch.int32,
+                        device=b.device) if row_steps else 0
     for step in range(int(max_iter)):
+        if row_steps:
+            steps = steps + (~done).to(torch.int32)
         b, done, linear_term = _newton_step(
             b, done, embeddings_other, offsets, linear_term, variance, ts,
             xtol_total, reduce_samples, step == 0)
-        steps += 1
+        if not row_steps:
+            steps += 1
         if early_exit:
             profiling.count("ops.host_syncs")
             if bool(done.all()):  # one host sync per step

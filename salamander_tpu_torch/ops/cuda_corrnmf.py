@@ -1,26 +1,37 @@
-"""The unrolled CorrNMF Newton solve as one CUDA kernel: the source
-csrc/corrnmf_newton.cu, its route, build and binding, and its plain
-PyTorch version.
+"""The CorrNMF Newton solve as CUDA kernels: the source
+csrc/corrnmf_newton.cu, the route among its two kernels and the plain
+steps, the build and binding, and the kernels' plain PyTorch versions.
 
-``ops/corrnmf.py::update_embeddings`` runs a solve whose step cap is at
-most ``_UNROLL_NEWTON_LIMIT`` (the sample side's 3 steps) as that many
-masked steps with no early-exit read. On a card this module runs those
-steps in one launch: a thread per row of every lane, all of its damped
-Newton steps, the m x m Cholesky factor with its diagonal floor and the
-Armijo candidates in registers, in the arithmetic of ``_newton_step``
-(the source's note says which sums change order).
+``ops/corrnmf.py::update_embeddings`` asks :func:`route` once a solve:
+
+- ``"thread"``: an unrolled solve (step cap at most
+  ``_UNROLL_NEWTON_LIMIT``, the sample side's 3 steps) of rows with at most
+  ``OTHERS_MAX`` others runs in one launch of the thread kernel: a thread
+  per row of every lane, all of its damped Newton steps, the m x m
+  Cholesky factor with its diagonal floor and the Armijo candidates in
+  registers (:func:`newton_solve`);
+- ``"wide"``: rows with more than ``OTHERS_MAX`` others (the signature
+  side's samples), whatever the step cap, run in one launch of the wide
+  kernel: a CTA, or a cluster of CTAs, per row, the sums over its others
+  reduced across the CTA and the cluster, every step up to the cap on the
+  card with no host read (:func:`wide_newton_solve`);
+- ``"plain"``: everything else runs ops/corrnmf.py's plain steps: CPU
+  tensors, reduce_samples (a sample-sharded mesh), m above ``DIM_MAX``,
+  other dtypes, and narrow early-exit solves.
+
+Both kernels keep ``_newton_step``'s arithmetic (the source's note says
+which sums change order). The route reads what the call shows (devices,
+dtypes, m, the others a row, the step cap, reduce_samples) before it runs,
+never a failure: each wrapper runs its plain version for tensors on the
+CPU and launches its kernel for tensors on a card, or raises where the
+kernel does not take the call. Each launch adds one to the wrapper's
+``launches``.
 
 Build: nvcc compiles the source for sm_90a into a shared library with a
 plain C interface, at first use, under ``build/`` at the root of the
 checkout (named by a hash of the source), and ``ctypes`` loads it. The
 library is built and loaded only when a solve launches; nothing is built
 or imported when this module is imported.
-
-Routing is decided before a launch, never on failure:
-:func:`unsupported_reason` is None where a solve runs the kernel, and
-update_embeddings then calls :func:`solve_in_kernel`. :func:`newton_solve`
-runs the plain version for tensors on the CPU and launches the kernel for
-tensors on a card, or raises where the kernel does not take the call.
 """
 
 from __future__ import annotations
@@ -34,7 +45,7 @@ import numpy as np
 import torch
 
 from . import corrnmf
-from .cuda_klnmf import NVCC_FLAGS, _run_all, build_library
+from .cuda_klnmf import NVCC_FLAGS, _run_all, _sm_count, build_library
 
 DIM_MAX = 10    # CORRNMF_NEWTON_DIM_MAX in csrc/corrnmf_newton.cu
 # CORRNMF_NEWTON_DIM_MIN: m = 1 launches at 2 with a zero column (exact)
@@ -50,16 +61,46 @@ THREADS = 128   # CORRNMF_NEWTON_THREADS
 # a batch of samples) at batch_size 20,000 ran 4 times slower through it.
 OTHERS_MAX = 256
 _MAX_LANES = 65535  # the grid's y dimension
+WIDE_THREADS = 256       # CORRNMF_WIDE_THREADS: a wide row's CTA
+WIDE_CLUSTER_MAX = 8     # CORRNMF_WIDE_CLUSTER_MAX
+# CORRNMF_WIDE_CACHE_BYTES: the most shared memory a CTA's slice of the
+# others (m + 1 values an other) may take; a larger slice is re-read a pass
+WIDE_CACHE_BYTES = 204800
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "corrnmf_newton.cu"
 
 _DTYPE_CODES = {torch.float32: 1, torch.float64: 2}
 
 
+def _refusal(tensors, dim: int, reduce_samples):
+    """The reasons both kernels share, but the device's (_device_refusal):
+    a call either kernel cannot take whatever its rows' width."""
+    if reduce_samples is not None:
+        return ("the others are a rank's block of the samples: their sums "
+                "are completed across ranks a step (reduce_samples)")
+    if any(t.dtype not in _DTYPE_CODES for t in tensors) or \
+            len({t.dtype for t in tensors}) != 1:
+        return "the kernel takes float32 or float64, one dtype for all"
+    if not 1 <= dim <= DIM_MAX:
+        return f"m={dim} outside the compiled 1..{DIM_MAX}"
+    if not tensors[0].numel() or not tensors[1].shape[-2]:
+        return "no rows or no others"
+    return None
+
+
+def _device_refusal(tensors):
+    """Why the tensors are not all on one card, or None."""
+    if not all(t.is_cuda for t in tensors):
+        return "the tensors are not on a CUDA device"
+    if len({t.device for t in tensors}) != 1:
+        return "the tensors lie on more than one device"
+    return None
+
+
 def unsupported_reason(embeddings0, embeddings_other, scalings,
                        scalings_other, variance, aux_mat, max_iter: int,
                        reduce_samples=None):
-    """Why the kernel does not run this solve (update_embeddings'
+    """Why the thread kernel does not run this solve (update_embeddings'
     arguments), or None if it does.
 
     It takes an unrolled solve (max_iter <= _UNROLL_NEWTON_LIMIT) of
@@ -70,29 +111,50 @@ def unsupported_reason(embeddings0, embeddings_other, scalings,
     plain path takes it."""
     tensors = (embeddings0, embeddings_other, scalings, scalings_other,
                aux_mat)
-    if reduce_samples is not None:
-        return ("the others are a rank's block of the samples: their sums "
-                "are completed across ranks a step (reduce_samples)")
+    reason = _refusal(tensors, embeddings0.shape[-1], reduce_samples)
+    if reason is not None:
+        return reason
     if int(max_iter) > corrnmf._UNROLL_NEWTON_LIMIT:
         return (f"max_iter={int(max_iter)} is an early-exit solve (above "
                 f"{corrnmf._UNROLL_NEWTON_LIMIT})")
-    if any(t.dtype not in _DTYPE_CODES for t in tensors) or \
-            len({t.dtype for t in tensors}) != 1:
-        return "the kernel takes float32 or float64, one dtype for all"
-    dim = embeddings0.shape[-1]
-    if not 1 <= dim <= DIM_MAX:
-        return f"m={dim} outside the compiled 1..{DIM_MAX}"
-    if not embeddings0.numel() or not embeddings_other.shape[-2]:
-        return "no rows or no others"
     if embeddings_other.shape[-2] > OTHERS_MAX:
         return (f"{embeddings_other.shape[-2]} others a row, above the "
                 f"{OTHERS_MAX} at which the kernel's serial loop over them "
                 "outruns the plain steps")
-    if not all(t.is_cuda for t in tensors):
-        return "the tensors are not on a CUDA device"
-    if len({t.device for t in tensors}) != 1:
-        return "the tensors lie on more than one device"
-    return None
+    return _device_refusal(tensors)
+
+
+def wide_unsupported_reason(embeddings0, embeddings_other, scalings,
+                            scalings_other, variance, aux_mat,
+                            max_iter: int, reduce_samples=None):
+    """Why the wide kernel does not run this solve (update_embeddings'
+    arguments), or None if it does: it takes float32 or float64 rows of
+    dimension 1..DIM_MAX against more than OTHERS_MAX others, all on this
+    rank, with every tensor on one card, at any step cap."""
+    tensors = (embeddings0, embeddings_other, scalings, scalings_other,
+               aux_mat)
+    reason = _refusal(tensors, embeddings0.shape[-1], reduce_samples)
+    if reason is not None:
+        return reason
+    if embeddings_other.shape[-2] <= OTHERS_MAX:
+        return (f"{embeddings_other.shape[-2]} others a row, at most "
+                f"{OTHERS_MAX}: narrow rows are the thread kernel's or the "
+                "plain steps'")
+    return _device_refusal(tensors)
+
+
+def route(embeddings0, embeddings_other, scalings, scalings_other,
+          variance, aux_mat, max_iter: int, reduce_samples=None) -> str:
+    """The solve's route, from what the call shows: "thread" where the
+    thread kernel takes it (unsupported_reason), else "wide" where the
+    wide kernel does (wide_unsupported_reason), else "plain"."""
+    args = (embeddings0, embeddings_other, scalings, scalings_other,
+            variance, aux_mat, max_iter, reduce_samples)
+    if unsupported_reason(*args) is None:
+        return "thread"
+    if wide_unsupported_reason(*args) is None:
+        return "wide"
+    return "plain"
 
 
 def build() -> Path:
@@ -116,15 +178,23 @@ def _library():
         [integer, integer] + [pointer] * 3 + [wide] * 3 + [pointer] * 2
         + [wide] * 3 + [pointer] * 3 + [integer] * 4 + [pointer])
     lib.corrnmf_newton_launch.restype = integer
+    lib.corrnmf_newton_wide_launch.argtypes = (
+        [integer, integer] + [pointer] * 3 + [wide] * 3 + [pointer] * 2
+        + [wide] * 3 + [pointer] * 4 + [integer] * 6 + [pointer])
+    lib.corrnmf_newton_wide_launch.restype = integer
     lib.corrnmf_newton_error_string.argtypes = [integer]
     lib.corrnmf_newton_error_string.restype = ctypes.c_char_p
-    for name in ("dim_min", "dim_max", "threads"):
+    names = ("dim_min", "dim_max", "threads", "wide_threads",
+             "wide_cluster_max", "wide_cache_bytes")
+    for name in names:
         getattr(lib, f"corrnmf_newton_{name}").argtypes = []
         getattr(lib, f"corrnmf_newton_{name}").restype = integer
-    if (lib.corrnmf_newton_dim_min(), lib.corrnmf_newton_dim_max(),
-            lib.corrnmf_newton_threads()) != (_DIM_MIN, DIM_MAX, THREADS):
+    if tuple(getattr(lib, f"corrnmf_newton_{name}")() for name in names) \
+            != (_DIM_MIN, DIM_MAX, THREADS, WIDE_THREADS, WIDE_CLUSTER_MAX,
+                WIDE_CACHE_BYTES):
         raise RuntimeError("csrc/corrnmf_newton.cu and ops/cuda_corrnmf.py "
-                           "disagree on the compiled m or the threads")
+                           "disagree on the compiled m, the threads, the "
+                           "cluster or the cache")
     return lib
 
 
@@ -288,3 +358,118 @@ def solve_in_kernel(embeddings0, embeddings_other, scalings, scalings_other,
 
 
 newton_solve.launches = 0
+
+
+class WidePlan(NamedTuple):
+    """A wide launch's shape: each row on a cluster of `cluster` CTAs,
+    their slices of the others kept in shared memory where `cached`."""
+    cluster: int
+    cached: bool
+
+
+def wide_plan(rows: int, M: int, dim: int, itemsize: int,
+              sm_count: int) -> WidePlan:
+    """The cluster for `rows` rows (lanes x rows) against M others of the
+    kernel's dimension `dim`: the largest power of two up to
+    WIDE_CLUSTER_MAX with rows x cluster within the card's SMs and at
+    least 4 others a thread of every CTA; the slices cached where each
+    fits in WIDE_CACHE_BYTES."""
+    cluster = 1
+    while (cluster * 2 <= WIDE_CLUSTER_MAX
+           and rows * cluster * 2 <= sm_count
+           and M >= cluster * 2 * 4 * WIDE_THREADS):
+        cluster *= 2
+    chunk = -(-M // cluster)
+    return WidePlan(cluster, chunk * (dim + 1) * itemsize <= WIDE_CACHE_BYTES)
+
+
+def wide_newton_solve_reference(embeddings0, embeddings_other, scalings,
+                                scalings_other, variance, aux_mat,
+                                max_iter: int, xtol_total=None):
+    """Plain PyTorch version of the wide kernel: ops/corrnmf.py's loop of
+    max_iter masked _newton_step calls (early exit above
+    _UNROLL_NEWTON_LIMIT), then _clamp_away_from_zero. Returns (the rows,
+    each row's steps (..., N))."""
+    return corrnmf._newton_solve(
+        embeddings0, embeddings_other, scalings, scalings_other, variance,
+        aux_mat, max_iter, xtol_total, None,
+        int(max_iter) > corrnmf._UNROLL_NEWTON_LIMIT, row_steps=True)
+
+
+def _launch_wide(operands: Operands, max_iter: int, plan=None):
+    """One wide launch on the operands' card and current stream, by `plan`
+    (wide_plan's where None). Returns every CTA's copy of the rows (lanes
+    + (N, cluster, m)) and each row's steps (lanes + (N,), int32)."""
+    dim = operands.b0.shape[-1]
+    o = padded_dim(operands, _DIM_MIN) if dim < _DIM_MIN else operands
+    L, N, kernel_dim = o.b0.shape
+    M = o.others.shape[1]
+    if L > _MAX_LANES:
+        raise ValueError(f"{L} lanes exceed the grid's {_MAX_LANES}")
+    device = o.b0.device
+    if plan is None:
+        plan = wide_plan(L * N, M, kernel_dim, o.b0.element_size(),
+                         _sm_count(device.index))
+    copies = torch.empty((L, N, plan.cluster, kernel_dim), dtype=o.b0.dtype,
+                         device=device)
+    steps = torch.empty((L, N), dtype=torch.int32, device=device)
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = lib.corrnmf_newton_wide_launch(
+            _DTYPE_CODES[o.b0.dtype], kernel_dim, o.b0.data_ptr(),
+            o.others.data_ptr(), o.scalings.data_ptr(), *o.scalings.stride(),
+            o.scal_other.data_ptr(), o.aux.data_ptr(), *o.aux.stride(),
+            o.variance.data_ptr(), o.xtol.data_ptr(), copies.data_ptr(),
+            steps.data_ptr(), L, N, M, int(max_iter), plan.cluster,
+            int(plan.cached), stream)
+    if status != 0:
+        message = lib.corrnmf_newton_error_string(status).decode()
+        raise RuntimeError(f"corrnmf_newton_wide_launch failed ({plan}): "
+                           f"{message} ({status})")
+    wide_newton_solve.launches += 1
+    return (copies[..., :dim].reshape(o.lanes + (N, plan.cluster, dim)),
+            steps.reshape(o.lanes + (N,)))
+
+
+def solve_wide_in_kernel(embeddings0, embeddings_other, scalings,
+                         scalings_other, variance, aux_mat, max_iter: int,
+                         xtol_total=None):
+    """wide_newton_solve's launch, for a call that wide_unsupported_reason
+    has already taken: (the rows, each row's steps on the card)."""
+    copies, steps = _launch_wide(
+        kernel_operands(embeddings0, embeddings_other, scalings,
+                        scalings_other, variance, aux_mat, xtol_total),
+        max_iter)
+    return copies[..., 0, :], steps
+
+
+def wide_newton_solve(embeddings0, embeddings_other, scalings,
+                      scalings_other, variance, aux_mat, max_iter: int,
+                      xtol_total=None):
+    """The Newton solve of update_embeddings for rows with more than
+    OTHERS_MAX others (its arguments, with no reduce_samples), early exit
+    above _UNROLL_NEWTON_LIMIT steps: (the rows, clamped away from zero,
+    of the lanes' broadcast shape; each row's steps).
+
+    CPU tensors run wide_newton_solve_reference. CUDA tensors launch the
+    wide kernel on the current stream, or raise ValueError where it does
+    not take the call (wide_unsupported_reason). Each launch adds one to
+    ``wide_newton_solve.launches``."""
+    tensors = (embeddings0, embeddings_other, scalings, scalings_other,
+               aux_mat)
+    if all(t.device.type == "cpu" for t in tensors):
+        return wide_newton_solve_reference(
+            embeddings0, embeddings_other, scalings, scalings_other,
+            variance, aux_mat, max_iter, xtol_total)
+    reason = wide_unsupported_reason(embeddings0, embeddings_other, scalings,
+                                     scalings_other, variance, aux_mat,
+                                     max_iter)
+    if reason is not None:
+        raise ValueError(f"wide_newton_solve cannot launch: {reason}")
+    return solve_wide_in_kernel(embeddings0, embeddings_other, scalings,
+                                scalings_other, variance, aux_mat, max_iter,
+                                xtol_total)
+
+
+wide_newton_solve.launches = 0

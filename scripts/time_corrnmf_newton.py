@@ -1,23 +1,32 @@
 #!/usr/bin/env python3
-"""Time the unrolled CorrNMF Newton solve on one NVIDIA GPU: the kernel of
-csrc/corrnmf_newton.cu against its plain PyTorch steps, at the sample side
-of the multimodal pan-cancer cell.
+"""Time the CorrNMF Newton solve on one NVIDIA GPU: the two kernels of
+csrc/corrnmf_newton.cu against their plain PyTorch steps, at the sample
+and the signature side of the multimodal pan-cancer cell.
 
     python3 scripts/time_corrnmf_newton.py [--seed N] [--cycles C]
                                            [--out FILE]
 
-It builds the kernel (and prints ptxas's registers and spills for each
+It builds the kernels (and prints ptxas's registers and spills for each
 compiled instance), then fits best-of-8 ``MultimodalCorrNMF([6, 5])`` for
 C joint cycles on the 20,000 genomes that ``portbench/mm_inputs.py`` plants
 from the seed (the configuration of
 ``portbench/configs/pancancer_sbs_id_20k.json``) and keeps the arguments
-of the last sample-side solve: (8, 20,000) rows, M = 11 signatures, m = 6.
-On those, in float32 and cast to float64, it prints one JSON line each:
-the kernel's and the plain solve's ms per solve by CUDA events, the bytes
-bound (the rows in and out, aux and the row scalings read once, at 3.35
-TB/s), the rows whose first step took another Armijo step than the plain
-one, and the largest differences after the full 3 steps. Exits non-zero
-without a CUDA device.
+of the last sample-side solve, (8, 20,000) rows against M = 11
+signatures, and of the last signature-side solve of each modality, (8, 6)
+and (8, 5) rows against M = 20,000 samples, m = 6. On those, in float32
+and cast to float64, it prints one JSON line each. The sample side (the
+thread kernel, 3 steps): the kernel's and the plain solve's ms per solve
+by CUDA events, the bytes bound (the rows in and out, aux and the row
+scalings read once, at 3.35 TB/s), the rows whose first step took another
+Armijo step than the plain one, and the largest differences after the
+full 3 steps. The signature side (the wide kernel, early exit at 100
+steps): ms per solve and per step (over the most steps a row ran) of the
+kernel and of the plain loop, each row's steps on both, the largest
+difference, and the kernel's bound: the largest of its bytes (the others,
+their scalings and aux read once, at 3.35 TB/s), its exponentials (each
+row's steps, one pass for the rates and one candidate a step, expm1 too
+in float32, at the SFU rate of 4.18e12 a second) and its operations (at
+67 TFLOP/s). Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -32,6 +41,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 HBM_BYTES_PER_S = 3.35e12
+SFU_PER_S = 16 * 132 * 1.98e9   # exponentials a second (16 a clock an SM)
+F32_FLOP_PER_S = 67e12
 
 
 def card_line() -> str:
@@ -63,7 +74,8 @@ def ptxas_report(log: str) -> list:
 
 def capture(torch, seed: int, cycles: int):
     """The arguments of the last sample-side (unrolled) solve of a
-    best-of-8 fit of the cell's configuration."""
+    best-of-8 fit of the cell's configuration, and of the last
+    signature-side (early-exit) solve of each width of rows."""
     sys.path.insert(0, str(ROOT))
     from portbench import mm_inputs
     from salamander_tpu_torch import (
@@ -85,12 +97,14 @@ def capture(torch, seed: int, cycles: int):
         dtype="float32", device="cuda")
     mdata = MuData({name: AnnData(frame.to_numpy(copy=True))
                     for name, frame in counts.items()})
-    captured = []
+    captured, signature = [], {}
     original = corrnmf.update_embeddings
 
     def recording(*args, **kwargs):
         if kwargs.get("max_iter", 100) <= corrnmf._UNROLL_NEWTON_LIMIT:
             captured[:] = [args]
+        else:
+            signature[args[0].shape[-2]] = args
         return original(*args, **kwargs)
 
     corrnmf.update_embeddings = recording
@@ -99,7 +113,30 @@ def capture(torch, seed: int, cycles: int):
     finally:
         corrnmf.update_embeddings = original
     torch.cuda.synchronize()
-    return captured[0]
+    return captured[0], signature
+
+
+def wide_bound_ms(args, row_steps) -> tuple:
+    """(ms, what bounds it): the least time of the wide kernel's work on
+    these rows: each row's own steps, each a pass for the rates, gradient
+    and Hessian and one Armijo candidate."""
+    b, others, _, scal_other, _, aux = args
+    size = b.element_size()
+    M, m = others.shape[-2:]
+    pair_steps = int(row_steps.sum()) * M
+    n_bytes = size * (others.numel() + scal_other.numel() + aux.numel()
+                      + 2 * b.numel())
+    exps = pair_steps * (3 if b.dtype.itemsize < 8 else 2)
+    # the rates, gradient, Hessian and rate sum; a candidate's product,
+    # exponent and sum
+    flops = pair_steps * ((2 * m + 1) + 2 * m + (m + 2 * m * m) + 1
+                          + (2 * m + 3))
+    # float64 at half float32's rate outside the tensor cores
+    times = {"bytes": n_bytes / HBM_BYTES_PER_S,
+             "exponentials": exps / SFU_PER_S,
+             "operations": flops * (size // 4) / F32_FLOP_PER_S}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
 
 
 def time_ms(torch, fn, repeats: int) -> float:
@@ -158,10 +195,13 @@ def main() -> int:
           "ptxas": ptxas_report(library.with_suffix(".log").read_text())})
 
     launches = cuda_corrnmf.newton_solve.launches
-    args = capture(torch, options.seed, options.cycles)
+    wide_launches = cuda_corrnmf.wide_newton_solve.launches
+    args, signature = capture(torch, options.seed, options.cycles)
     emit({"fit_cycles": options.cycles, "seed": options.seed,
           "kernel_launches_in_fit":
               cuda_corrnmf.newton_solve.launches - launches,
+          "wide_kernel_launches_in_fit":
+              cuda_corrnmf.wide_newton_solve.launches - wide_launches,
           "shapes": [list(a.shape) if isinstance(a, torch.Tensor) else a
                      for a in args]})
     for dtype in (torch.float32, torch.float64):
@@ -185,6 +225,7 @@ def main() -> int:
                      for t in (cast[2], cast[5])) + 2 * (
             got.numel() * got.element_size())
         emit({
+            "side": "sample",
             "dtype": str(dtype).removeprefix("torch."),
             "rows": int(row_rel.numel()),
             "kernel_ms": time_ms(torch, kernel, 200),
@@ -206,6 +247,38 @@ def main() -> int:
             "plain_max_abs_err_f64": float((want.double() - exact).abs()
                                            .max()),
         })
+    for dtype in (torch.float32, torch.float64):
+        for rows, captured in sorted(signature.items(), reverse=True):
+            cast = [a.to(dtype) if isinstance(a, torch.Tensor) else a
+                    for a in captured]
+
+            def kernel():
+                return cuda_corrnmf.wide_newton_solve(*cast, 100)
+
+            def plain():
+                return cuda_corrnmf.wide_newton_solve_reference(*cast, 100)
+
+            (got, steps), (want, plain_steps) = kernel(), plain()
+            kernel_ms, plain_ms = time_ms(torch, kernel, 200), \
+                time_ms(torch, plain, 10)
+            bound_ms, bound_by = wide_bound_ms(cast, steps)
+            most, plain_most = int(steps.max()), int(plain_steps.max())
+            emit({
+                "side": "signature",
+                "dtype": str(dtype).removeprefix("torch."),
+                "rows": list(got.shape[:-1]),
+                "others": int(cast[1].shape[-2]),
+                "kernel_ms": kernel_ms,
+                "plain_ms": plain_ms,
+                "steps": most, "plain_steps": plain_most,
+                "row_steps": steps.flatten().tolist(),
+                "rows_a_step_apart": int((steps - plain_steps).ne(0).sum()),
+                "kernel_ms_per_step": kernel_ms / max(most, 1),
+                "plain_ms_per_step": plain_ms / max(plain_most, 1),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "share_of_bound": bound_ms / kernel_ms,
+                "max_abs_diff": float((got - want).abs().max()),
+            })
     if options.out:
         options.out.parent.mkdir(parents=True, exist_ok=True)
         options.out.write_text("\n".join(lines) + "\n")

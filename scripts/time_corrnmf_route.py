@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the two routes of the unrolled CorrNMF Newton solve across the
-shapes its callers give it, and fit_minibatch end to end in one or more
+"""Time the routes of the unrolled CorrNMF Newton solve across the shapes
+its callers give it, and fit_minibatch end to end in one or more
 checkouts, on one NVIDIA GPU.
 
     python3 scripts/time_corrnmf_route.py solves [--out FILE]
@@ -8,18 +8,24 @@ checkouts, on one NVIDIA GPU.
                                           [--out FILE]
 
 ``solves`` times one unrolled solve of max_iter 4 (the minibatch
-signature side's cap) by the kernel of csrc/corrnmf_newton.cu and by its
-plain PyTorch steps, by CUDA events, on random rows near their optimum:
-N rows of dimension m against M others, in float32 and float64, over M
-from 16 to 20,000. The kernel runs a thread per row, and each thread loops
-over the M others serially, so at few rows its time grows with M; the
-plain steps spread M over the card. One JSON line per shape.
+signature side's cap) by the two kernels of csrc/corrnmf_newton.cu and by
+their plain PyTorch steps, by CUDA events, on random rows near their
+optimum: N rows of dimension m against M others, in float32 and float64,
+over M from 16 to 20,000 (at one lane and 5 rows, M = 512, 4,096 and
+20,000 are the minibatch signature side at those batch sizes). The thread
+kernel runs a thread per row, and each thread loops over the M others
+serially, so at few rows its time grows with M; the wide kernel spreads a
+row's others over a CTA or a cluster; the plain steps spread them over the
+card. Each line names the route update_embeddings takes there
+(cuda_corrnmf.route), so the cut between the kernels at OTHERS_MAX is a
+measurement. One JSON line per shape.
 
 ``minibatch`` runs, in a process per checkout and then again in reverse
 order, CorrNMFDet(5, dim_embeddings=2).fit_minibatch in float32 on the
-96 x 20,000 synthetic catalog (seed 0) at batch_size 128 and at 20,000,
-and on PCAWG SBS (192 samples) at 128 and 192, after a warm-up fit, and
-prints the steps a second of each. Exits non-zero without a CUDA device.
+96 x 20,000 synthetic catalog (seed 0) at batch_size 128, 512, 4,096 and
+20,000, and on PCAWG SBS (192 samples) at 128 and 192, after a warm-up
+fit, and prints the steps a second of each. Exits non-zero without a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -38,7 +44,8 @@ OTHERS = (16, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 20_000)
 ROWS = ((1, 5), (1, 20), (8, 20))   # (lanes, rows)
 DIM = 2
 # (catalog, batch_size, steps)
-MINIBATCH_CASES = (("synthetic", 128, 400), ("synthetic", 20_000, 40),
+MINIBATCH_CASES = (("synthetic", 128, 400), ("synthetic", 512, 400),
+                   ("synthetic", 4096, 200), ("synthetic", 20_000, 40),
                    ("pcawg", 128, 400), ("pcawg", 192, 400))
 
 
@@ -102,18 +109,26 @@ def solves(out) -> None:
                 operands = cuda_corrnmf.kernel_operands(*args)
                 kernel = time_ms(torch, lambda: cuda_corrnmf._launch(
                     operands, SOLVE_STEPS))
+                wide = time_ms(torch, lambda: cuda_corrnmf._launch_wide(
+                    operands, SOLVE_STEPS))
                 plain = time_ms(torch, lambda: (
                     cuda_corrnmf.newton_solve_reference(*args,
                                                         SOLVE_STEPS)))
                 got = cuda_corrnmf._launch(operands, SOLVE_STEPS)
+                got_wide = cuda_corrnmf._launch_wide(
+                    operands, SOLVE_STEPS)[0][..., 0, :]
                 want = cuda_corrnmf.newton_solve_reference(*args,
                                                            SOLVE_STEPS)
                 line = {"dtype": str(dtype).split(".")[-1], "lanes": lanes,
                         "rows": N, "others": M, "m": DIM,
-                        "steps": SOLVE_STEPS, "kernel_ms": kernel,
+                        "steps": SOLVE_STEPS,
+                        "route": cuda_corrnmf.route(*args, SOLVE_STEPS),
+                        "kernel_ms": kernel, "wide_ms": wide,
                         "plain_ms": plain, "kernel_over_plain":
-                        kernel / plain, "max_abs_diff":
-                        float((got - want).abs().max())}
+                        kernel / plain, "wide_over_plain": wide / plain,
+                        "max_abs_diff": float((got - want).abs().max()),
+                        "wide_max_abs_diff":
+                        float((got_wide - want).abs().max())}
                 print(json.dumps(line), file=out, flush=True)
 
 
@@ -132,6 +147,10 @@ def minibatch_one(out) -> None:
         from salamander_tpu_torch.ops.cuda_corrnmf import newton_solve
     except ImportError:   # a checkout without the kernel
         newton_solve = None
+    try:
+        from salamander_tpu_torch.ops.cuda_corrnmf import wide_newton_solve
+    except ImportError:   # a checkout without the wide kernel
+        wide_newton_solve = None
 
     catalogs = {
         "synthetic": np.ascontiguousarray(sal.datasets.synthetic_catalog(
@@ -151,6 +170,7 @@ def minibatch_one(out) -> None:
         fit(name, batch_size, 5)   # warm: build, first launches
     for name, batch_size, steps in MINIBATCH_CASES:
         launches = newton_solve.launches if newton_solve else 0
+        wide = wide_newton_solve.launches if wide_newton_solve else 0
         torch.cuda.synchronize()
         start = time.perf_counter()
         fit(name, batch_size, steps)
@@ -160,8 +180,9 @@ def minibatch_one(out) -> None:
             "checkout": str(checkout), "catalog": name,
             "batch_size": batch_size, "steps": steps, "seconds": seconds,
             "steps_per_s": steps / seconds, "kernel_launches":
-            (newton_solve.launches - launches) if newton_solve else None}),
-            file=out, flush=True)
+            (newton_solve.launches - launches) if newton_solve else None,
+            "wide_kernel_launches": (wide_newton_solve.launches - wide)
+            if wide_newton_solve else None}), file=out, flush=True)
 
 
 def main() -> int:

@@ -1009,3 +1009,236 @@ def test_newton_kernel_refuses_what_it_does_not_take(cuda_device):
         cuda_corrnmf.newton_solve(*args, 5)
     with pytest.raises(ValueError, match="one dtype"):
         cuda_corrnmf.newton_solve(args[0].double(), *args[1:], 3)
+
+
+# ---- the wide CorrNMF Newton solve (a CTA or a cluster a row) ----
+
+
+def wide_solve_args(device, dtype, lanes=8, N=6, M=20_000, m=6, seed=0):
+    """update_embeddings' arguments of the multimodal signature side at the
+    pan-cancer cell's shape: (lanes, N) signature rows against M sample
+    embeddings, one scaling a signature, aux (lanes, N, M) counts. Each
+    lane starts at its own distance from the truth (0.05 to 0.8), so that
+    rows stop at different steps."""
+    rng = np.random.default_rng(seed)
+    other = rng.normal(0.0, 0.5, (lanes, M, m))
+    truth = rng.normal(0.0, 0.5, (lanes, N, m))
+    row_scal = rng.normal(-1.5, 0.5, (lanes, N))
+    other_scal = rng.normal(4.0, 1.0, (lanes, M))
+    rates = np.exp(row_scal[..., None] + other_scal[:, None, :]
+                   + truth @ np.swapaxes(other, -1, -2))
+    aux = rng.poisson(rates).astype(np.float64)
+    spread = np.linspace(0.05, 0.8, lanes)[:, None, None]
+    start = truth + spread * rng.normal(0.0, 1.0, truth.shape)
+    variance = rng.uniform(0.2, 0.4, lanes)
+
+    def card(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    return (card(start), card(other), card(row_scal), card(other_scal),
+            card(variance), card(aux))
+
+
+def assert_wide_held(got, want, xtol):
+    """The kernel's solve against the plain one: each row's entries within
+    rtol (2e-4 in float32, as the other kernels; 1e-9 in float64) plus an
+    absolute term of the row's stop threshold. A row whose sums round the
+    other way may stop one step apart, and a step that leaves it done
+    moves it by less than the threshold, summed."""
+    rows, row_steps = got
+    want_rows, want_steps = want
+    assert torch.isfinite(rows).all()
+    rtol = 2e-4 if rows.dtype == torch.float32 else 1e-9
+    threshold = torch.as_tensor(xtol, dtype=rows.dtype, device=rows.device)
+    while threshold.dim() < rows.dim():
+        threshold = threshold.unsqueeze(-1)
+    excess = (rows - want_rows).abs() - rtol * want_rows.abs() - threshold
+    apart = (row_steps.long() - want_steps.long()).abs()
+    print(f"wide {rows.dtype}: steps {int(row_steps.min())}-"
+          f"{int(row_steps.max())} (plain {int(want_steps.min())}-"
+          f"{int(want_steps.max())}), {int(apart.gt(0).sum())} of "
+          f"{apart.numel()} rows a step apart; largest difference "
+          f"{float((rows - want_rows).abs().max()):.3g}")
+    assert float(excess.max()) <= 0.0
+    assert int(apart.max()) <= 1
+    assert abs(int(row_steps.max()) - int(want_steps.max())) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("N", [6, 5])
+def test_wide_kernel_at_the_cell_shape(cuda_device, dtype, N):
+    """(8, N) signature rows against 20,000 samples, m = 6, the early-exit
+    cap of 100 with a per-lane stop threshold (0.1 to 10 times m * XTOL):
+    the launch (counted) against the plain loop, rows and step counts."""
+    from salamander_tpu_torch.ops import cuda_corrnmf
+    from salamander_tpu_torch.ops.corrnmf import XTOL
+
+    args = wide_solve_args(cuda_device, dtype, N=N)
+    xtol = 6 * XTOL * torch.logspace(-1, 1, 8, dtype=dtype,
+                                     device=cuda_device)
+    launches = cuda_corrnmf.wide_newton_solve.launches
+    got = cuda_corrnmf.wide_newton_solve(*args, 100, xtol)
+    assert cuda_corrnmf.wide_newton_solve.launches == launches + 1
+    want = cuda_corrnmf.wide_newton_solve_reference(*args, 100, xtol)
+    assert int(got[1].min()) < int(got[1].max())  # rows stop apart
+    assert_wide_held(got, want, xtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lanes, N, M, m, max_iter", [
+    (1, 5, 512, 2, 4),      # a minibatch signature side, unrolled
+    (1, 5, 4096, 2, 4),
+    (2, 3, 300, 1, 100),    # m = 1 at two columns, just above OTHERS_MAX
+    (30, 10, 2000, 10, 100),  # the largest m; rows fill the SMs (C = 1)
+])
+def test_wide_kernel_shapes(cuda_device, dtype, lanes, N, M, m, max_iter):
+    from salamander_tpu_torch.ops import cuda_corrnmf
+    from salamander_tpu_torch.ops.corrnmf import XTOL
+
+    args = wide_solve_args(cuda_device, dtype, lanes=lanes, N=N, M=M, m=m,
+                           seed=M)
+    got = cuda_corrnmf.wide_newton_solve(*args, max_iter)
+    want = cuda_corrnmf.wide_newton_solve_reference(*args, max_iter)
+    assert_wide_held(got, want, m * XTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_wide_kernel_two_launches_are_bit_equal(cuda_device, dtype):
+    from salamander_tpu_torch.ops import cuda_corrnmf
+
+    args = wide_solve_args(cuda_device, dtype, N=5, seed=2)
+    first = cuda_corrnmf.wide_newton_solve(*args, 100)
+    second = cuda_corrnmf.wide_newton_solve(*args, 100)
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("cluster, cached", [(2, False), (4, False),
+                                             (8, False), (8, True)])
+def test_wide_kernel_cluster_ctas_agree(cuda_device, dtype, cluster,
+                                        cached):
+    """Every CTA of a row's cluster reads the partial sums in the same
+    order, so every CTA takes the same directions, candidates and stop:
+    their copies of the row are bit-equal, and equal to the plain solve's
+    within assert_wide_held's limits."""
+    from salamander_tpu_torch.ops import cuda_corrnmf
+    from salamander_tpu_torch.ops.corrnmf import XTOL
+
+    args = wide_solve_args(cuda_device, dtype, lanes=2, N=3, seed=3)
+    operands = cuda_corrnmf.kernel_operands(*args)
+    copies, steps = cuda_corrnmf._launch_wide(
+        operands, 100, cuda_corrnmf.WidePlan(cluster, cached))
+    assert copies.shape == (2, 3, cluster, 6)
+    for rank in range(1, cluster):
+        assert torch.equal(copies[..., rank, :], copies[..., 0, :])
+    want = cuda_corrnmf.wide_newton_solve_reference(*args, 100)
+    assert_wide_held((copies[..., 0, :], steps), want, 6 * XTOL)
+
+
+@pytest.mark.cuda
+def test_wide_kernel_floor_rows(cuda_device):
+    """Rows whose Hessian fails to factor and take the diagonal floor, one
+    step in float64 at the cell's shape (8 x 6 rows, 20,000 others, m =
+    6): 10,000 others at o = (2, 1, 1, 1, 1, 1) and 10,000 at 0, zero
+    scalings and start and an infinite variance, so every rate is 1 and
+    the Hessian exactly 10,000 o o^T, whose second pivot is exactly 0 in
+    any order of the sums (integers). The floored system's condition is
+    about 1e7, so the two solves agree to 1e-7 (float64's 1.1e-16 times
+    it, with room), as the thread kernel's floor rows do."""
+    from salamander_tpu_torch.ops import cuda_corrnmf
+
+    rng = np.random.default_rng(5)
+    lanes, N, M, m = 8, 6, 20_000, 6
+    dtype = torch.float64
+
+    def card(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=cuda_device)
+
+    other = np.zeros((lanes, M, m))
+    other[:, : M // 2] = [2.0, 1.0, 1.0, 1.0, 1.0, 1.0]
+    aux = rng.poisson(rng.uniform(0.5, 4.0, (lanes, N, M)))
+    args = (card(np.zeros((lanes, N, m))), card(other),
+            card(np.zeros((lanes, N))), card(np.zeros((lanes, M))),
+            card(np.full(lanes, np.inf)), card(aux))
+    hess = card(np.broadcast_to(M // 2 * np.outer(other[0, 0], other[0, 0]),
+                                (lanes, N, m, m)))
+    assert torch.linalg.cholesky_ex(hess).info.ne(0).all()
+    rows, steps = cuda_corrnmf.wide_newton_solve(*args, 1)
+    want, want_steps = cuda_corrnmf.wide_newton_solve_reference(*args, 1)
+    assert torch.isfinite(rows).all() and steps.eq(1).all()
+    torch.testing.assert_close(rows, want, rtol=1e-7, atol=0)
+    assert torch.equal(steps, want_steps)
+
+
+@pytest.mark.cuda
+def test_wide_kernel_refuses_what_it_does_not_take(cuda_device):
+    """A launch whose cached slice outgrows shared memory (one CTA holding
+    20,000 others of 7 float32 values, 560 KB) is refused and raises; so
+    do narrow rows, and the thread kernel keeps its own refusals."""
+    from salamander_tpu_torch.ops import cuda_corrnmf
+
+    args = wide_solve_args(cuda_device, torch.float32, lanes=1, N=2)
+    operands = cuda_corrnmf.kernel_operands(*args)
+    launches = cuda_corrnmf.wide_newton_solve.launches
+    with pytest.raises(RuntimeError, match="corrnmf_newton_wide_launch"):
+        cuda_corrnmf._launch_wide(operands, 100,
+                                  cuda_corrnmf.WidePlan(1, True))
+    assert cuda_corrnmf.wide_newton_solve.launches == launches
+    narrow = wide_solve_args(cuda_device, torch.float32, lanes=1, N=2,
+                             M=cuda_corrnmf.OTHERS_MAX)
+    with pytest.raises(ValueError, match="narrow rows"):
+        cuda_corrnmf.wide_newton_solve(*narrow, 100)
+    with pytest.raises(ValueError, match="others a row, above"):
+        cuda_corrnmf.newton_solve(*args, 3)
+
+
+@pytest.mark.cuda
+def test_wide_kernel_takes_the_multimodal_signature_side(cuda_device):
+    """A MultimodalCorrNMF fit of 10 cycles on the card: every
+    signature-side solve (two a cycle, 2,000 samples a row) runs in the
+    wide kernel and every sample-side one in the thread kernel; while
+    recording, the steps are read once a signature solve, and the fit's
+    ELBOs are finite."""
+    from salamander_tpu_torch import (
+        AnnData,
+        MuData,
+        MultimodalCorrNMF,
+        datasets,
+        profiling,
+    )
+    from salamander_tpu_torch.ops import cuda_corrnmf
+
+    sbs = datasets.synthetic_catalog(96, 2000, 4, seed=1).T
+    indel = datasets.synthetic_catalog(83, 2000, 3, seed=2).T
+    mdata = MuData({"sbs": AnnData(np.asarray(sbs, np.float64)),
+                    "indel": AnnData(np.asarray(indel, np.float64))})
+    model = MultimodalCorrNMF(ns_signatures=[4, 3], init_method="random",
+                              min_iterations=10, max_iterations=10,
+                              conv_test_freq=5, dtype="float32",
+                              device="cuda")
+    before = dict(profiling.counters)
+    wide = cuda_corrnmf.wide_newton_solve.launches
+    thread = cuda_corrnmf.newton_solve.launches
+    with profiling.recording():
+        model.fit(mdata, init_kwargs={"seed": 3})
+    torch.cuda.synchronize()
+
+    def added(name):
+        return profiling.counters.get(name, 0) - before.get(name, 0)
+
+    assert added("corrnmf.newton_solves_wide") == 20
+    assert added("corrnmf.newton_solves_wide_in_kernel") == 20
+    assert cuda_corrnmf.wide_newton_solve.launches - wide == 20
+    assert cuda_corrnmf.newton_solve.launches - thread == 10
+    assert added("corrnmf.newton_solves_in_kernel") == 10
+    assert added("ops.host_syncs") >= 20
+    assert 20 <= added("corrnmf.newton_steps.signature") <= 2000
+    elbos = model.history["objective_function"]
+    assert len(elbos) >= 2 and np.isfinite(elbos).all()

@@ -421,6 +421,125 @@ def test_cpu_unrolled_solve_runs_the_plain_steps(lanes):
     assert cuda_corrnmf.newton_solve.launches == launches
 
 
+WIDE = cuda_corrnmf.OTHERS_MAX + 1
+
+
+@pytest.mark.parametrize("change, route", [
+    ({}, "thread"),                                  # the sample side
+    ({"M": cuda_corrnmf.OTHERS_MAX}, "thread"),
+    ({"M": WIDE}, "wide"),                           # unrolled, wide rows
+    ({"M": WIDE, "max_iter": 100}, "wide"),          # the signature side
+    ({"M": 2000, "max_iter": 100, "dtype": torch.float32}, "wide"),
+    ({"M": WIDE, "m": 1, "max_iter": 100}, "wide"),
+    ({"max_iter": 100}, "plain"),                    # narrow early exit
+    ({"M": cuda_corrnmf.OTHERS_MAX, "max_iter": 100}, "plain"),
+    ({"m": cuda_corrnmf.DIM_MAX + 1}, "plain"),
+    ({"M": WIDE, "m": cuda_corrnmf.DIM_MAX + 1, "max_iter": 100}, "plain"),
+    ({"M": WIDE, "max_iter": 100, "dtype": torch.float16}, "plain"),
+    ({"dtype": torch.bfloat16}, "plain"),
+    ({"reduce_samples": lambda *parts: parts}, "plain"),
+    ({"M": WIDE, "max_iter": 100, "reduce_samples": lambda *parts: parts},
+     "plain"),
+])
+def test_route_by_what_the_call_shows(change, route, monkeypatch):
+    """cuda_corrnmf.route picks each solve's route from its rows' width,
+    its step cap, dtype, m and reduce_samples, as if the tensors lay on a
+    card (its device check stubbed); on the CPU every solve is plain."""
+    args = solve_args(M=change.get("M", 5), m=change.get("m", 3),
+                      dtype=change.get("dtype", torch.float64))
+    call = (*args, change.get("max_iter", 3), change.get("reduce_samples"))
+    assert cuda_corrnmf.route(*call) == "plain"
+    monkeypatch.setattr(cuda_corrnmf, "_device_refusal", lambda t: None)
+    assert cuda_corrnmf.route(*call) == route
+
+
+@pytest.mark.parametrize("change, reason", [
+    ({}, "not on a CUDA device"),
+    ({"max_iter": 100}, "not on a CUDA device"),
+    ({"M": cuda_corrnmf.OTHERS_MAX}, "narrow rows"),
+    ({"reduce_samples": lambda *parts: parts}, "reduce_samples"),
+    ({"m": cuda_corrnmf.DIM_MAX + 1}, "outside the compiled"),
+    ({"dtype": torch.float16}, "float32 or float64"),
+])
+def test_wide_kernel_route_refusals(change, reason):
+    """Each refusal of the wide kernel names its reason (CPU tensors, the
+    last check, show it on the CPU): it takes any step cap, but only rows
+    with more than OTHERS_MAX others."""
+    args = solve_args(m=change.get("m", 3), M=change.get("M", WIDE),
+                      dtype=change.get("dtype", torch.float64))
+    found = cuda_corrnmf.wide_unsupported_reason(
+        *args, change.get("max_iter", 3), change.get("reduce_samples"))
+    assert reason in found
+
+
+@pytest.mark.parametrize("rows, M, dim, itemsize, plan", [
+    (48, 20_000, 6, 4, (2, False)),    # the cell's SBS signature side
+    (40, 20_000, 6, 4, (2, False)),    # its ID side
+    (48, 20_000, 6, 8, (2, False)),
+    (5, 4096, 2, 4, (4, True)),        # a minibatch signature side
+    (5, 20_000, 2, 4, (8, True)),
+    (5, 512, 2, 8, (1, True)),         # too few others to split
+    (300, 20_000, 6, 4, (1, False)),   # rows enough for every SM
+    (1, 200_000, 10, 8, (8, False)),
+])
+def test_wide_plan(rows, M, dim, itemsize, plan):
+    """The wide launch's cluster fills the SMs (132 on an H100) with rows x
+    cluster, at least 4 others a thread a CTA, and its slices are cached
+    in shared memory where they fit."""
+    assert tuple(cuda_corrnmf.wide_plan(rows, M, dim, itemsize, 132)) == plan
+
+
+@pytest.mark.parametrize("N", [5, 6])
+def test_cpu_wide_solve_counts_its_steps(N):
+    """A wide signature-side solve (M = 2,000 samples a row, 2 lanes, m =
+    6, a per-lane stop threshold) on the CPU runs the plain early-exit
+    loop: counted as a wide solve and none in the kernel, no launch, one
+    done read a step, and corrnmf.newton_steps.signature adds the most
+    steps any row of any lane ran, as the wide kernel's route reads them;
+    the rows stop at different steps, and wide_newton_solve's CPU route
+    equals the plain loop bit for bit."""
+    args = solve_args((2,), N=N, M=2000, m=6, seed=N)
+    xtol = torch.tensor([6e-5, 6e-4], dtype=torch.float64)
+    launches = cuda_corrnmf.wide_newton_solve.launches
+    before = dict(profiling.counters)
+    got = T.update_embeddings(*args, max_iter=100, xtol_total=xtol)
+
+    added = {name: profiling.counters.get(name, 0) - before.get(name, 0)
+             for name in ("corrnmf.newton_solves_wide",
+                          "corrnmf.newton_solves_wide_in_kernel",
+                          "corrnmf.newton_solves_in_kernel",
+                          "corrnmf.newton_solves.signature",
+                          "corrnmf.newton_steps.signature",
+                          "ops.host_syncs")}
+    rows, row_steps = cuda_corrnmf.wide_newton_solve(*args, 100, xtol)
+    assert cuda_corrnmf.wide_newton_solve.launches == launches
+    assert torch.equal(got, rows)
+    assert row_steps.shape == (2, N)
+    assert int(row_steps.min()) < int(row_steps.max())
+    assert added == {"corrnmf.newton_solves_wide": 1,
+                     "corrnmf.newton_solves_wide_in_kernel": 0,
+                     "corrnmf.newton_solves_in_kernel": 0,
+                     "corrnmf.newton_solves.signature": 0,  # not unrolled
+                     "corrnmf.newton_steps.signature": int(row_steps.max()),
+                     "ops.host_syncs": int(row_steps.max())}
+    plain, steps = T._newton_solve(*args, 100, xtol, None, True)
+    assert torch.equal(got, plain) and steps == int(row_steps.max())
+
+
+def test_wide_solve_matches_the_jax_package():
+    """The plain wide solve (5 rows against 2,000 others, m = 6, early
+    exit) equals the JAX package's update_embeddings at float64: rtol
+    1e-10 with the stop threshold above the rounding band, as
+    test_update_embeddings_to_convergence sets it, and 1e-6 at the
+    default threshold."""
+    args = solve_args(N=5, M=2000, m=6, seed=11)
+    arrays = [a.numpy() if isinstance(a, torch.Tensor) else a for a in args]
+    for xtol in (6 * 1e-3, None):
+        got = T.update_embeddings(*args, max_iter=100, xtol_total=xtol)
+        want = J.update_embeddings(*arrays, max_iter=100, xtol_total=xtol)
+        close(got, want, rtol=RTOL if xtol else 1e-6)
+
+
 def first_passing(passes):
     """The sequential search: the first t = 2^0, 2^-1, ... whose test
     passes, 2^-40 accepted regardless (the kernel's loop)."""
