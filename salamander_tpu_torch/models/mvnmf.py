@@ -5,8 +5,10 @@ Hyperparameters lam/delta; each iteration is the H update, then the W
 update with a backtracking line search whose step scale gamma persists
 across iterations (reset to 1.0 per fit, carried through the engine as
 params["gamma"]). No kernel: the iteration runs as plain PyTorch ops, with
-one host sync per line-search trial (ops/mvnmf.py). fit(mesh=) shards the
-sample axis (the sums over D through ops/mvnmf.py's reduce_samples).
+one host sync per line-search round (ops/mvnmf.py); below float64 a trial
+is accepted by its change of the objective, summed term by term.
+fit(mesh=) shards the sample axis (the sums over D through ops/mvnmf.py's
+reduce_samples).
 """
 
 from __future__ import annotations
@@ -105,13 +107,14 @@ class MvNMF(StandardNMF):
             H = klnmf_ops.update_H(X, params["W"], params["H"])
             if freeze_W:
                 return {"W": params["W"], "H": H, "gamma": params["gamma"]}
-            W_unconstrained, objective = ops.w_step_and_objective(
+            W_unconstrained, objective, WH = ops.w_step_and_objective(
                 X, params["W"], H, lam, delta, n_given, reduce_samples
             )
             W, H, gamma = ops.line_search(
                 X, params["W"], H, lam, delta, params["gamma"],
                 W_unconstrained, trial_batch=trial_batch,
                 reduce_samples=reduce_samples, prev_objective=objective,
+                start_product=WH,
             )
             return {"W": W, "H": H, "gamma": gamma}
 

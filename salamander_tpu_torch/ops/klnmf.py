@@ -37,7 +37,11 @@ def kl_divergence(X, W, H, weights=None):
 
     Terms with X==0 contribute only their +WH part (the x ln x limit).
     """
-    WH = omm(W, H)
+    return kl_of_product(X, omm(W, H), weights)
+
+
+def kl_of_product(X, WH, weights=None):
+    """kl_divergence of X against the product WH already formed."""
     nonzero = X != 0
     safe_ratio = torch.where(nonzero, X / torch.where(nonzero, WH, 1.0), 1.0)
     summands = torch.where(nonzero, X * torch.log(safe_ratio) - X, 0.0) + WH

@@ -419,6 +419,7 @@ def _lanes_cap(X, n_restarts: int, buffers: int) -> int:
     return max(n_restarts, int(_LANE_BUDGET_BYTES / per_lane))
 
 
+@profiling.entry("restarts.rank_scan")
 def rank_scan_klnmf(
     X,
     n_signatures_range,
@@ -460,6 +461,9 @@ def rank_scan_klnmf(
     lane-compacting driver. Under a `mesh` (every rank calls) each call's
     lanes and samples are sharded as in fit_klnmf_restarts; the mesh's
     ways must divide n_restarts and the samples.
+
+    Spans (profiling.py): a scan is one call, ``restarts.rank_scan``; each
+    rank's fit_klnmf_restarts is its span ``restarts.fit`` within it.
     """
     config = config or FitConfig()
     device = resolve_device(device)
@@ -520,6 +524,7 @@ def rank_scan_klnmf(
                         _lanes_cap(X, n_restarts, 3), run, gamma=False)
 
 
+@profiling.entry("restarts.rank_scan")
 def rank_scan_mvnmf(
     X,
     n_signatures_range,
@@ -551,7 +556,8 @@ def rank_scan_mvnmf(
     rank_scan_klnmf. Losses MINIMIZE (KL + lam * volume). Under a `mesh`
     (every rank calls) each call's lanes and samples are sharded as in
     rank_scan_klnmf (the JAX package's restart_sharding): the mesh's ways
-    must divide n_restarts and the samples.
+    must divide n_restarts and the samples. A scan is one call of the
+    program's record, ``restarts.rank_scan`` (profiling.py).
     """
     config = config or FitConfig()
     device = resolve_device(device)

@@ -182,8 +182,8 @@ def test_masked_twins_equal_the_rank_k_values(X, k, Kp):
                                              mask).numpy(),
         per_lane(lambda w, h: jax_mvnmf.kl_divergence_penalized(
             X, w, h, LAM, DELTA), W, H), rtol=RTOL)
-    W_unc, objective = mvnmf.w_step_and_objective(Xt, W_pad, H_pad, LAM,
-                                                  DELTA, mask=mask)
+    W_unc, objective, _ = mvnmf.w_step_and_objective(Xt, W_pad, H_pad, LAM,
+                                                     DELTA, mask=mask)
     np.testing.assert_allclose(
         objective.numpy(),
         per_lane(lambda w, h: jax_mvnmf.kl_divergence_penalized(
